@@ -1,0 +1,48 @@
+"""tpusky_torch — the PyTorch/CUDA port of tpusky, a differentiable
+renderer built around a Hosek-Wilkie sun+sky environment emitter.
+
+The JAX package `tpusky` is the reference; each module here has its
+counterpart at the same relative path. Plain tensor code runs on any
+device; on a CUDA device the sunsky lookups and the direct-illumination
+frame run hand-written kernels (`ops/cuda`, sources in `csrc`), built
+with nvcc at first use.
+
+Quick start (sky-dome evaluation)::
+
+    import tpusky_torch as tt
+    params = tt.make_params(turbidity=3.0, albedo=0.3,
+                            sun_direction=[0.3, 0.2, 0.93], device="cuda")
+    state = tt.sunsky_precompute(params)
+    rgb = tt.sunsky_eval(state, directions)        # (..., 3) radiance
+
+See `tpusky_torch.render.integrator.render` for the scene renderer.
+"""
+
+from .models.sunsky import constants as sunsky_constants
+from .models.sunsky import model as _sunsky_model
+from .models.sunsky.model import (SunskyParams, SunskyState, make_params,
+                                  pdf_direction, precompute,
+                                  sample_direction)
+from .models.sunsky.tables import load_tables
+
+__version__ = "0.1.0"
+
+
+def sunsky_precompute(params: SunskyParams, mode: str = "rgb") -> SunskyState:
+    """Derive the evaluation state (tables interpolated at the parameters)
+    on the parameters' device."""
+    tables = load_tables(mode, device=params.turbidity.device)
+    return precompute(tables, params, mode)
+
+
+def sunsky_eval(state: SunskyState, directions, mode: str = "rgb"):
+    """Radiance toward `directions` (unit vectors, +z up, pointing at the
+    sky) -> (..., 3); kernel K1 on a CUDA device."""
+    return _sunsky_model.eval(state, directions, mode=mode)
+
+
+__all__ = [
+    "SunskyParams", "SunskyState", "load_tables", "make_params",
+    "pdf_direction", "precompute", "sample_direction", "sunsky_constants",
+    "sunsky_eval", "sunsky_precompute",
+]

@@ -1,0 +1,46 @@
+"""Environment emitter: the sunsky sky dome (the sunsky part of
+`tpusky/render/emitters.py`).
+
+Directions here are world-space; the sunsky state's local frame is
+reached through the scene's `env_to_world` rotation. `plain=True` runs
+the sunsky model's plain versions instead of kernels K1-K3 (the
+reference the kernels and the megakernel are held against).
+"""
+
+from __future__ import annotations
+
+from ..models.sunsky import model as sunsky
+from ..ops.math import mat3_apply, mat3_apply_t
+
+
+def _check(env):
+    if not isinstance(env, sunsky.SunskyState):
+        raise NotImplementedError(f"environment {type(env).__name__}")
+
+
+def env_eval(env, d_world, env_to_world, mode="rgb", plain=False):
+    """Environment radiance toward world direction d (pointing at the sky)."""
+    _check(env)
+    return sunsky.eval(env, mat3_apply_t(env_to_world, d_world), mode=mode,
+                       plain=plain)
+
+
+def env_eval_pdf(env, d_world, env_to_world, mode="rgb",
+                 pdf_detached=False, plain=False):
+    """(radiance, solid-angle pdf) toward d_world: the emitter-hit MIS
+    block (kernel K2 for CUDA tensors)."""
+    _check(env)
+    return sunsky.eval_pdf(env, mat3_apply_t(env_to_world, d_world),
+                           mode=mode, pdf_detached=pdf_detached, plain=plain)
+
+
+def env_sample_eval(env, env_to_world, sample2, mode="rgb",
+                    pdf_detached=False, plain=False):
+    """Importance-sample a world direction and evaluate its radiance + pdf:
+    the NEE block (kernel K3 for CUDA tensors). The direction comes back
+    detached (sample placement)."""
+    _check(env)
+    d_local, rad, pdf = sunsky.sample_eval(env, sample2, mode=mode,
+                                           pdf_detached=pdf_detached,
+                                           plain=plain)
+    return mat3_apply(env_to_world, d_local).detach(), rad, pdf
