@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -7,17 +7,30 @@ Run from the repository root with no arguments:
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the four kernels from tpusky_torch/csrc with nvcc;
-3. K1-K3 against their plain PyTorch versions at 2,097,152 lanes;
-4. the main path: precompute the headline sunsky, evaluate the sky dome
-   (K1), render the headline scene (512x512, 8 spp, depth 2) through
+2. build: compile the kernels from tpusky_torch/csrc with nvcc;
+3. K1-K3 against their plain PyTorch versions at 2,097,152 lanes, and the
+   adjoints K5 and K6 against autograd of the same plain versions: table
+   cotangents, K5's per-lane direction cotangent, and the cotangents
+   pulled back through precompute to (turbidity, albedo, sun direction);
+4. the forward main path: precompute the headline sunsky, evaluate the sky
+   dome (K1), render the headline scene (512x512, 8 spp, depth 2) through
    `render` (K4), and render it again through the wavefront `render_rows`
    (K2, K3); every kernel's launch count must rise, the image must be
    finite and non-zero, and K4 must agree with the plain wavefront path
    lane by lane and per image, on the card and against the CPU on a small
    frame;
-5. times of each kernel and its plain version (CUDA events);
-6. one JSON line of kernel results, then the device line, last.
+5. the gradient main path: `bench.py::bench_grad`'s loss (512x512, 4 spp,
+   mean(img^2), gradients to turbidity, albedo and sun direction through
+   precompute) through `render_rows` (K2, K3 forward; K5, K6 backward) and
+   through `render` (K4 forward, the wavefront replayed backward), then
+   five training steps of `make_train_step_single` (512x512, 8 spp,
+   log_l2_blur, Adam); K2-K6 must launch, the two gradients must agree,
+   and the steps must lower the loss and raise turbidity toward the
+   target's. The kernel path's gradient is then held against the plain
+   path's on the card;
+6. times of each kernel and its plain version (CUDA events), the
+   fwd+bwd rate of bench_grad, a training step's time and peak memory;
+7. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -35,11 +48,41 @@ import numpy as np
 N_LANES = 1 << 21           # bench.py's 2M-lane sunsky eval
 H = W = 512                 # bench.py::bench_path
 SPP = 8
+GRAD_SPP = 4                # bench.py::bench_grad
 MAX_DEPTH = 2
 SEED = 1
 SUN = [0.3, 0.2, 0.93]
+TRAIN_STEPS = 5
 # the allowed share of lanes outside a per-lane bar of phase 3
 LANE_CAP = 1e-5
+# the share of lanes whose direction cotangent may miss its bar: a lane
+# one ulp from the disc surrogate's ramp clamp flips between a derivative
+# of 2 / (1 - cos_cut) and 0
+DD_CAP = 1e-4
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 operations/s
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+# FP32 operations per lane, counted from the CUDA sources with +, -, *
+# at 1, a division or sqrtf at 4, expf 8, sinf/cosf/cbrtf/erff 12,
+# asinf/acosf 14, atan2f/erfinvf 20, and compares, selects and integer
+# work at 0 (tsk:: functions of tpusky_torch/csrc/sunsky_core.cuh)
+OPS = {
+    "radiance": 305,      # radiance(), an above-horizon lane
+    "radiance_sun": 216,  # + its sun polynomial, a lane inside the disc
+    "pdf": 554,           # mixture_pdf(), an active lane (20 gaussians)
+    "sample_sky": 170,    # nee_sample(), TGMM branch
+    "sample_sun": 75,     # nee_sample(), cone branch
+    "vjp": 1295,          # radiance_vjp(), an above-horizon lane
+    "vjp_sun": 432,       # + the sun row's cotangents, a lane in the disc
+    "path": 830,          # K4's own work per camera hit besides the sunsky
+                          # cores: ray generation, 3 x 3 shape tests, BSDF
+                          # eval and sample, frames, MIS
+    "miss": 250,          # K4's own work for a camera ray that misses
+}
+TABLE_BYTES = 4 * (27 + 3 + 45 * 72 + 16)
+GAUSS_BYTES = 4 * 14 * 20
+ROW_BYTES = 4 * (45 * 72 + 46)      # the adjoints' cotangent row
 
 
 def _card_line():
@@ -54,14 +97,26 @@ def _rel(a, b, floor):
     return (a - b).abs() / (b.abs() + floor)
 
 
-def _count_outside(name, err, bar, n):
+def _scale_err(a, b):
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _count_outside(name, err, bar, n, cap=LANE_CAP):
     bad = int((err > bar).sum())
-    cap = int(LANE_CAP * n)
-    print(f"check {name}: {bad} of {n} lanes outside {bar:g} (cap {cap}), "
+    limit = int(cap * n)
+    print(f"check {name}: {bad} of {n} lanes outside {bar:g} (cap {limit}), "
           f"max {float(err.max()):.3e}")
-    if bad > cap:
+    if bad > limit:
         raise AssertionError(f"{name}: {bad} lanes outside {bar:g}")
     return bad
+
+
+def _check_scale(name, a, b, bar):
+    err = _scale_err(a, b)
+    print(f"check {name}: {err:.3e} of its scale (bar {bar:g})")
+    if not err <= bar:
+        raise AssertionError(f"{name}: {err:.3e} > {bar:g}")
 
 
 def _time_ms(fn, reps=10, warmup=2):
@@ -89,6 +144,13 @@ def _pair_ms(kernel, plain, reps=10):
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
 
 
+def _bound(nbytes, ops):
+    """(bound ms, what bounds it) at the card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def _headline_scene(state, device):
     """bench.py's headline scene: a diffuse sphere on a diffuse ground
     rectangle under the sunsky, seen by a 45-degree perspective camera."""
@@ -107,6 +169,49 @@ def _headline_scene(state, device):
     return scene, sensor
 
 
+def _leaf_params(dev):
+    """The headline parameters, every field a leaf that requires grad."""
+    import tpusky_torch as tt
+    p = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
+                       device=dev)
+    return p._replace(**{f: getattr(p, f).detach().clone().requires_grad_()
+                         for f in p._fields})
+
+
+def _adjoint_check(name, out_k, out_p, g, state, params, lanes_k=(),
+                   lanes_p=(), misc_bar=1e-3):
+    """Hold an adjoint kernel's cotangents against autograd of the plain
+    version: the tables it writes (sky params, sky radiance, sun), the
+    misc row pulled back to its state sources, each within 1e-3 of the
+    table's largest plain cotangent (misc within `misc_bar`); (turbidity,
+    albedo) within 1e-3 and the sun direction within 3e-2, relative.
+    Returns (max abs error of the kernel's table cotangents, per-lane
+    cotangents of kernel and plain)."""
+    import torch
+    tables = [state.sky_params, state.sky_radiance, state.sun_radiance]
+    misc = [state.sun_frame_n, params.sun_half_aperture, params.sky_scale,
+            params.sun_scale, params.disc_softness]
+    pars = [params.turbidity, params.albedo, params.sun_direction]
+    wrt = tables + misc + pars
+    gk = torch.autograd.grad(out_k, wrt + list(lanes_k), g,
+                             retain_graph=True)
+    gp = torch.autograd.grad(out_p, wrt + list(lanes_p), g,
+                             retain_graph=True)
+    for i, t in enumerate(("skyp", "skyr", "sun")):
+        _check_scale(f"{name} d{t}", gk[i], gp[i], 1e-3)
+    flat = slice(3, 3 + len(misc))
+    _check_scale(f"{name} dmisc (at its state sources)",
+                 torch.cat([x.reshape(-1) for x in gk[flat]]),
+                 torch.cat([x.reshape(-1) for x in gp[flat]]), misc_bar)
+    n_wrt = len(wrt)
+    for i, (t, bar) in enumerate((("turbidity", 1e-3), ("albedo", 1e-3),
+                                  ("sun_direction", 3e-2))):
+        _check_scale(f"{name} d{t} through precompute",
+                     gk[n_wrt - 3 + i], gp[n_wrt - 3 + i], bar)
+    err = max(float((a - b).abs().max()) for a, b in zip(gk[:3], gp[:3]))
+    return err, gk[n_wrt:], gp[n_wrt:]
+
+
 def main():
     import torch
     # ---- 1. device ----
@@ -114,12 +219,16 @@ def main():
         raise RuntimeError("chip_smoke needs a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import tpusky_torch as tt
+    from tpusky_torch.ad.optimizers import Adam
     from tpusky_torch.models.sunsky import model as M
     from tpusky_torch.ops.cuda import build
     from tpusky_torch.ops.cuda import megakernel as MK
     from tpusky_torch.ops.cuda import sunsky_kernel as K
+    from tpusky_torch.parallel.render import image_loss, make_train_step_single
     from tpusky_torch.render import integrator
     from tpusky_torch.render.film import Film, develop, splat_ordered
+    from tpusky_torch.render.sensors import sample_ray
+    from tpusky_torch.render.shapes import ray_intersect
     card = _card_line()
     print(f"card: {card}")
     dev = torch.device("cuda", 0)
@@ -142,12 +251,12 @@ def main():
             if "registers" in line or "Compiling entry" in line:
                 print("ptxas:", line.strip())
 
-    # ---- 3. K1-K3 against their plain versions ----
+    # ---- 3. K1-K3 and K5-K6 against their plain versions ----
     params = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
                             device=dev)
     state = tt.sunsky_precompute(params)
     state_cpu = tt.sunsky_precompute(tt.make_params(
-        turbidity=3.0, albedo=0.3, sun_direction=SUN))
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device="cpu"))
     for f in ("sky_params", "sky_radiance", "sun_radiance", "gaussians",
               "sky_sampling_w"):
         a, b = getattr(state, f).cpu(), getattr(state_cpu, f)
@@ -191,7 +300,58 @@ def main():
     results["K3"] = float(far.max())
     del rad1, ref1, rad2, ref2, pdf2, refp2, d3, rad3, pdf3, refd3, refp3
 
-    # ---- 4. the main path ----
+    # K5, K6: 1% of the lanes at the disc edge (tests/test_pallas.py:215),
+    # a cotangent drawn from a numpy seed, gradients through precompute
+    sun_n = state.sun_frame_n.cpu().numpy()
+    edge = sun_n + 0.002 * rng.normal(size=(n // 100, 3))
+    d_g = dirs.clone()
+    d_g[:n // 100] = torch.tensor(
+        edge / np.linalg.norm(edge, axis=-1, keepdims=True),
+        dtype=torch.float32, device=dev)
+    g_rad = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                         device=dev)
+    lp = _leaf_params(dev)
+    st_g = tt.sunsky_precompute(lp)
+    d_k = d_g.clone().requires_grad_()
+    d_p = d_g.clone().requires_grad_()
+    results["K5"], (dd_k,), (dd_p,) = _adjoint_check(
+        "K5", K.sunsky_eval_rgb(st_g, d_k), M._eval_rgb_plain(st_g, d_p),
+        g_rad, st_g, lp, [d_k], [d_p])
+    dd_err = ((dd_k - dd_p).abs().amax(-1)
+              / (dd_p.abs().amax(-1) + 1e-3))
+    _count_outside("K5 dd", dd_err, 1e-3, n, DD_CAP)
+    results["K5"] = max(results["K5"], float((dd_k - dd_p).abs().max()))
+    # K6 redraws K3's samples bitwise, so it is held against the plain
+    # radiance's autograd at those samples, and against the plain NEE
+    # block with its own sampler. The two samplers' directions differ by
+    # ulps (up to 7e-6, above); at the sun's limb the limb darkening's
+    # derivative 1 / sqrt(q), q = 1 - sin^2(gamma) / sin^2(aperture),
+    # turns a 1e-7 move of a direction into a 4e-5 move of q, so the few
+    # limb lanes' shares of the aperture and sun-direction cotangents move
+    # by O(1): there the misc row gets the sun direction's bar, 3e-2
+    d6, rad6, _ = K.sunsky_nee_rgb(st_g, u2, pdf_detached=True)
+    results["K6"], _, _ = _adjoint_check(
+        "K6 (at its samples)", rad6, M._eval_rgb_plain(st_g, d6), g_rad,
+        st_g, lp)
+    _adjoint_check("K6 (plain sampler)", rad6,
+                   M._sample_eval_rgb_plain(st_g, u2)[1], g_rad, st_g, lp,
+                   misc_bar=3e-2)
+    # the attached-pdf adjoints K7, K8 are not ported: asking for them on
+    # the card raises instead of running anything else
+    for k, ask in (("K7", lambda: M.eval_pdf(st_g, d_k[:8])),
+                   ("K8", lambda: M.sample_eval(st_g, u2[:8]))):
+        try:
+            ask()
+        except NotImplementedError as e:
+            if k not in str(e):
+                raise
+            print(f"check {k} refused: {e}")
+        else:
+            raise AssertionError(f"the attached pdf's gradient ran without "
+                                 f"{k}")
+    del dd_k, dd_p, dd_err, d_k, d_p, st_g, d6, rad6
+
+    # ---- 4. the forward main path ----
     film = Film(H, W, 3)
     base_params = tt.make_params(turbidity=3.0, albedo=0.3,
                                  sun_direction=SUN, device=dev)
@@ -208,9 +368,10 @@ def main():
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = dict(build.launches)
-    print(f"main path: {main_s:.2f} s, launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    print(f"forward main path: {main_s:.2f} s, launches {launches}")
+    for name in ("sunsky_eval_rgb", "sunsky_hit_rgb", "sunsky_nee_rgb",
+                 "direct_rgb_megakernel"):
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     if not (bool(torch.isfinite(sky).all()) and sky.shape == dirs.shape):
         raise AssertionError("sky radiance")
@@ -241,7 +402,7 @@ def main():
 
     # a small frame through K4 on the card and the plain path on the CPU
     small = Film(32, 32, 3)
-    scene_cpu, sensor_cpu = _headline_scene(state_cpu, None)
+    scene_cpu, sensor_cpu = _headline_scene(state_cpu, "cpu")
     img_s = integrator.render(scene, sensor, small, SEED, spp=4).cpu()
     img_c = integrator.render(scene_cpu, sensor_cpu, small, SEED, spp=4)
     err_s = float((img_s - img_c).abs().max())
@@ -249,9 +410,121 @@ def main():
     if not err_s < 1e-3 * max(float(img_c.max()), 1.0):
         raise AssertionError("K4 on the card disagrees with the CPU")
 
-    # ---- 5. times ----
+    # ---- 5. the gradient main path ----
+    tables_dev = tt.load_tables("rgb", device=dev)
+
+    def bench_grad(kind):
+        """bench.py::bench_grad's loss and its gradient to (turbidity,
+        albedo, sun direction): kind "rows" (the wavefront with the
+        kernels), "plain" (the wavefront with the plain versions) or
+        "render" (K4 forward, replayed backward)."""
+        t = torch.tensor(3.0, device=dev, requires_grad=True)
+        alb = torch.full((3,), 0.3, device=dev, requires_grad=True)
+        sd = torch.tensor(SUN, device=dev, requires_grad=True)
+        pp = tt.make_params(turbidity=t, albedo=alb,
+                            sun_direction=sd / torch.sqrt((sd ** 2).sum()),
+                            device=dev)
+        sc = scene._replace(env=M.precompute(tables_dev, pp))
+        if kind == "render":
+            im = integrator.render(sc, sensor, film, SEED, spp=GRAD_SPP)
+        else:
+            im = develop(integrator.render_rows(
+                sc, sensor, film, SEED, GRAD_SPP, MAX_DEPTH, 1000, "rgb", 0,
+                H, plain=kind == "plain"))
+        loss = (im ** 2).mean()
+        return loss.detach().item(), torch.autograd.grad(loss, [t, alb, sd])
+
+    def builder(pd):
+        """bench.py::bench_train's scene_builder_min: clip, normalise."""
+        full = tt.make_params(
+            turbidity=pd["t"].clamp(1.0, 10.0),
+            albedo=pd["alb"].clamp(0.0, 1.0),
+            sun_direction=pd["sun"] / torch.sqrt((pd["sun"] ** 2).sum()),
+            device=dev)
+        return scene._replace(env=M.precompute(tables_dev, full))
+
+    sun0 = torch.tensor(SUN, device=dev) / math.sqrt(sum(x * x for x in SUN))
+    start = {"t": torch.tensor(3.0, device=dev),
+             "alb": torch.full((3,), 0.3, device=dev), "sun": sun0}
+    opt = Adam(0.05)
+    opt.set_learning_rate(t=0.05, alb=0.015, sun=0.0)
+    step = make_train_step_single(builder, sensor, film, SPP, opt,
+                                  max_depth=MAX_DEPTH, loss="log_l2_blur")
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    loss_k, grad_k = bench_grad("rows")
+    loss_r, grad_r = bench_grad("render")
+    with torch.no_grad():
+        target = develop(integrator.render_rows(
+            builder({**start, "t": torch.tensor(6.5, device=dev)}), sensor,
+            film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0, H))
+    torch.cuda.reset_peak_memory_stats()
+    pd, ost, losses, step_s = dict(start), opt.init(start), [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ts0 = time.perf_counter()
+        ost, pd, loss = step(ost, pd, target, SEED)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - ts0)
+        losses.append(float(loss))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        final = float(image_loss(develop(integrator.render_rows(
+            builder(pd), sensor, film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0,
+            H)), target, "log_l2_blur"))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_launches = dict(build.launches)
+    print(f"gradient main path: {grad_s:.2f} s, launches {grad_launches}")
+    for name in ("sunsky_hit_rgb", "sunsky_nee_rgb", "direct_rgb_megakernel",
+                 "sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd"):
+        if grad_launches[name] <= 0:
+            raise AssertionError(f"the gradient path never launched {name}")
+
+    names = ("turbidity", "albedo", "sun_direction")
+    print("bench_grad loss %.6e, d/d(turbidity, albedo, sun) = %s" % (
+        loss_k, [g.tolist() for g in grad_k]))
+    for name, a, b in zip(names, grad_r, grad_k):
+        _check_scale(f"render() replayed gradient {name} vs render_rows",
+                     a, b, 1e-4)
+    if not all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in grad_k):
+        raise AssertionError("bench_grad: gradients not finite or zero")
+    t_final = float(pd["t"])
+    print(f"train: losses {losses}, after step {TRAIN_STEPS} {final:.6e}; "
+          f"turbidity 3.0 -> {t_final:.5f} (target 6.5); step times "
+          f"{[round(1e3 * s, 2) for s in step_s]} ms; peak memory "
+          f"{peak_gib:.2f} GiB [{card}]")
+    if not (final < losses[0] and t_final > 3.0 and math.isfinite(final)):
+        raise AssertionError("training did not lower the loss and raise "
+                             "turbidity")
+
+    loss_p, grad_p = bench_grad("plain")
+    print(f"bench_grad loss: kernels {loss_k:.6e}, render() {loss_r:.6e}, "
+          f"plain {loss_p:.6e}")
+    for (name, bar), a, b in zip(((names[0], 1e-3), (names[1], 1e-3),
+                                  (names[2], 3e-2)), grad_k, grad_p):
+        _check_scale(f"bench_grad d{name}: kernels vs plain on the card",
+                     a, b, bar)
+
+    # ---- 6. times ----
     tables = K.pack_tables(state, dev)
     mega = MK.pack(scene, sensor, state)
+    st_l = state._replace(**{
+        f: getattr(state, f).detach().clone().requires_grad_()
+        for f in ("sky_params", "sky_radiance", "sun_radiance")})
+    d_l = d_g.clone().requires_grad_()
+    leaves = [st_l.sky_params, st_l.sky_radiance, st_l.sun_radiance]
+
+    def plain_k5():
+        return torch.autograd.grad(M._eval_rgb_plain(st_l, d_l),
+                                   leaves + [d_l], g_rad)
+
+    def plain_k6():
+        return torch.autograd.grad(M._sample_eval_rgb_plain(st_l, u2)[1],
+                                   leaves, g_rad)
     times = {
         "K1": _pair_ms(lambda: K.launch_eval(tables, dirs),
                        lambda: M._eval_rgb_plain(state, dirs)),
@@ -264,21 +537,39 @@ def main():
             lambda: integrator.render_rows(scene, sensor, film, SEED, SPP,
                                            MAX_DEPTH, 1000, "rgb", 0, H,
                                            plain=True), reps=5),
+        "K5": _pair_ms(lambda: K.launch_eval_bwd(tables, d_g, g_rad),
+                       plain_k5, reps=5),
+        "K6": _pair_ms(lambda: K.launch_nee_bwd(tables, u2, g_rad),
+                       plain_k6, reps=5),
     }
+    # K6 split by sampling strategy: every lane a TGMM sky sample, then
+    # every lane a sun-cone sample (those add the sun row's 72 atomics)
+    w_sky = float(state.sky_sampling_w)
+    u_sky = torch.stack([u2[:, 0] * w_sky, u2[:, 1]], -1)
+    u_sun = torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0], u2[:, 1]], -1)
+    k6_sky = _time_ms(lambda: K.launch_nee_bwd(tables, u_sky, g_rad), 5)
+    k6_sun = _time_ms(lambda: K.launch_nee_bwd(tables, u_sun, g_rad), 5)
     wave_ms = _time_ms(lambda: integrator.render_rows(
         scene, sensor, film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0, H), 5)
     wrap_ms = _time_ms(lambda: K.sunsky_eval_rgb(state, dirs))
     frame_ms = _time_ms(lambda: integrator.render(scene, sensor, film, SEED,
                                                   spp=SPP), 5)
+    grad_ms, grad_plain_ms = _pair_ms(lambda: bench_grad("rows"),
+                                      lambda: bench_grad("plain"), reps=3)
+    grad_render_ms = _time_ms(lambda: bench_grad("render"), 3, 1)
     rays = H * W * SPP * (1 + 2 * (MAX_DEPTH - 1))
+    grad_rays = H * W * GRAD_SPP * (1 + 2 * (MAX_DEPTH - 1))
     k1, p1 = times["K1"]
     print(f"time K1 sunsky_eval_rgb: {k1:.4f} ms ({n / k1 / 1e3:.1f} M "
           f"evals/s), plain {p1:.4f} ms ({n / p1 / 1e3:.1f} M evals/s); "
           f"wrapper with table packing {wrap_ms:.4f} ms [{card}]")
-    for name in ("K2", "K3"):
+    for name in ("K2", "K3", "K5", "K6"):
         k, p = times[name]
         print(f"time {name}: {k:.4f} ms, plain {p:.4f} ms at {n} lanes "
               f"[{card}]")
+    print(f"time K6 by strategy at {n} lanes: all sky samples "
+          f"{k6_sky:.4f} ms, all sun-cone samples {k6_sun:.4f} ms (the "
+          f"headline sky weight {w_sky:.4f}) [{card}]")
     k4, p4 = times["K4"]
     print(f"time K4 frame: {k4:.3f} ms ({rays / k4 / 1e3:.1f} M rays/s), "
           f"plain wavefront {p4:.3f} ms ({rays / p4 / 1e3:.1f} M rays/s), "
@@ -286,28 +577,92 @@ def main():
           f"({rays / wave_ms / 1e3:.1f} M rays/s); render() with packing "
           f"and film {frame_ms:.3f} ms ({rays / frame_ms / 1e3:.1f} M "
           f"rays/s) [{card}]")
+    print(f"time bench_grad fwd+bwd (512x512x{GRAD_SPP}, precompute "
+          f"included): render_rows with K2/K3/K5/K6 {grad_ms:.2f} ms "
+          f"({grad_rays / grad_ms / 1e3:.2f} M rays/s), render() "
+          f"{grad_render_ms:.2f} ms ({grad_rays / grad_render_ms / 1e3:.2f} "
+          f"M rays/s), plain {grad_plain_ms:.2f} ms "
+          f"({grad_rays / grad_plain_ms / 1e3:.2f} M rays/s) [{card}]")
+    step_ms = 1e3 * sum(step_s[1:]) / (TRAIN_STEPS - 1)
+    print(f"time train step (512x512x{SPP}, log_l2_blur, Adam): mean of "
+          f"steps 2-{TRAIN_STEPS} {step_ms:.2f} ms; peak memory "
+          f"{peak_gib:.2f} GiB [{card}]")
 
-    # ---- 6. results ----
+    # ---- 7. bounds and results ----
+    with torch.no_grad():
+        n_sun = state.sun_frame_n
+        cos_cut = math.cos(float(state.params.sun_half_aperture))
+        above = float((dirs[:, 2] >= 0).sum())
+        disc = float(((dirs * n_sun).sum(-1) >= cos_cut).sum())
+        above_g = float((d_g[:, 2] >= 0).sum())
+        disc_g = float((((d_g * n_sun).sum(-1) >= cos_cut)
+                        & (d_g[:, 2] >= 0)).sum())
+        sky_pick = float((u2[:, 0] < state.sky_sampling_w).sum())
+        d3 = K.launch_nee(tables, u2)[0]
+        above3 = float((d3[:, 2] >= 0).sum())
+        disc3 = float((((d3 * n_sun).sum(-1) >= cos_cut)
+                       & (d3[:, 2] >= 0)).sum())
+        n4 = H * W * SPP
+        u_pos = torch.rand((n4, 2), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+        px = torch.arange(n4, device=dev) // SPP
+        uv = torch.stack([(px % W + u_pos[:, 0]) / W,
+                          (px // W + u_pos[:, 1]) / H], -1)
+        hits = float(ray_intersect(scene.shapes,
+                                   *sample_ray(sensor, uv))[4].sum())
+    o = OPS
+    sample_ops = sky_pick * o["sample_sky"] + (n - sky_pick) * o["sample_sun"]
+    nee_ops = (sample_ops + above3 * (o["pdf"] + o["radiance"])
+               + disc3 * o["radiance_sun"])
+    per_hit = o["path"] + o["sample_sky"] + 2 * (o["pdf"] + o["radiance"])
+    bounds = {
+        "K1": _bound(24 * n + TABLE_BYTES,
+                     above * o["radiance"] + disc * o["radiance_sun"]),
+        "K2": _bound(28 * n + TABLE_BYTES + GAUSS_BYTES,
+                     above * (o["radiance"] + o["pdf"])
+                     + disc * o["radiance_sun"]),
+        "K3": _bound(36 * n + TABLE_BYTES + GAUSS_BYTES, nee_ops),
+        "K4": _bound(12 * n4 + TABLE_BYTES + GAUSS_BYTES,
+                     hits * per_hit
+                     + (n4 - hits) * (o["miss"] + o["radiance"])),
+        "K5": _bound(36 * n + TABLE_BYTES + ROW_BYTES,
+                     above_g * o["vjp"] + disc_g * o["vjp_sun"]),
+        "K6": _bound(20 * n + TABLE_BYTES + GAUSS_BYTES + ROW_BYTES,
+                     sample_ops + above3 * o["vjp"]
+                     + disc3 * o["vjp_sun"]),
+    }
+    for key, (ms, by) in bounds.items():
+        print(f"bound {key}: {ms:.4f} ms ({by}); measured "
+              f"{times[key][0]:.4f} ms, {100 * ms / times[key][0]:.1f}% of "
+              f"the bound's rate [{card}]")
+
     here = os.path.dirname(os.path.abspath(__file__))
     src = {
         "K1": ("sunsky_eval_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:747"),
+               "tpusky/ops/pallas/sunsky_kernel.py:747", launches),
         "K2": ("sunsky_hit_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:771"),
+               "tpusky/ops/pallas/sunsky_kernel.py:771", launches),
         "K3": ("sunsky_nee_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:793"),
+               "tpusky/ops/pallas/sunsky_kernel.py:793", launches),
         "K4": ("direct_rgb_megakernel", "tpusky_torch/csrc/megakernel.cu",
-               "tpusky/ops/pallas/megakernel.py:428"),
+               "tpusky/ops/pallas/megakernel.py:428", launches),
+        "K5": ("sunsky_eval_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
+               "tpusky/ops/pallas/sunsky_kernel.py:1032", grad_launches),
+        "K6": ("sunsky_nee_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
+               "tpusky/ops/pallas/sunsky_kernel.py:1133", grad_launches),
     }
     kernels = []
-    for key, (name, source, replaces) in src.items():
+    for key, (name, source, replaces, counts) in src.items():
         if not os.path.exists(os.path.join(here, source)):
             raise AssertionError(f"missing source {source}")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": results[key], "ms": times[key][0],
-                        "plain_ms": times[key][1]})
-    if not all(math.isfinite(k["ms"]) for k in kernels):
+                        "plain_ms": times[key][1],
+                        "bound_ms": bounds[key][0],
+                        "bound_by": bounds[key][1], "library_ms": None})
+    if not all(math.isfinite(k["ms"]) and math.isfinite(k["max_abs_err"])
+               for k in kernels):
         raise AssertionError("timing")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -66,6 +66,9 @@ def test_package_has_kernel_wrappers():
     assert {"tpusky_torch.ops.cuda.build",
             "tpusky_torch.ops.cuda.sunsky_kernel",
             "tpusky_torch.ops.cuda.megakernel",
+            "tpusky_torch.ad.optimizers",
+            "tpusky_torch.parallel.render",
             "tpusky_torch.convert"} <= names
     csrc = set(os.listdir(os.path.join(_PKG, "csrc")))
-    assert {"sunsky_core.cuh", "sunsky_kernels.cu", "megakernel.cu"} <= csrc
+    assert {"sunsky_core.cuh", "sunsky_kernels.cu", "megakernel.cu",
+            "sunsky_adjoint.cu"} <= csrc

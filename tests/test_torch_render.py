@@ -66,8 +66,9 @@ def _jax_scene():
 def scenes():
     sc, sensor = _jax_scene()
     return ((sc, sensor),
-            (convert.scene(jax.tree.map(np.asarray, sc)),
-             convert.perspective(jax.tree.map(np.asarray, sensor))))
+            (convert.scene(jax.tree.map(np.asarray, sc), device="cpu"),
+             convert.perspective(jax.tree.map(np.asarray, sensor),
+                                 device="cpu")))
 
 
 def _jax_lanes(sc, sensor, key):
@@ -182,7 +183,8 @@ def test_ray_intersect_and_test_match_jax(kinds):
         m[:3, 3] = rng.uniform(-1, 1, 3)
         shapes.append(dict(kind=k, to_world=m, bsdf_idx=i))
     table_j = JSH.make_shape_table(shapes)
-    table_t = convert.shape_table(jax.tree.map(np.asarray, table_j))
+    table_t = convert.shape_table(jax.tree.map(np.asarray, table_j),
+                                  device="cpu")
     o = rng.uniform(-4, 4, (4096, 3)).astype(np.float32)
     d = (rng.uniform(-1.5, 1.5, (4096, 3)) - o).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)

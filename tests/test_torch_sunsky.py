@@ -44,7 +44,8 @@ def states(jax_precompute):
     """(JAX state, the same state converted to the port) at T = 3.8."""
     js = jax_precompute(ts.make_params(turbidity=3.8, albedo=0.3,
                                        sun_direction=SUN))
-    return js, convert.sunsky_state(jax.tree.map(np.asarray, js))
+    return js, convert.sunsky_state(jax.tree.map(np.asarray, js),
+                                    device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +66,7 @@ def _rel(a, b, floor):
 
 def test_load_tables_bitwise():
     j = JT.load_tables("rgb")
-    t = TT.load_tables("rgb")
+    t = TT.load_tables("rgb", device="cpu")
     for f in ("sky_params", "sky_rad", "sun_rad", "tgmm"):
         a, b = getattr(t, f), np.asarray(getattr(j, f))
         assert a.dtype == torch.float32
@@ -82,8 +83,8 @@ def test_precompute_matches_jax(jax_precompute, turbidity, sun):
     exercises the lerp kink."""
     js = jax.tree.map(np.asarray, jax_precompute(ts.make_params(
         turbidity=turbidity, albedo=0.3, sun_direction=sun)))
-    st = TM.precompute(TT.load_tables("rgb"), TM.make_params(
-        turbidity=turbidity, albedo=0.3, sun_direction=sun))
+    st = TM.precompute(TT.load_tables("rgb", device="cpu"), TM.make_params(
+        turbidity=turbidity, albedo=0.3, sun_direction=sun, device="cpu"))
     for f in _STATE_FIELDS:
         a, b = getattr(st, f).numpy(), getattr(js, f)
         assert a.shape == b.shape, f
@@ -155,7 +156,7 @@ def test_sky_radiance_rgb_golden(golden, hour, turb, albedo, key):
     sd = np.asarray(sun_direction(DateTimeRecord(hour=hour),
                                   LocationRecord()), np.float32)
     params = tt.make_params(turbidity=turb, albedo=albedo, sun_direction=sd,
-                            sun_scale=0.0)
+                            sun_scale=0.0, device="cpu")
     h, w = 32, 64
     pg, tg = np.meshgrid(np.linspace(0, 2 * np.pi, w),
                          np.linspace(np.pi, 0, h))

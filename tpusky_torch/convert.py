@@ -2,7 +2,8 @@
 
 Each function takes a `tpusky` object whose array leaves have been
 turned into numpy arrays (for example `jax.tree.map(np.asarray, state)`)
-and returns the port's counterpart as float32/int64 tensors on `device`.
+and returns the port's counterpart as float32/int64 tensors on `device`
+(the card unless the caller names another device).
 Nothing here imports jax or tpusky: the objects are read by field name.
 Parts the port does not have yet (spectral state, area/delta lights,
 meshes, other materials) raise NotImplementedError.
@@ -33,17 +34,17 @@ def _none_or_empty(a) -> bool:
     return a is None or np.asarray(a).size == 0
 
 
-def sunsky_params(p, device=None) -> SunskyParams:
+def sunsky_params(p, device="cuda") -> SunskyParams:
     return SunskyParams(*(_f32(getattr(p, f), device)
                           for f in SunskyParams._fields))
 
 
-def discrete_distribution(d, device=None) -> DiscreteDistribution:
+def discrete_distribution(d, device="cuda") -> DiscreteDistribution:
     return DiscreteDistribution(_f32(d.pmf, device), _f32(d.cdf, device),
                                 _f32(d.total, device))
 
 
-def sunsky_state(s, device=None) -> SunskyState:
+def sunsky_state(s, device="cuda") -> SunskyState:
     """A `tpusky` SunskyState (RGB) -> SunskyState, including the
     gaussian distribution it holds."""
     if s.sun_ld is not None or s.spectral_distr is not None:
@@ -58,7 +59,7 @@ def sunsky_state(s, device=None) -> SunskyState:
                        spectral_distr=None, **f)
 
 
-def shape_table(t, device=None) -> ShapeTable:
+def shape_table(t, device="cuda") -> ShapeTable:
     kinds = tuple(int(k) for k in t.kind)
     if any(k not in KINDS for k in kinds):
         raise NotImplementedError(f"shape kinds {kinds}")
@@ -68,7 +69,7 @@ def shape_table(t, device=None) -> ShapeTable:
                       _f32(t.to_object, device), _i64(t.bsdf_idx, device))
 
 
-def material_table(t, device=None) -> MaterialTable:
+def material_table(t, device="cuda") -> MaterialTable:
     kinds = np.asarray(t.kind)
     if (kinds != DIFFUSE).any():
         raise NotImplementedError(f"material kinds {sorted(set(kinds))}")
@@ -83,7 +84,7 @@ def material_table(t, device=None) -> MaterialTable:
                                       device=device))
 
 
-def scene(sc, device=None) -> Scene:
+def scene(sc, device="cuda") -> Scene:
     """A `tpusky` Scene of analytic shapes, diffuse materials and a sunsky
     (or no) environment -> Scene."""
     for field in ("area_emitter_shapes", "point_lights",
@@ -105,6 +106,18 @@ def scene(sc, device=None) -> Scene:
                  _f32(sc.env_to_world, device))
 
 
-def perspective(s, device=None) -> Perspective:
+def perspective(s, device="cuda") -> Perspective:
     return Perspective(_f32(s.to_world, device), _f32(s.fov_x_deg, device),
                        _f32(s.aspect, device), _f32(s.near, device))
+
+
+def adam_state(s, device="cuda") -> dict:
+    """A `tpusky.ad.optimizers.Adam` state over a dict of parameters (per
+    name an (m, v, t) tuple) -> the port's Adam state."""
+    return {k: tuple(_f32(x, device) for x in v) for k, v in s.items()}
+
+
+def sgd_state(s, device="cuda") -> dict:
+    """A `tpusky.ad.optimizers.SGD` state over a dict of parameters (per
+    name the momentum buffer) -> the port's SGD state."""
+    return {k: _f32(v, device) for k, v in s.items()}

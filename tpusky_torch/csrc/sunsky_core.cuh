@@ -144,6 +144,188 @@ __device__ inline void radiance(const Tables& T, float dx, float dy,
   }
 }
 
+// Cotangent accumulator layout of the small tables (radiance_vjp's acc):
+// skyp (3, 9), then skyr (3,), then misc (16,).
+constexpr int ACC_SKYP = 0;
+constexpr int ACC_SKYR = 27;
+constexpr int ACC_MISC = 30;
+constexpr int N_ACC = 46;
+
+// Reverse-mode derivative of radiance(): what torch autograd computes for
+// model.py::_eval_rgb_plain at one direction, given the cotangent g of its
+// RGB output. Adds the direction's cotangent to dd, the small tables'
+// cotangents to acc (layout ACC_*; only what radiance() reads is touched)
+// and the sun row's to sun_acc (the (45, 72) table in shared memory, by
+// atomics: lanes of a block share rows). Gradient-safe where the plain
+// version is: zero through sqrt at 0 and through asin/acos at |x| >= 1.
+// The disc mask is the straight-through surrogate of model.py::_disc_weight:
+// its value is the hard cone test, its derivative the ramp
+// clamp((cos_gamma - cos_cut) / eps + 1/2, 0, 1), eps = (1 - cos_cut) *
+// disc_softness / 2, so lanes just outside the disc get a sun-direction
+// cotangent. Clamps pass the derivative at their bounds, as torch's do.
+__device__ inline void radiance_vjp(const Tables& T, float dx, float dy,
+                                    float dz, const float g[3], float dd[3],
+                                    float acc[N_ACC], float* sun_acc) {
+  if (dz < 0.0f) return;                  // below the horizon: radiance 0
+  const float* __restrict__ misc = T.misc;
+  // ---- forward, as radiance() ----
+  float nx = misc[M_SUNX], ny = misc[M_SUNY], nz = misc[M_SUNZ];
+  float dot = nx * dx + ny * dy + nz * dz;
+  float s = dot >= 0.0f ? 1.0f : -1.0f;
+  float ex = dx - s * nx, ey = dy - s * ny, ez = dz - s * nz;
+  float len = sqrtf(ex * ex + ey * ey + ez * ez);
+  float hc = 0.5f * len;
+  float temp = 2.0f * safe_asin(hc);
+  float gamma = dot >= 0.0f ? temp : PI_F - temp;
+  float ct = dz;
+  float cos_g = cosf(gamma);
+  float sin_g = sinf(gamma);
+  float cg2 = cos_g * cos_g;
+
+  float elevation = 0.5f * PI_F - safe_acos(ct);
+  int pos = (int)floorf(cbrtf(2.0f * elevation / PI_F) * N_SEG);
+  pos = min(max(pos, 0), N_SEG - 1);
+  float bx = (float)pos / N_SEG;
+  float x_raw = elevation - 0.5f * PI_F * (bx * bx * bx);
+  float x = fmaxf(x_raw, 0.0f);
+  float half_ap = misc[M_HALF_AP];
+  float sin_ap = sinf(half_ap);
+  float q = 1.0f - (sin_g * sin_g) / (sin_ap * sin_ap);
+  float cos_psi = safe_sqrt(q);
+  float cos_cut = misc[M_COS_CUT];
+  float hard = cos_g >= cos_cut ? 1.0f : 0.0f;
+  float soft = misc[M_SOFT];
+  float eps = 0.5f * (1.0f - cos_cut) * soft;
+  float eps_c = fmaxf(eps, 1e-12f);
+  float ramp = (cos_g - cos_cut) / eps_c + 0.5f;
+  float xp[4] = {1.0f, x, x * x, x * x * x};
+  float cp[6];
+  cp[0] = 1.0f;
+#pragma unroll
+  for (int j = 1; j < 6; ++j) cp[j] = cp[j - 1] * cos_psi;
+  const float* __restrict__ coefs = T.sun + pos * SUN_F;
+  float* __restrict__ sun_row = sun_acc + pos * SUN_F;
+  float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
+
+  // ---- reverse ----
+  float g_ct = 0.0f, g_gamma = 0.0f, g_cg = 0.0f, g_cg2 = 0.0f;
+  float g_x = 0.0f, g_cpsi = 0.0f, g_w = 0.0f;
+  float r = safe_sqrt(ct);
+  float ct1 = ct + 0.01f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float G = g[c] * CIE_Y_NORM;
+    // sun polynomial and its partials in x and cos_psi
+    float sun = 0.0f, sun_x = 0.0f, sun_cp = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        float co = coefs[c * 24 + k * 6 + j];
+        sun += co * (xp[k] * cp[j]);
+        if (k > 0) sun_x += co * ((float)k * xp[k - 1] * cp[j]);
+        if (j > 0) sun_cp += co * (xp[k] * (float)j * cp[j - 1]);
+      }
+    // sky formula (model.py::_sky_formula)
+    const float* __restrict__ k9 = T.skyp + 9 * c;
+    float a = k9[0], b = k9[1], kc = k9[2], kd = k9[3], ke = k9[4];
+    float kf = k9[5], kg = k9[6], ki = k9[7], h = k9[8];
+    float e1 = expf(b / ct1);
+    float c1 = 1.0f + a * e1;
+    float base = 1.0f + h * h - 2.0f * h * cos_g;
+    float sqb = safe_sqrt(base);
+    float den = base * sqb;
+    float chi = (1.0f + cg2) / den;
+    float e2 = expf(ke * gamma);
+    float c2 = kc + kd * e2 + kf * cg2 + kg * chi + ki * r;
+    float mean = T.skyr[c];
+    float sky = c1 * c2 * mean;
+
+    // out = (sky_scale * sky + w * sun_scale * sun) * CIE_Y_NORM
+    acc[ACC_MISC + M_SKY_SCALE] += G * sky;
+    acc[ACC_MISC + M_SUN_SCALE] += G * hard * sun;
+    g_w += G * sun_scale * sun;
+    float g_sun = G * sun_scale * hard;
+    if (g_sun != 0.0f) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          atomicAdd(sun_row + c * 24 + k * 6 + j, g_sun * (xp[k] * cp[j]));
+      g_x += g_sun * sun_x;
+      g_cpsi += g_sun * sun_cp;
+    }
+    float g_sky = G * sky_scale;
+    acc[ACC_SKYR + c] += g_sky * c1 * c2;
+    float g_c1 = g_sky * c2 * mean;
+    float g_c2 = g_sky * c1 * mean;
+    float* __restrict__ ak = acc + ACC_SKYP + 9 * c;
+    // c1 = 1 + a exp(b / (ct + 0.01))
+    ak[0] += g_c1 * e1;
+    float g_arg1 = g_c1 * a * e1;
+    ak[1] += g_arg1 / ct1;
+    g_ct -= g_arg1 * b / (ct1 * ct1);
+    // c2 = c + d exp(e gamma) + f cg2 + g chi + i sqrt(ct)
+    ak[2] += g_c2;
+    ak[3] += g_c2 * e2;
+    float g_arg2 = g_c2 * kd * e2;
+    ak[4] += g_arg2 * gamma;
+    g_gamma += g_arg2 * ke;
+    ak[5] += g_c2 * cg2;
+    g_cg2 += g_c2 * kf;
+    ak[6] += g_c2 * chi;
+    float g_chi = g_c2 * kg;
+    ak[7] += g_c2 * r;
+    if (ct > 0.0f) g_ct += g_c2 * ki * 0.5f / r;
+    // chi = (1 + cg2) / (base sqrt(base))
+    g_cg2 += g_chi / den;
+    float g_den = -g_chi * chi / den;
+    float g_base = g_den * sqb;
+    if (base > 0.0f) g_base += g_den * base * 0.5f / sqb;
+    // base = 1 + h^2 - 2 h cos_gamma
+    ak[8] += g_base * (2.0f * h - 2.0f * cos_g);
+    g_cg -= g_base * 2.0f * h;
+  }
+  g_cg += g_cg2 * 2.0f * cos_g;
+
+  // disc surrogate: w = clamp(ramp, 0, 1) + (hard - that, detached)
+  if (ramp >= 0.0f && ramp <= 1.0f) {
+    g_cg += g_w / eps_c;
+    acc[ACC_MISC + M_COS_CUT] -= g_w / eps_c;
+    float g_eps = -g_w * (cos_g - cos_cut) / (eps_c * eps_c);
+    if (eps >= 1e-12f) {
+      acc[ACC_MISC + M_COS_CUT] -= 0.5f * soft * g_eps;
+      acc[ACC_MISC + M_SOFT] += 0.5f * (1.0f - cos_cut) * g_eps;
+    }
+  }
+  // cos_psi = sqrt(1 - sin_g^2 / sin_ap^2) (zero derivative where q <= 0)
+  if (q > 0.0f) {
+    float g_q = g_cpsi * 0.5f / cos_psi;
+    float sa2 = sin_ap * sin_ap;
+    g_gamma += g_q * (-2.0f * sin_g / sa2) * cos_g;
+    acc[ACC_MISC + M_HALF_AP] +=
+        g_q * (2.0f * sin_g * sin_g / (sa2 * sin_ap)) * cosf(half_ap);
+  }
+  // x = max(elevation - break_x, 0), elevation = pi/2 - acos(ct)
+  if (x_raw >= 0.0f && fabsf(ct) < 1.0f)
+    g_ct += g_x / sqrtf(1.0f - ct * ct);
+  // gamma = 2 asin(|d - s n| / 2), mirrored past 90 degrees
+  g_gamma -= g_cg * sin_g;
+  float g_temp = dot >= 0.0f ? g_gamma : -g_gamma;
+  if (fabsf(hc) < 1.0f && len > 0.0f) {
+    float g_len = g_temp / sqrtf(1.0f - hc * hc);   // 2 * asin' * 1/2
+    float k = g_len / len;
+    float gx = k * ex, gy = k * ey, gz = k * ez;
+    dd[0] += gx;
+    dd[1] += gy;
+    dd[2] += gz;
+    acc[ACC_MISC + M_SUNX] -= s * gx;
+    acc[ACC_MISC + M_SUNY] -= s * gy;
+    acc[ACC_MISC + M_SUNZ] -= s * gz;
+  }
+  dd[2] += g_ct;
+}
+
 // Solid-angle pdf of the sky/sun mixture (model.py::compute_pdfs + lerp).
 // check_sun: count the cone pdf only inside the cone.
 __device__ inline float mixture_pdf(const Tables& T, float dx, float dy,

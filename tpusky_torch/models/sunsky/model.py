@@ -8,7 +8,9 @@ plain tensor ops; the per-direction functions come in two versions:
   `_sample_eval_rgb_plain`, which the CPU tests hold against the JAX
   package and which serve as the reference for the kernels;
 * the hand-written CUDA kernels K1-K3 behind `eval`, `eval_pdf` and
-  `sample_eval` (`ops/cuda/sunsky_kernel.py`), launched for CUDA tensors.
+  `sample_eval` (`ops/cuda/sunsky_kernel.py`), launched for CUDA tensors;
+  under autograd their backward is the adjoint kernel K5 (radiance) or K6
+  (the NEE block's radiance), for the pdf-detached contract only.
 
 Reference behaviour (`src/emitters/sunsky.cpp`): 9-parameter sky formula
 (:538-555), 45-segment sun polynomial with baked limb darkening
@@ -58,7 +60,7 @@ class SunskyParams(NamedTuple):
 def make_params(turbidity=3.0, albedo=0.3, sun_direction=None, sky_scale=1.0,
                 sun_scale=1.0, sun_aperture_deg=C.SUN_APERTURE_DEG,
                 mode: str = "rgb", disc_softness=1.0,
-                device=None) -> SunskyParams:
+                device="cuda") -> SunskyParams:
     def f32(v):
         if isinstance(v, torch.Tensor):
             return v.to(dtype=_F32, device=device)
@@ -296,8 +298,8 @@ def _kernels():
 def eval(state: SunskyState, d, mode: str = "rgb", plain: bool = False):
     """Emitted radiance along local direction d (pointing at the sky) ->
     (..., 3) linear sRGB (reference `sunsky.cpp:303-352`). CUDA tensors
-    run kernel K1; `plain=True` runs the plain version on any device
-    (the reference the kernel is held against)."""
+    run kernel K1, and K5 backward; `plain=True` runs the plain version on
+    any device (the reference the kernels are held against)."""
     if mode != "rgb":
         raise NotImplementedError(f"sunsky eval mode {mode!r}")
     if plain:
@@ -432,15 +434,17 @@ def _sample_eval_rgb_plain(state: SunskyState, u2):
 def eval_pdf(state: SunskyState, d, mode: str = "rgb",
              pdf_detached: bool = False, plain: bool = False):
     """Radiance + solid-angle pdf toward local direction d (the
-    emitter-hit MIS block): kernel K2 for CUDA tensors. pdf_detached=True
-    is the render contract (the pdf is only used detached)."""
+    emitter-hit MIS block): kernel K2 for CUDA tensors, K5 backward.
+    pdf_detached=True is the render contract (the pdf is only used
+    detached); on the card a gradient through the attached pdf raises
+    (its adjoint K7 is not ported)."""
     if mode != "rgb":
         raise NotImplementedError(f"sunsky eval_pdf mode {mode!r}")
     if plain:
         rad, pdf = _hit_rgb_plain(state, d)
     else:
-        rad, pdf = _kernels().sunsky_hit_rgb(state,
-                                             d.reshape(-1, 3).contiguous())
+        rad, pdf = _kernels().sunsky_hit_rgb(
+            state, d.reshape(-1, 3).contiguous(), pdf_detached=pdf_detached)
         rad = rad.reshape(d.shape[:-1] + (3,))
         pdf = pdf.reshape(d.shape[:-1])
     return rad, (pdf.detach() if pdf_detached else pdf)
@@ -449,8 +453,9 @@ def eval_pdf(state: SunskyState, d, mode: str = "rgb",
 def sample_eval(state: SunskyState, u2, mode: str = "rgb",
                 pdf_detached: bool = False, plain: bool = False):
     """Importance-sample a direction and evaluate its radiance + pdf (the
-    NEE block): kernel K3 for CUDA tensors. Returns (d_local (..., 3),
-    detached; radiance (..., 3); pdf (...,))."""
+    NEE block): kernel K3 for CUDA tensors, K6 backward (on the card only
+    with pdf_detached=True under autograd: K8 is not ported). Returns
+    (d_local (..., 3), detached; radiance (..., 3); pdf (...,))."""
     if mode != "rgb":
         raise NotImplementedError(f"sunsky sample_eval mode {mode!r}")
     if plain:
@@ -458,7 +463,7 @@ def sample_eval(state: SunskyState, u2, mode: str = "rgb",
     else:
         batch = u2.shape[:-1]
         d, rad, pdf = _kernels().sunsky_nee_rgb(
-            state, u2.reshape(-1, 2).contiguous())
+            state, u2.reshape(-1, 2).contiguous(), pdf_detached=pdf_detached)
         d = d.reshape(batch + (3,))
         rad = rad.reshape(batch + (3,))
         pdf = pdf.reshape(batch)

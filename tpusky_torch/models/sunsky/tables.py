@@ -41,7 +41,7 @@ def _load_numpy():
                       "tgmm"))
 
 
-def load_tables(mode: str = "rgb", device=None) -> SunskyTables:
+def load_tables(mode: str = "rgb", device="cuda") -> SunskyTables:
     """Load the RGB tables as float32 tensors on `device`."""
     if mode != "rgb":
         raise NotImplementedError(f"sunsky tables for mode {mode!r}")

@@ -2,10 +2,11 @@
 
 `library()` compiles every source in `tpusky_torch/csrc` with nvcc into
 one shared library with a plain C interface, at first use, and loads it
-with ctypes. The library lives in `build/tpusky_torch/` at the repository
-root under a name keyed by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads at once. nvcc's `-Xptxas -v`
-report (registers, spills per kernel) is kept beside it as `<name>.log`.
+with ctypes: one nvcc per source, all started together, then one link.
+The library lives in `build/tpusky_torch/` at the repository root under a
+name keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once. nvcc's `-Xptxas -v` report
+(registers, spills per kernel) is kept beside it as `<name>.log`.
 
 Every kernel wrapper counts its launches in `launches`, a plain dict of
 ints, so a run can show which kernels its main path went through.
@@ -24,12 +25,13 @@ import tempfile
 _CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "build", "tpusky_torch")
-_SOURCES = ("sunsky_kernels.cu", "megakernel.cu")
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCES = ("sunsky_kernels.cu", "megakernel.cu", "sunsky_adjoint.cu")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = {"sunsky_eval_rgb": 0, "sunsky_hit_rgb": 0, "sunsky_nee_rgb": 0,
-            "direct_rgb_megakernel": 0}
+            "direct_rgb_megakernel": 0, "sunsky_eval_rgb_bwd": 0,
+            "sunsky_nee_rgb_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +46,12 @@ _SIGNATURES = {
     # skyp, skyr, sun, misc, gauss, out, stream
     "tsk_direct_rgb_megakernel": (_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I,
                                   _I, _P, _P, _P, _P, _P, _P, _P),
+    # n -> rows of block-partial scratch the adjoints need
+    "tsk_adjoint_rows": (_I,),
+    # d, g, n, skyp, skyr, sun, misc, dd, partial, out, stream
+    "tsk_sunsky_eval_rgb_bwd": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # u, g, n, skyp, skyr, sun, misc, gauss, partial, out, stream
+    "tsk_sunsky_nee_rgb_bwd": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -81,18 +89,36 @@ def build() -> str:
         _BUILD_DIR, f"libtpusky_torch_{_source_hash()}.so"))
     if os.path.exists(out):
         return out
-    srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
+    nvcc = _nvcc()
+    work = tempfile.mkdtemp(dir=_BUILD_DIR)
+    try:
+        procs = []
+        for src in _SOURCES:
+            obj = os.path.join(work, src + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *_FLAGS, "-c", "-o", obj, os.path.join(_CSRC, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = ""
+        failed = []
+        for (obj, proc), src in zip(procs, _SOURCES):
+            log += f"== {src}\n" + proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(src)
+        if not failed:
+            tmp = os.path.join(work, "lib.so")
+            link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp,
+                                   *(obj for obj, _ in procs)],
+                                  capture_output=True, text=True)
+            log += "== link\n" + link.stdout + link.stderr
+            if link.returncode != 0:
+                failed.append("link")
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

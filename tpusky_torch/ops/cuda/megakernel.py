@@ -66,6 +66,9 @@ class Packed(NamedTuple):
 
 
 def pack(scene, sensor, state) -> Packed:
+    """The kernel's rows. K4 has no adjoint: under autograd it runs only
+    inside `render/integrator.py::_Megakernel`, whose forward packs with
+    gradients off and whose backward replays the wavefront path."""
     device = scene.shapes.to_world.device
     packed = Packed(_camera_row(sensor, scene.env_to_world),
                     _shape_rows(scene.shapes, scene.env_to_world),
@@ -74,9 +77,14 @@ def pack(scene, sensor, state) -> Packed:
                                  device=device),
                     pack_tables(state, device))
     for t in packed[:4]:
-        if t.device != device or t.requires_grad:
+        if t.device != device:
             raise ValueError("direct_rgb_megakernel: scene, sensor and state "
-                             "must be constant tensors on one device")
+                             "must lie on one device")
+    if any(t is not None and t.requires_grad
+           for t in (*packed[:4], *packed.tables)):
+        raise ValueError("direct_rgb_megakernel has no adjoint: call it "
+                         "with gradients off (render() differentiates it "
+                         "by replaying the wavefront path)")
     return packed
 
 

@@ -24,7 +24,7 @@ class MaterialTable(NamedTuple):
 
 
 def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
-                        twosided=None, device=None) -> MaterialTable:
+                        twosided=None, device="cuda") -> MaterialTable:
     a = np.atleast_2d(np.asarray(albedos, np.float32))
     m = a.shape[0]
     kinds = (np.zeros((m,), np.int64) if kinds is None
@@ -38,7 +38,8 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
                          torch.tensor(ts, device=device))
 
 
-def make_diffuse_table(albedos, twosided=None, device=None) -> MaterialTable:
+def make_diffuse_table(albedos, twosided=None,
+                       device="cuda") -> MaterialTable:
     return make_material_table(albedos=albedos, twosided=twosided,
                                device=device)
 

@@ -16,9 +16,18 @@ megakernel K4 (`ops/cuda/megakernel.py`), and every other scene through
 the wavefront path, whose sky lookups are kernels K2 and K3 for CUDA
 tensors. `plain=True` runs the wavefront path with the plain sunsky
 functions on any device: the reference K4 is held against.
+
+Gradients: the wavefront path is plain tensor code, so torch autograd
+differentiates it; on the card its sky lookups transpose into the adjoint
+kernels K5 and K6. K4 has no adjoint: `_Megakernel` runs it forward and
+replays the wavefront path under autograd in its backward, as the
+reference package's `mega` custom_jvp does
+(`tpusky/render/integrator.py:989-1026`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -77,8 +86,10 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
     """Estimate radiance along primary rays o, d -> (N, 3).
 
     max_depth counts path vertices like the reference (2 == direct
-    illumination). Sample placement is detached, as in the reference
-    package (`prb.py:147-160`)."""
+    illumination). Sample placement and every pdf in a MIS weight or an
+    estimator's denominator are detached exactly where the reference
+    package's `_path_sample` detaches them (`prb.py:147-160`); each
+    `.detach()` below names its line in `tpusky/render/integrator.py`."""
     _check_slice(scene, max_depth, rr_depth, mode, kinds)
     n = o.shape[0]
     dev = o.device
@@ -95,7 +106,8 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
         env_l, em_pdf = em.env_eval_pdf(env, d, env_to_world, mode,
                                         pdf_detached=True, plain=plain)
         em_pdf = torch.where(prev_bsdf_delta, 0.0, em_pdf)
-        mis_em = _mis_weight(prev_bsdf_pdf, em_pdf)
+        # sg(em_pdf): tpusky/render/integrator.py:371 (loop), :765 (last)
+        mis_em = _mis_weight(prev_bsdf_pdf, em_pdf.detach())
         escaped = active & ~geo[4]
         return geo, torch.where(escaped[..., None],
                                 throughput * env_l * mis_em[..., None], 0.0)
@@ -114,29 +126,31 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
         wi_local = frame.to_local(-d)
 
         # ---- next-event estimation toward the environment ----
-        u_nee = smp.next(3 * depth + 0, 2)
+        u_nee = smp.next(3 * depth + 0, 2).detach()          # :464
         d_e, l_e, pdf_e = em.env_sample_eval(env, env_to_world, u_nee, mode,
                                              pdf_detached=True, plain=plain)
+        pdf_e = pdf_e.detach()                                # :470
         f_val, pdf_b = bsdf_mod.diffuse_eval_pdf(
             scene.bsdfs, mat_idx, wi_local, frame.to_local(d_e))
         occluded = scene_occluded(scene, offset(p, ng, d_e), d_e, torch.inf)
-        mis_nee = _mis_weight(pdf_e, pdf_b)
+        mis_nee = _mis_weight(pdf_e, pdf_b.detach())          # :480
         contrib = (throughput * f_val * l_e
                    * (mis_nee / pdf_e.clamp(min=1e-20))[..., None])
         ok = active & ~occluded & (pdf_e > 0.0)
         result = result + torch.where(ok[..., None], contrib, 0.0)
 
         # ---- BSDF sampling for the next bounce ----
-        u_bsdf = smp.next(3 * depth + 1, 3)
+        u_bsdf = smp.next(3 * depth + 1, 3).detach()         # :618
         wo_local, weight, pdf_b = bsdf_mod.diffuse_sample(
             scene.bsdfs, mat_idx, wi_local, u_bsdf[..., :2])
-        d_next = frame.to_world(wo_local)
+        d_next = frame.to_world(wo_local.detach())            # :622
         active = active & (pdf_b > 0.0)
         keep = active[..., None]
         o = torch.where(keep, offset(p, ng, d_next), o)
         d = torch.where(keep, d_next, d)
         throughput = torch.where(keep, throughput * weight, throughput)
-        prev_bsdf_pdf = torch.where(active, pdf_b, prev_bsdf_pdf)
+        prev_bsdf_pdf = torch.where(active, pdf_b.detach(),  # :668
+                                    prev_bsdf_pdf)
         prev_bsdf_delta = torch.where(active, False, prev_bsdf_delta)
 
     # final vertex: only the emitter-hit contribution remains
@@ -243,15 +257,86 @@ def _megakernel_rules(scene, sensor, film_cfg, spp, max_depth, mode,
     return True
 
 
+class _Node(NamedTuple):
+    """A NamedTuple of `_flatten`'s structure: its type and children."""
+    kind: type
+    children: tuple
+
+
+_LEAF = object()
+
+
+def _flatten(obj, leaves: list):
+    """Structure of nested NamedTuples with their tensors moved to
+    `leaves` (everything else stays in the structure)."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return _LEAF
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return _Node(type(obj), tuple(_flatten(v, leaves) for v in obj))
+    return obj
+
+
+def _unflatten(structs, leaves):
+    """The objects of the structures `structs`, leaves filled in order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is _LEAF:
+            return next(it)
+        if isinstance(node, _Node):
+            return node.kind(*(build(c) for c in node.children))
+        return node
+    return tuple(build(st) for st in structs)
+
+
+class _Megakernel(torch.autograd.Function):
+    """Film accumulation of an eligible scene: K4 forward; the backward
+    replays `render_rows` (K2/K3 forward, K5/K6 backward) under autograd
+    with the incoming cotangent, so AD never touches K4. The scene's and
+    the sensor's tensors come in flattened, since `apply` sees only the
+    tensors passed to it."""
+
+    @staticmethod
+    def forward(ctx, cfg, struct, *leaves):
+        from ..ops.cuda.megakernel import direct_rgb_megakernel
+        ctx.cfg, ctx.struct = cfg, struct
+        ctx.save_for_backward(*leaves)
+        scene, sensor = _unflatten(struct, [t.detach() for t in leaves])
+        film_cfg, seed, spp = cfg[:3]
+        return direct_rgb_megakernel(scene, sensor, scene.env, seed, spp,
+                                     film_cfg.width, film_cfg.height)
+
+    @staticmethod
+    def backward(ctx, g_accum):
+        film_cfg, seed, spp, max_depth, rr_depth, mode, sampler_kind, \
+            kinds = ctx.cfg
+        want = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(w)
+                      for t, w in zip(ctx.saved_tensors, want)]
+            scene, sensor = _unflatten(ctx.struct, leaves)
+            accum = render_rows(scene, sensor, film_cfg, seed, spp,
+                                max_depth, rr_depth, mode, 0,
+                                film_mod.crop_extent(film_cfg)[3],
+                                sampler_kind=sampler_kind, kinds=kinds)
+            wanted = [t for t, w in zip(leaves, want) if w]
+            grads = iter(torch.autograd.grad(accum, wanted, g_accum,
+                                             allow_unused=True))
+        return (None, None, *(next(grads) if w else None for w in want))
+
+
 def _render_impl(scene, sensor, film_cfg, seed, spp, max_depth, rr_depth,
                  mode, sampler_kind="independent", kinds=None):
     """Film accumulation (H, W, 4): K4 for an eligible scene on the card,
     the wavefront path otherwise."""
     if _megakernel_ok(scene, sensor, film_cfg, spp, max_depth, mode,
                       sampler_kind, kinds, rr_depth):
-        from ..ops.cuda.megakernel import direct_rgb_megakernel
-        return direct_rgb_megakernel(scene, sensor, scene.env, seed, spp,
-                                     film_cfg.width, film_cfg.height)
+        leaves = []
+        struct = (_flatten(scene, leaves), _flatten(sensor, leaves))
+        cfg = (film_cfg, seed, spp, max_depth, rr_depth, mode, sampler_kind,
+               kinds)
+        return _Megakernel.apply(cfg, struct, *leaves)
     return render_rows(scene, sensor, film_cfg, seed, spp, max_depth,
                        rr_depth, mode, 0, film_mod.crop_extent(film_cfg)[3],
                        sampler_kind=sampler_kind, kinds=kinds)

@@ -30,7 +30,7 @@ def scene_occluded(scene: Scene, o, d, maxt):
 
 def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                env_to_world=None, bsdf_twosided=None, bsdf_kinds=None,
-               device=None) -> Scene:
+               device="cuda") -> Scene:
     """Assemble a scene from host-side descriptions: shapes are dicts
     accepted by `make_shape_table`."""
     if len(shapes) == 0:

@@ -22,7 +22,7 @@ class Perspective(NamedTuple):
 
 
 def make_perspective(origin, target, up=(0, 0, 1), fov_x_deg=45.0,
-                     aspect=1.0, device=None) -> Perspective:
+                     aspect=1.0, device="cuda") -> Perspective:
     """Look-at constructor (Mitsuba's convention: the camera looks down +z
     in camera space, x right, y up-ish)."""
     origin = np.asarray(origin, np.float32)

@@ -31,7 +31,7 @@ class ShapeTable(NamedTuple):
     bsdf_idx: torch.Tensor       # (N,) int64 index into the BSDF table
 
 
-def make_shape_table(shapes, device=None) -> ShapeTable:
+def make_shape_table(shapes, device="cuda") -> ShapeTable:
     """Build a ShapeTable from a list of dicts {kind, to_world (4x4),
     bsdf_idx}."""
     n = len(shapes)
