@@ -28,8 +28,9 @@ Phases, each of which raises (exit code != 0) on failure:
    and the steps must lower the loss and raise turbidity toward the
    target's. The kernel path's gradient is then held against the plain
    path's on the card;
-6. times of each kernel and its plain version (CUDA events), the
-   fwd+bwd rate of bench_grad, a training step's time and peak memory;
+6. times of each kernel and its plain version (CUDA events; for the
+   adjoints, autograd's backward over a graph built once), the fwd+bwd
+   rate of bench_grad, a training step's time and peak memory;
 7. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
@@ -59,6 +60,12 @@ LANE_CAP = 1e-5
 # one ulp from the disc surrogate's ramp clamp flips between a derivative
 # of 2 / (1 - cos_cut) and 0
 DD_CAP = 1e-4
+# K6 against the plain sampler: the band around the disc weight's ramp
+# clamps whose lanes are left out of the misc row's bar (4.5 float32 ulps
+# of cos(gamma)), and their allowed share (the sun-cone samples within it
+# are ~5% of the cone's, ~3% of the lanes at the headline sky weight)
+RAMP_BAND = 0.05
+RAMP_CAP = 3e-2
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 operations/s
 PEAK_BYTES = 3.35e12
@@ -66,15 +73,24 @@ PEAK_OPS = 67e12
 # FP32 operations per lane, counted from the CUDA sources with +, -, *
 # at 1, a division or sqrtf at 4, expf 8, sinf/cosf/cbrtf/erff 12,
 # asinf/acosf 14, atan2f/erfinvf 20, and compares, selects and integer
-# work at 0 (tsk:: functions of tpusky_torch/csrc/sunsky_core.cuh)
+# work at 0 (tsk:: functions of tpusky_torch/csrc/sunsky_core.cuh). Work
+# whose result is zero on a lane (the sun polynomial off the disc, its
+# partials and the ramp's chain off the ramp) is counted only where it is
+# needed; the sun segment's set-up is counted on every above-horizon lane.
 OPS = {
     "radiance": 305,      # radiance(), an above-horizon lane
     "radiance_sun": 216,  # + its sun polynomial, a lane inside the disc
     "pdf": 554,           # mixture_pdf(), an active lane (20 gaussians)
     "sample_sky": 170,    # nee_sample(), TGMM branch
     "sample_sun": 75,     # nee_sample(), cone branch
-    "vjp": 1295,          # radiance_vjp(), an above-horizon lane
-    "vjp_sun": 432,       # + the sun row's cotangents, a lane in the disc
+    "vjp": 566,           # radiance_vjp(), an above-horizon lane: forward,
+                          # the sky formula's reverse, gamma's and d's
+    "vjp_sun_value": 225,  # + the sun polynomial's value and the disc
+                           # weight's cotangent, a lane in the disc or ramp
+    "vjp_disc": 747,      # + the polynomial's partials, the sun row's 72
+                          # atomics, the limb and elevation chains, a lane
+                          # in the disc
+    "vjp_ramp": 24,       # + the ramp's chain to cos_cut and softness
     "path": 830,          # K4's own work per camera hit besides the sunsky
                           # cores: ray generation, 3 x 3 shape tests, BSDF
                           # eval and sample, frames, MIS
@@ -113,7 +129,11 @@ def _count_outside(name, err, bar, n, cap=LANE_CAP):
 
 
 def _check_scale(name, a, b, bar):
+    """Hold a against b within bar of b's scale; bar None only prints."""
     err = _scale_err(a, b)
+    if bar is None:
+        print(f"read {name}: {err:.3e} of its scale (no bar)")
+        return
     print(f"check {name}: {err:.3e} of its scale (bar {bar:g})")
     if not err <= bar:
         raise AssertionError(f"{name}: {err:.3e} > {bar:g}")
@@ -151,6 +171,24 @@ def _bound(nbytes, ops):
                                        else "operations")
 
 
+def _vjp_ops(d, state):
+    """radiance_vjp's operations over the directions d (N, 3), counted per
+    lane class (OPS): above the horizon, in the disc, on the disc weight's
+    ramp, in either."""
+    p = state.params
+    cos_cut = math.cos(float(p.sun_half_aperture))
+    half = 0.25 * (1.0 - cos_cut) * float(p.disc_softness)
+    cos_g = (d * state.sun_frame_n).sum(-1)
+    above = d[:, 2] >= 0
+    disc = above & (cos_g >= cos_cut)
+    ramp = above & ((cos_g - cos_cut).abs() <= half)
+    o = OPS
+    return (float(above.sum()) * o["vjp"]
+            + float((disc | ramp).sum()) * o["vjp_sun_value"]
+            + float(disc.sum()) * o["vjp_disc"]
+            + float(ramp.sum()) * o["vjp_ramp"])
+
+
 def _headline_scene(state, device):
     """bench.py's headline scene: a diffuse sphere on a diffuse ground
     rectangle under the sunsky, seen by a 45-degree perspective camera."""
@@ -169,6 +207,70 @@ def _headline_scene(state, device):
     return scene, sensor
 
 
+def grad_case(kind, scene, sensor, film, tables, dev):
+    """bench.py::bench_grad on the headline scene: the loss mean(img^2) at
+    GRAD_SPP and its gradient to (turbidity, albedo, sun direction)
+    through precompute. kind "rows" runs the wavefront with the kernels,
+    "plain" the wavefront with the plain versions, "render" K4 forward and
+    the wavefront replayed backward. Returns (loss, gradients)."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky.model import precompute
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import develop
+    t = torch.tensor(3.0, device=dev, requires_grad=True)
+    alb = torch.full((3,), 0.3, device=dev, requires_grad=True)
+    sd = torch.tensor(SUN, device=dev, requires_grad=True)
+    p = tt.make_params(turbidity=t, albedo=alb,
+                       sun_direction=sd / torch.sqrt((sd ** 2).sum()),
+                       device=dev)
+    sc = scene._replace(env=precompute(tables, p))
+    if kind == "render":
+        im = integrator.render(sc, sensor, film, SEED, spp=GRAD_SPP)
+    else:
+        im = develop(integrator.render_rows(
+            sc, sensor, film, SEED, GRAD_SPP, MAX_DEPTH, 1000, "rgb", 0, H,
+            plain=kind == "plain"))
+    loss = (im ** 2).mean()
+    return loss.detach().item(), torch.autograd.grad(loss, [t, alb, sd])
+
+
+def train_case(scene, sensor, film, tables, dev):
+    """bench.py::bench_train's step on the headline scene at SPP with
+    log_l2_blur, its scene_builder_min (clip, normalise) and Adam at its
+    starting rates (t 0.05, albedo 0.015, sun 0), from turbidity 3.0
+    toward a target rendered at turbidity 6.5. Returns (step, optimizer,
+    builder, start parameters, target image)."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.ad.optimizers import Adam
+    from tpusky_torch.models.sunsky.model import precompute
+    from tpusky_torch.parallel.render import make_train_step_single
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import develop
+
+    def builder(pd):
+        full = tt.make_params(
+            turbidity=pd["t"].clamp(1.0, 10.0),
+            albedo=pd["alb"].clamp(0.0, 1.0),
+            sun_direction=pd["sun"] / torch.sqrt((pd["sun"] ** 2).sum()),
+            device=dev)
+        return scene._replace(env=precompute(tables, full))
+
+    sun0 = torch.tensor(SUN, device=dev) / math.sqrt(sum(x * x for x in SUN))
+    start = {"t": torch.tensor(3.0, device=dev),
+             "alb": torch.full((3,), 0.3, device=dev), "sun": sun0}
+    opt = Adam(0.05)
+    opt.set_learning_rate(t=0.05, alb=0.015, sun=0.0)
+    step = make_train_step_single(builder, sensor, film, SPP, opt,
+                                  max_depth=MAX_DEPTH, loss="log_l2_blur")
+    with torch.no_grad():
+        target = develop(integrator.render_rows(
+            builder({**start, "t": torch.tensor(6.5, device=dev)}), sensor,
+            film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0, H))
+    return step, opt, builder, start, target
+
+
 def _leaf_params(dev):
     """The headline parameters, every field a leaf that requires grad."""
     import tpusky_torch as tt
@@ -183,14 +285,16 @@ def _adjoint_check(name, out_k, out_p, g, state, params, lanes_k=(),
     """Hold an adjoint kernel's cotangents against autograd of the plain
     version: the tables it writes (sky params, sky radiance, sun), the
     misc row pulled back to its state sources, each within 1e-3 of the
-    table's largest plain cotangent (misc within `misc_bar`); (turbidity,
-    albedo) within 1e-3 and the sun direction within 3e-2, relative.
-    Returns (max abs error of the kernel's table cotangents, per-lane
-    cotangents of kernel and plain)."""
+    table's largest plain cotangent (misc within `misc_bar`; where it is
+    None, the misc row and each of its sources are only printed);
+    (turbidity, albedo) within 1e-3 and the sun direction within 3e-2,
+    relative. Returns (max abs error of the kernel's table cotangents,
+    per-lane cotangents of kernel and plain)."""
     import torch
     tables = [state.sky_params, state.sky_radiance, state.sun_radiance]
-    misc = [state.sun_frame_n, params.sun_half_aperture, params.sky_scale,
-            params.sun_scale, params.disc_softness]
+    misc_names = ("sun_frame_n", "sun_half_aperture", "sky_scale",
+                  "sun_scale", "disc_softness")
+    misc = [state.sun_frame_n] + [getattr(params, f) for f in misc_names[1:]]
     pars = [params.turbidity, params.albedo, params.sun_direction]
     wrt = tables + misc + pars
     gk = torch.autograd.grad(out_k, wrt + list(lanes_k), g,
@@ -203,6 +307,9 @@ def _adjoint_check(name, out_k, out_p, g, state, params, lanes_k=(),
     _check_scale(f"{name} dmisc (at its state sources)",
                  torch.cat([x.reshape(-1) for x in gk[flat]]),
                  torch.cat([x.reshape(-1) for x in gp[flat]]), misc_bar)
+    if misc_bar is None:
+        for f, a, b in zip(misc_names, gk[flat], gp[flat]):
+            _check_scale(f"{name} d{f}", a, b, None)
     n_wrt = len(wrt)
     for i, (t, bar) in enumerate((("turbidity", 1e-3), ("albedo", 1e-3),
                                   ("sun_direction", 3e-2))):
@@ -219,12 +326,11 @@ def main():
         raise RuntimeError("chip_smoke needs a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import tpusky_torch as tt
-    from tpusky_torch.ad.optimizers import Adam
     from tpusky_torch.models.sunsky import model as M
     from tpusky_torch.ops.cuda import build
     from tpusky_torch.ops.cuda import megakernel as MK
     from tpusky_torch.ops.cuda import sunsky_kernel as K
-    from tpusky_torch.parallel.render import image_loss, make_train_step_single
+    from tpusky_torch.parallel.render import image_loss
     from tpusky_torch.render import integrator
     from tpusky_torch.render.film import Film, develop, splat_ordered
     from tpusky_torch.render.sensors import sample_ray
@@ -324,18 +430,36 @@ def main():
     # K6 redraws K3's samples bitwise, so it is held against the plain
     # radiance's autograd at those samples, and against the plain NEE
     # block with its own sampler. The two samplers' directions differ by
-    # ulps (up to 7e-6, above); at the sun's limb the limb darkening's
-    # derivative 1 / sqrt(q), q = 1 - sin^2(gamma) / sin^2(aperture),
-    # turns a 1e-7 move of a direction into a 4e-5 move of q, so the few
-    # limb lanes' shares of the aperture and sun-direction cotangents move
-    # by O(1): there the misc row gets the sun direction's bar, 3e-2
+    # ulps (up to 7e-6, above). Near the sun, one ulp of cos(gamma) in
+    # float32 (6e-8) is 0.011 of the disc weight's ramp, whose half-width
+    # in cos(gamma) is 5.4e-6 here; where a lane's ramp is that close to
+    # its clamp at 0 or 1, the two samplers' directions put it on either
+    # side, and its derivative 1 / eps, ~2e5, reaches the aperture's and
+    # the sun direction's cotangents or not. The misc row is read over
+    # all lanes, and held at 1e-3 without the lanes whose directions
+    # differ and whose ramp lies within RAMP_BAND of a clamp
     d6, rad6, _ = K.sunsky_nee_rgb(st_g, u2, pdf_detached=True)
     results["K6"], _, _ = _adjoint_check(
         "K6 (at its samples)", rad6, M._eval_rgb_plain(st_g, d6), g_rad,
         st_g, lp)
-    _adjoint_check("K6 (plain sampler)", rad6,
-                   M._sample_eval_rgb_plain(st_g, u2)[1], g_rad, st_g, lp,
-                   misc_bar=3e-2)
+    d_ps, rad_ps = M._sample_eval_rgb_plain(st_g, u2)[:2]
+    _adjoint_check("K6 (plain sampler, all lanes)", rad6, rad_ps, g_rad,
+                   st_g, lp, misc_bar=None)
+    with torch.no_grad():
+        cos_cut = math.cos(float(lp.sun_half_aperture))
+        eps = 0.5 * (1.0 - cos_cut) * float(lp.disc_softness)
+        cos_g = (d_ps.double() * st_g.sun_frame_n.double()).sum(-1)
+        ramp = (cos_g - cos_cut) / eps + 0.5
+        at_clamp = (d6 != d_ps).any(-1) & (
+            (ramp.abs() < RAMP_BAND) | ((ramp - 1.0).abs() < RAMP_BAND))
+    n_clamp = int(at_clamp.sum())
+    print(f"check K6 lanes left out (directions differ, ramp within "
+          f"{RAMP_BAND:g} of a clamp): {n_clamp} of {n} "
+          f"(cap {int(RAMP_CAP * n)})")
+    if n_clamp > RAMP_CAP * n:
+        raise AssertionError(f"K6: {n_clamp} lanes at the ramp's clamps")
+    _adjoint_check("K6 (plain sampler, ramp clamps left out)", rad6, rad_ps,
+                   g_rad * (~at_clamp)[:, None], st_g, lp)
     # the attached-pdf adjoints K7, K8 are not ported: asking for them on
     # the card raises instead of running anything else
     for k, ask in (("K7", lambda: M.eval_pdf(st_g, d_k[:8])),
@@ -349,7 +473,7 @@ def main():
         else:
             raise AssertionError(f"the attached pdf's gradient ran without "
                                  f"{k}")
-    del dd_k, dd_p, dd_err, d_k, d_p, st_g, d6, rad6
+    del dd_k, dd_p, dd_err, d_k, d_p, st_g, d6, rad6, d_ps, rad_ps, cos_g, ramp
 
     # ---- 4. the forward main path ----
     film = Film(H, W, 3)
@@ -414,52 +538,15 @@ def main():
     tables_dev = tt.load_tables("rgb", device=dev)
 
     def bench_grad(kind):
-        """bench.py::bench_grad's loss and its gradient to (turbidity,
-        albedo, sun direction): kind "rows" (the wavefront with the
-        kernels), "plain" (the wavefront with the plain versions) or
-        "render" (K4 forward, replayed backward)."""
-        t = torch.tensor(3.0, device=dev, requires_grad=True)
-        alb = torch.full((3,), 0.3, device=dev, requires_grad=True)
-        sd = torch.tensor(SUN, device=dev, requires_grad=True)
-        pp = tt.make_params(turbidity=t, albedo=alb,
-                            sun_direction=sd / torch.sqrt((sd ** 2).sum()),
-                            device=dev)
-        sc = scene._replace(env=M.precompute(tables_dev, pp))
-        if kind == "render":
-            im = integrator.render(sc, sensor, film, SEED, spp=GRAD_SPP)
-        else:
-            im = develop(integrator.render_rows(
-                sc, sensor, film, SEED, GRAD_SPP, MAX_DEPTH, 1000, "rgb", 0,
-                H, plain=kind == "plain"))
-        loss = (im ** 2).mean()
-        return loss.detach().item(), torch.autograd.grad(loss, [t, alb, sd])
-
-    def builder(pd):
-        """bench.py::bench_train's scene_builder_min: clip, normalise."""
-        full = tt.make_params(
-            turbidity=pd["t"].clamp(1.0, 10.0),
-            albedo=pd["alb"].clamp(0.0, 1.0),
-            sun_direction=pd["sun"] / torch.sqrt((pd["sun"] ** 2).sum()),
-            device=dev)
-        return scene._replace(env=M.precompute(tables_dev, full))
-
-    sun0 = torch.tensor(SUN, device=dev) / math.sqrt(sum(x * x for x in SUN))
-    start = {"t": torch.tensor(3.0, device=dev),
-             "alb": torch.full((3,), 0.3, device=dev), "sun": sun0}
-    opt = Adam(0.05)
-    opt.set_learning_rate(t=0.05, alb=0.015, sun=0.0)
-    step = make_train_step_single(builder, sensor, film, SPP, opt,
-                                  max_depth=MAX_DEPTH, loss="log_l2_blur")
+        return grad_case(kind, scene, sensor, film, tables_dev, dev)
 
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
     loss_k, grad_k = bench_grad("rows")
     loss_r, grad_r = bench_grad("render")
-    with torch.no_grad():
-        target = develop(integrator.render_rows(
-            builder({**start, "t": torch.tensor(6.5, device=dev)}), sensor,
-            film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0, H))
+    step, opt, builder, start, target = train_case(scene, sensor, film,
+                                                   tables_dev, dev)
     torch.cuda.reset_peak_memory_stats()
     pd, ost, losses, step_s = dict(start), opt.init(start), [], []
     for _ in range(TRAIN_STEPS):
@@ -518,13 +605,16 @@ def main():
     d_l = d_g.clone().requires_grad_()
     leaves = [st_l.sky_params, st_l.sky_radiance, st_l.sun_radiance]
 
+    # the plain adjoints: autograd's backward alone, over graphs built once
+    out5 = M._eval_rgb_plain(st_l, d_l)
+    out6 = M._sample_eval_rgb_plain(st_l, u2)[1]
+
     def plain_k5():
-        return torch.autograd.grad(M._eval_rgb_plain(st_l, d_l),
-                                   leaves + [d_l], g_rad)
+        return torch.autograd.grad(out5, leaves + [d_l], g_rad,
+                                   retain_graph=True)
 
     def plain_k6():
-        return torch.autograd.grad(M._sample_eval_rgb_plain(st_l, u2)[1],
-                                   leaves, g_rad)
+        return torch.autograd.grad(out6, leaves, g_rad, retain_graph=True)
     times = {
         "K1": _pair_ms(lambda: K.launch_eval(tables, dirs),
                        lambda: M._eval_rgb_plain(state, dirs)),
@@ -594,14 +684,13 @@ def main():
         cos_cut = math.cos(float(state.params.sun_half_aperture))
         above = float((dirs[:, 2] >= 0).sum())
         disc = float(((dirs * n_sun).sum(-1) >= cos_cut).sum())
-        above_g = float((d_g[:, 2] >= 0).sum())
-        disc_g = float((((d_g * n_sun).sum(-1) >= cos_cut)
-                        & (d_g[:, 2] >= 0)).sum())
+        vjp5 = _vjp_ops(d_g, state)
         sky_pick = float((u2[:, 0] < state.sky_sampling_w).sum())
         d3 = K.launch_nee(tables, u2)[0]
         above3 = float((d3[:, 2] >= 0).sum())
         disc3 = float((((d3 * n_sun).sum(-1) >= cos_cut)
                        & (d3[:, 2] >= 0)).sum())
+        vjp6 = _vjp_ops(d3, state)
         n4 = H * W * SPP
         u_pos = torch.rand((n4, 2), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(0))
@@ -625,11 +714,9 @@ def main():
         "K4": _bound(12 * n4 + TABLE_BYTES + GAUSS_BYTES,
                      hits * per_hit
                      + (n4 - hits) * (o["miss"] + o["radiance"])),
-        "K5": _bound(36 * n + TABLE_BYTES + ROW_BYTES,
-                     above_g * o["vjp"] + disc_g * o["vjp_sun"]),
+        "K5": _bound(36 * n + TABLE_BYTES + ROW_BYTES, vjp5),
         "K6": _bound(20 * n + TABLE_BYTES + GAUSS_BYTES + ROW_BYTES,
-                     sample_ops + above3 * o["vjp"]
-                     + disc3 * o["vjp_sun"]),
+                     sample_ops + vjp6),
     }
     for key, (ms, by) in bounds.items():
         print(f"bound {key}: {ms:.4f} ms ({by}); measured "

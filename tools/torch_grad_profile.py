@@ -1,10 +1,10 @@
 """Where the time of the port's gradient path goes, on one NVIDIA GPU.
 
-Runs `bench.py::bench_grad`'s step on the PyTorch port (512x512, 4 spp,
-depth 2, loss mean(img^2), gradients to turbidity, albedo and sun
-direction through precompute; render_rows with K2/K3 forward and K5/K6
-backward) and one `make_train_step_single` step at 512x512, 8 spp
-(log_l2_blur, Adam) under `torch.profiler`, and prints for each: the wall
+Runs chip_smoke.py's gradient cases under `torch.profiler`: `bench.py::
+bench_grad`'s step (512x512, 4 spp, depth 2, loss mean(img^2), gradients
+to turbidity, albedo and sun direction through precompute; render_rows
+with K2/K3 forward and K5/K6 backward) and one `make_train_step_single`
+step at 512x512, 8 spp (log_l2_blur, Adam). For each it prints the wall
 time per iteration, the device's busy share of it, the device time of the
 hand-written kernels against all the rest, and the 15 largest device-time
 entries. Run from the repository root on a machine with a card:
@@ -15,8 +15,6 @@ entries. Run from the repository root on a machine with a card:
 import os
 import sys
 import time
-
-import numpy as np
 
 
 def _device_us(evt):
@@ -62,65 +60,25 @@ def main():
         raise SystemExit("torch_grad_profile needs a CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    import chip_smoke as cs
     import tpusky_torch as tt
-    from tpusky_torch.ad.optimizers import Adam
-    from tpusky_torch.models.sunsky.model import precompute
-    from tpusky_torch.parallel.render import make_train_step_single
-    from tpusky_torch.render import integrator
-    from tpusky_torch.render.film import Film, develop
-    from tpusky_torch.render.scene import make_scene
-    from tpusky_torch.render.sensors import make_perspective
+    from tpusky_torch.render.film import Film
 
     dev = torch.device("cuda", 0)
-    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
-    sphere = np.eye(4, dtype=np.float32)
-    sphere[2, 3] = 1.0
-    scene = make_scene(shapes=[dict(kind=1, to_world=ground, bsdf_idx=0),
-                               dict(kind=0, to_world=sphere, bsdf_idx=1)],
-                       bsdf_albedos=[[0.4, 0.4, 0.4], [0.6, 0.2, 0.2]],
-                       device=dev)
-    sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
-                              device=dev)
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=cs.SUN, device=dev))
+    scene, sensor = cs._headline_scene(state, dev)
     tables = tt.load_tables("rgb", device=dev)
-    film = Film(512, 512, 3)
-    sun = [0.3, 0.2, 0.93]
+    film = Film(cs.H, cs.W, 3)
+    step, opt, _, params, target = cs.train_case(scene, sensor, film,
+                                                 tables, dev)
+    opt_state = opt.init(params)
 
-    def grad_step():
-        t = torch.tensor(3.0, device=dev, requires_grad=True)
-        alb = torch.full((3,), 0.3, device=dev, requires_grad=True)
-        sd = torch.tensor(sun, device=dev, requires_grad=True)
-        p = tt.make_params(turbidity=t, albedo=alb,
-                           sun_direction=sd / torch.sqrt((sd ** 2).sum()),
-                           device=dev)
-        img = develop(integrator.render_rows(
-            scene._replace(env=precompute(tables, p)), sensor, film, 1, 4,
-            2, 1000, "rgb", 0, 512))
-        return torch.autograd.grad((img ** 2).mean(), [t, alb, sd])
-
-    def build(pd):
-        return scene._replace(env=precompute(tables, tt.make_params(
-            turbidity=pd["t"].clamp(1.0, 10.0),
-            albedo=pd["alb"].clamp(0.0, 1.0),
-            sun_direction=pd["sun"] / torch.sqrt((pd["sun"] ** 2).sum()),
-            device=dev)))
-
-    opt = Adam(0.05)
-    opt.set_learning_rate(t=0.05, alb=0.015, sun=0.0)
-    step = make_train_step_single(build, sensor, film, 8, opt,
-                                  loss="log_l2_blur")
-    params = {"t": torch.tensor(3.0, device=dev),
-              "alb": torch.full((3,), 0.3, device=dev),
-              "sun": torch.tensor(sun, device=dev)}
-    with torch.no_grad():
-        target = develop(integrator.render_rows(
-            build({**params, "t": torch.tensor(6.5, device=dev)}), sensor,
-            film, 1, 8, 2, 1000, "rgb", 0, 512))
-    state = opt.init(params)
-
-    print(f"card: {torch.cuda.get_device_name(0)}, torch {torch.__version__}")
-    _profile("bench_grad fwd+bwd, 512x512x4", grad_step)
-    _profile("train step, 512x512x8, log_l2_blur",
-             lambda: step(state, params, target, 1))
+    print(f"card: {cs._card_line()}, torch {torch.__version__}")
+    _profile(f"bench_grad fwd+bwd, {cs.H}x{cs.W}x{cs.GRAD_SPP}",
+             lambda: cs.grad_case("rows", scene, sensor, film, tables, dev))
+    _profile(f"train step, {cs.H}x{cs.W}x{cs.SPP}, log_l2_blur",
+             lambda: step(opt_state, params, target, cs.SEED))
 
 
 if __name__ == "__main__":
