@@ -28,10 +28,19 @@ Phases, each of which raises (exit code != 0) on failure:
    and the steps must lower the loss and raise turbidity toward the
    target's. The kernel path's gradient is then held against the plain
    path's on the card;
-6. times of each kernel and its plain version (CUDA events; for the
+6. the spectral main path: K9-K11 against their plain versions at
+   2,097,152 lanes with 4 hero wavelengths from `sample_rgb_spectrum`,
+   then `bench.py::bench_spectral`'s frame (512x512, 8 spp, depth 4, a
+   rough-conductor ground) through `render(mode="spectral")` (K10, K11)
+   after a spectral sky dome (K9); every spectral kernel's launch count
+   must rise, the frame must agree with the plain path on the card lane
+   by lane and per image, and a crop of it with the CPU's plain render;
+   a spectral gradient on the card must raise (K12/K13 are not ported);
+7. times of each kernel and its plain version (CUDA events; for the
    adjoints, autograd's backward over a graph built once), the fwd+bwd
-   rate of bench_grad, a training step's time and peak memory;
-7. one JSON line of kernel results, then the device line, last.
+   rate of bench_grad, a training step's time and peak memory, the
+   spectral frame's time and rays per second;
+8. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -54,6 +63,9 @@ MAX_DEPTH = 2
 SEED = 1
 SUN = [0.3, 0.2, 0.93]
 TRAIN_STEPS = 5
+SPEC_DEPTH = 4              # bench.py::bench_spectral
+N_HERO = 4                  # hero wavelengths per path
+CROP = (224, 160, 32, 32)   # x0, y0, width, height of the CPU-checked crop
 # the allowed share of lanes outside a per-lane bar of phase 3
 LANE_CAP = 1e-5
 # the share of lanes whose direction cotangent may miss its bar: a lane
@@ -95,8 +107,18 @@ OPS = {
                           # cores: ray generation, 3 x 3 shape tests, BSDF
                           # eval and sample, frames, MIS
     "miss": 250,          # K4's own work for a camera ray that misses
+    # radiance_spec() (K9-K11): the shared geometry of an above-horizon
+    # lane (sky_geometry), then per wavelength inside [320, 720] nm its
+    # two channels' sky formulas and the lerp, + their sun polynomials,
+    # limb darkening and lerps in the disc; a wavelength outside costs
+    # its channel coordinate
+    "spec_geometry": 135,
+    "spec_wavelength": 118,
+    "spec_wavelength_sun": 49,
+    "spec_outside": 5,
 }
 TABLE_BYTES = 4 * (27 + 3 + 45 * 72 + 16)
+SPEC_TABLE_BYTES = 4 * (11 * 9 + 11 + 45 * 44 + 11 * 6 + 16)
 GAUSS_BYTES = 4 * 14 * 20
 ROW_BYTES = 4 * (45 * 72 + 46)      # the adjoints' cotangent row
 
@@ -187,6 +209,38 @@ def _vjp_ops(d, state):
             + float((disc | ramp).sum()) * o["vjp_sun_value"]
             + float(disc.sum()) * o["vjp_disc"]
             + float(ramp.sum()) * o["vjp_ramp"])
+
+
+def _spec_ops(d, wl, state):
+    """radiance_spec's operations over directions d (N, 3) at wavelengths
+    wl (N, W), counted per lane and wavelength class (OPS)."""
+    cos_cut = math.cos(float(state.params.sun_half_aperture))
+    above = d[:, 2] >= 0
+    disc = above & ((d * state.sun_frame_n).sum(-1) >= cos_cut)
+    valid = (wl >= 320.0) & (wl <= 720.0)
+    o = OPS
+    return (float(above.sum()) * o["spec_geometry"]
+            + float((valid & above[:, None]).sum()) * o["spec_wavelength"]
+            + float((valid & disc[:, None]).sum()) * o["spec_wavelength_sun"]
+            + float((~valid & above[:, None]).sum()) * o["spec_outside"])
+
+
+def _spectral_scene(state, device):
+    """bench.py::bench_spectral's scene: a 20x20 rough-conductor ground
+    (GGX alpha 0.2, albedo 0.5, the default gold-like IOR) under the
+    spectral sunsky, seen by a 45-degree camera at [4,-4,2] looking at
+    [0,0,0.5]."""
+    from tpusky_torch.render.bsdf import ROUGH_CONDUCTOR
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=ground, bsdf_idx=0)],
+        bsdf_albedos=[[0.5, 0.5, 0.5]], bsdf_kinds=[ROUGH_CONDUCTOR],
+        bsdf_alphas=[0.2], env=state, device=device)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 0.5], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
 
 
 def _headline_scene(state, device):
@@ -317,6 +371,223 @@ def _adjoint_check(name, out_k, out_p, g, state, params, lanes_k=(),
                      gk[n_wrt - 3 + i], gp[n_wrt - 3 + i], bar)
     err = max(float((a - b).abs().max()) for a, b in zip(gk[:3], gp[:3]))
     return err, gk[n_wrt:], gp[n_wrt:]
+
+
+def spectral_phase(dev, dirs, rng, film, card):
+    """Phase 6: K9-K11 against their plain versions, bench_spectral's
+    frame through render() with the launch counts of that run, the frame
+    against the plain path and a crop against the CPU, the refusal of a
+    spectral gradient, then times. Returns {K: (name, launches, max abs
+    error, (ms, plain ms), (bound ms, bound by))}."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky import model as M
+    from tpusky_torch.ops import spectrum
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import sunsky_kernel as K
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.bsdf import table_kinds
+    from tpusky_torch.render.film import Film, develop, splat_ordered
+
+    n = dirs.shape[0]
+    params = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
+                            mode="spectral", device=dev)
+    state = tt.sunsky_precompute(params, mode="spectral")
+    state_cpu = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, mode="spectral",
+        device="cpu"), mode="spectral")
+    for f in ("sky_params", "sky_radiance", "sun_radiance", "sun_ld",
+              "gaussians", "sky_sampling_w"):
+        a, b = getattr(state, f).cpu(), getattr(state_cpu, f)
+        if not (a - b).abs().max() <= 1e-5 * b.abs().max():
+            raise AssertionError(f"spectral precompute on the card: {f}")
+    # an eighth of the lanes below the horizon; wavelengths as the render
+    # draws them, some past 720 nm
+    d = dirs.clone()
+    d[: n // 8, 2] = -d[: n // 8, 2]
+    u_wl = torch.tensor(rng.random(n, dtype=np.float32), device=dev)
+    wl = spectrum.sample_rgb_spectrum(
+        spectrum.sample_shifted(u_wl, N_HERO))[0].contiguous()
+    u2 = torch.tensor(rng.random((n, 2), dtype=np.float32), device=dev)
+    print(f"spectral lanes: {float((wl > 720).float().mean()):.4f} of "
+          f"wavelengths past 720 nm, {float((wl < 360).float().mean()):.4f} "
+          f"below 360 nm")
+    err = {}
+
+    rad9 = K.sunsky_eval_spec(state, d, wl)
+    ref9 = M._eval_spec_plain(state, d, wl)
+    torch.cuda.synchronize()
+    _count_outside("K9 radiance", _rel(rad9, ref9, 1e-3).amax(-1), 1e-4, n)
+    out = (d[:, 2:] < 0) | (wl < 320) | (wl > 720)
+    if not bool((rad9[out] == 0).all()):
+        raise AssertionError("K9: lanes below the horizon or outside "
+                             "[320, 720] nm are not zero")
+    err["K9"] = float((rad9 - ref9).abs().max())
+    # W is a runtime argument: the goldens' 10 wavelengths a lane
+    m = min(1 << 16, n)
+    wl10 = torch.tensor(rng.uniform(300.0, 760.0, (m, 10)).astype(
+        np.float32), device=dev)
+    _count_outside("K9 radiance, 10 wavelengths",
+                   _rel(K.sunsky_eval_spec(state, d[:m], wl10),
+                        M._eval_spec_plain(state, d[:m], wl10),
+                        1e-3).amax(-1), 1e-4, m)
+    rad10, pdf10 = K.sunsky_hit_spec(state, d, wl)
+    ref10, refp10 = M._hit_spec_plain(state, d, wl)
+    _count_outside("K10 radiance", _rel(rad10, ref10, 1e-3).amax(-1), 1e-4,
+                   n)
+    _count_outside("K10 pdf", _rel(pdf10, refp10, 1e-3), 1e-3, n)
+    err["K10"] = float((rad10 - ref10).abs().max())
+    d11, rad11, pdf11 = K.sunsky_nee_spec(state, u2, wl)
+    refd11, _, refp11 = M._sample_eval_spec_plain(state, u2, wl)
+    far = (d11 - refd11).abs().amax(-1)
+    _count_outside("K11 direction", far, 1e-5, n)
+    near = far <= 1e-5
+    _count_outside("K11 pdf", _rel(pdf11, refp11, 1e-3)[near], 1e-3, n)
+    rel11 = _rel(rad11, M._eval_spec_plain(state, d11, wl), 1e-3).amax(-1)
+    med11 = float(rel11.median())
+    print(f"check K11 radiance: median {med11:.3e} (bar 1e-4)")
+    if not med11 <= 1e-4:
+        raise AssertionError("K11 radiance median")
+    _count_outside("K11 radiance", rel11, 1e-2, n)
+    err["K11"] = float(far.max())
+    del rad9, ref9, rad10, ref10, pdf10, refp10, rad11, refd11, refp11, out
+
+    # the main path: sky dome (K9) and bench_spectral's frame (K10, K11)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    state = tt.sunsky_precompute(params, mode="spectral")
+    sky = tt.sunsky_eval(state, dirs, mode="spectral", wavelengths=wl)
+    scene, sensor = _spectral_scene(state, dev)
+    img = integrator.render(scene, sensor, film, SEED, spp=SPP,
+                            max_depth=SPEC_DEPTH, mode="spectral")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    print(f"spectral main path: {main_s:.2f} s, launches {launches}")
+    for name in ("sunsky_eval_spec", "sunsky_hit_spec", "sunsky_nee_spec"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the spectral path never launched {name}")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError("the spectral frame went through K4")
+    if not (bool(torch.isfinite(sky).all()) and sky.shape == wl.shape):
+        raise AssertionError("spectral sky radiance")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError("spectral render: image not finite, shaped or "
+                             "lit")
+    print(f"spectral image: mean {float(img.mean()):.5f} max "
+          f"{float(img.max()):.3f}")
+
+    kinds = table_kinds(scene.bsdfs)
+    lanes_k = integrator._lane_radiance(scene, sensor, film, SEED, SPP, 0,
+                                        SPP, SPEC_DEPTH, 1000, "spectral", 0,
+                                        H, kinds=kinds)
+    lanes_p = integrator._lane_radiance(scene, sensor, film, SEED, SPP, 0,
+                                        SPP, SPEC_DEPTH, 1000, "spectral", 0,
+                                        H, kinds=kinds, plain=True)
+    img_p = develop(splat_ordered(film, lanes_p, SPP))
+    rel = (lanes_k - lanes_p).abs().amax(-1) / \
+        lanes_p.abs().clamp(min=1e-3).amax(-1)
+    share = float((rel > 1e-3).float().mean())
+    bar = 1e-3 * max(float(img_p.max()), 1.0)
+    err_img = float((img - img_p).abs().max())
+    print(f"check spectral frame lanes: {share:.2e} of lanes outside 1e-3 "
+          f"(bar 1e-3), max {float(rel.max()):.3e}")
+    print(f"check spectral frame image: max |kernels - plain| "
+          f"{err_img:.3e}, bar {bar:.3e}")
+    if not (share <= 1e-3 and err_img < bar):
+        raise AssertionError("the spectral frame disagrees with the plain "
+                             "path")
+    del lanes_k, lanes_p, rel
+
+    x0, y0, cw, ch = CROP
+    crop = Film(H, W, 3, crop_offset=(x0, y0), crop_size=(cw, ch))
+    scene_c, sensor_c = _spectral_scene(state_cpu, "cpu")
+    img_c = integrator.render(scene_c, sensor_c, crop, SEED, spp=SPP,
+                              max_depth=SPEC_DEPTH, mode="spectral")
+    err_c = float((img[y0:y0 + ch, x0:x0 + cw].cpu() - img_c).abs().max())
+    print(f"check spectral frame vs CPU plain, crop {CROP}: max {err_c:.3e}"
+          f" (image max there {float(img_c.max()):.3f})")
+    if not (err_c < 1e-3 * max(float(img_c.max()), 1.0)
+            and float(img_c.max()) > 0):
+        raise AssertionError("the spectral frame disagrees with the CPU")
+
+    # the spectral adjoints K12/K13 are not ported: a gradient request on
+    # the card raises instead of running anything else
+    lp = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
+                        mode="spectral", device=dev)
+    lp = lp._replace(turbidity=lp.turbidity.clone().requires_grad_())
+    st_g = tt.sunsky_precompute(lp, mode="spectral")
+    for k, ask in (
+            ("K12", lambda: M.eval(st_g, d[:8], mode="spectral",
+                                   wavelengths=wl[:8])),
+            ("K12", lambda: M.eval_pdf(st_g, d[:8], mode="spectral",
+                                       pdf_detached=True,
+                                       wavelengths=wl[:8])),
+            ("K13", lambda: M.sample_eval(st_g, u2[:8], mode="spectral",
+                                          pdf_detached=True,
+                                          wavelengths=wl[:8]))):
+        try:
+            ask()
+        except NotImplementedError as e:
+            if k not in str(e):
+                raise
+            print(f"check spectral gradient refused: {e}")
+        else:
+            raise AssertionError(f"a spectral gradient ran without {k}")
+
+    # times (CUDA events) and bounds
+    tables = K.pack_tables_spec(state, dev)
+    times = {
+        "K9": _pair_ms(lambda: K.launch_eval_spec(tables, d, wl),
+                       lambda: M._eval_spec_plain(state, d, wl)),
+        "K10": _pair_ms(lambda: K.launch_hit_spec(tables, d, wl),
+                        lambda: M._hit_spec_plain(state, d, wl)),
+        "K11": _pair_ms(lambda: K.launch_nee_spec(tables, u2, wl),
+                        lambda: M._sample_eval_spec_plain(state, u2, wl)),
+    }
+    frame_ms, frame_plain_ms = _pair_ms(
+        lambda: integrator.render(scene, sensor, film, SEED, spp=SPP,
+                                  max_depth=SPEC_DEPTH, mode="spectral"),
+        lambda: integrator.render_rows(scene, sensor, film, SEED, SPP,
+                                       SPEC_DEPTH, 1000, "spectral", 0, H,
+                                       kinds=kinds, plain=True), reps=3)
+    rays = H * W * SPP * (1 + 2 * (SPEC_DEPTH - 1))
+    for key in ("K9", "K10", "K11"):
+        k, p = times[key]
+        print(f"time {key}: {k:.4f} ms, plain {p:.4f} ms at {n} lanes x "
+              f"{N_HERO} wavelengths [{card}]")
+    print(f"time bench_spectral frame ({W}x{H}x{SPP}, depth {SPEC_DEPTH}, "
+          f"{rays} rays): render() {frame_ms:.3f} ms "
+          f"({rays / frame_ms / 1e3:.2f} M rays/s), plain wavefront "
+          f"{frame_plain_ms:.3f} ms ({rays / frame_plain_ms / 1e3:.2f} M "
+          f"rays/s) [{card}]")
+
+    with torch.no_grad():
+        above = float((d[:, 2] >= 0).sum())
+        w_sky = float(state.sky_sampling_w)
+        sky_pick = float((u2[:, 0] < w_sky).sum())
+        d11 = K.launch_nee_spec(tables, u2, wl)[0]
+        above11 = float((d11[:, 2] >= 0).sum())
+        ops9 = _spec_ops(d, wl, state)
+        ops11 = (sky_pick * OPS["sample_sky"]
+                 + (n - sky_pick) * OPS["sample_sun"]
+                 + above11 * OPS["pdf"] + _spec_ops(d11, wl, state))
+    gauss = 4 * 14 * 20
+    bounds = {
+        "K9": _bound(44 * n + SPEC_TABLE_BYTES, ops9),
+        "K10": _bound(48 * n + SPEC_TABLE_BYTES + gauss,
+                      ops9 + above * OPS["pdf"]),
+        "K11": _bound(56 * n + SPEC_TABLE_BYTES + gauss, ops11),
+    }
+    names = {"K9": "sunsky_eval_spec", "K10": "sunsky_hit_spec",
+             "K11": "sunsky_nee_spec"}
+    return {key: (names[key], launches[names[key]], err[key], times[key],
+                  bounds[key]) for key in names}
+
+
+START = time.perf_counter()
 
 
 def main():
@@ -596,7 +867,10 @@ def main():
         _check_scale(f"bench_grad d{name}: kernels vs plain on the card",
                      a, b, bar)
 
-    # ---- 6. times ----
+    # ---- 6. the spectral main path ----
+    spec = spectral_phase(dev, dirs, rng, film, card)
+
+    # ---- 7. times ----
     tables = K.pack_tables(state, dev)
     mega = MK.pack(scene, sensor, state)
     st_l = state._replace(**{
@@ -678,7 +952,7 @@ def main():
           f"steps 2-{TRAIN_STEPS} {step_ms:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB [{card}]")
 
-    # ---- 7. bounds and results ----
+    # ---- 8. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -718,6 +992,8 @@ def main():
         "K6": _bound(20 * n + TABLE_BYTES + GAUSS_BYTES + ROW_BYTES,
                      sample_ops + vjp6),
     }
+    for key, (_, _, _, t, b) in spec.items():
+        times[key], bounds[key] = t, b
     for key, (ms, by) in bounds.items():
         print(f"bound {key}: {ms:.4f} ms ({by}); measured "
               f"{times[key][0]:.4f} ms, {100 * ms / times[key][0]:.1f}% of "
@@ -738,6 +1014,13 @@ def main():
         "K6": ("sunsky_nee_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
                "tpusky/ops/pallas/sunsky_kernel.py:1133", grad_launches),
     }
+    spec_src = {"K9": "tpusky/ops/pallas/sunsky_kernel.py:671",
+                "K10": "tpusky/ops/pallas/sunsky_kernel.py:695",
+                "K11": "tpusky/ops/pallas/sunsky_kernel.py:721"}
+    for key, (name, count, err, _, _) in spec.items():
+        src[key] = (name, "tpusky_torch/csrc/sunsky_spectral.cu",
+                    spec_src[key], {name: count})
+        results[key] = err
     kernels = []
     for key, (name, source, replaces, counts) in src.items():
         if not os.path.exists(os.path.join(here, source)):
@@ -751,6 +1034,7 @@ def main():
     if not all(math.isfinite(k["ms"]) and math.isfinite(k["max_abs_err"])
                for k in kernels):
         raise AssertionError("timing")
+    print(f"chip_smoke: {time.perf_counter() - START:.1f} s in all")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

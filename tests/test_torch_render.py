@@ -312,7 +312,7 @@ def test_path_sample_refuses_what_is_not_ported(scenes):
     with pytest.raises(NotImplementedError):      # Russian roulette
         TI.render(sc, sensor, film, SEED, spp=1, max_depth=3, rr_depth=1)
     with pytest.raises(NotImplementedError):
-        TI.render(sc, sensor, film, SEED, spp=1, mode="spectral")
+        TI.render(sc, sensor, film, SEED, spp=1, mode="polarized")
     with pytest.raises(NotImplementedError):
         TI.render(sc, sensor, film, SEED, spp=1, sampler_kind="stratified")
     with pytest.raises(NotImplementedError):

@@ -3,9 +3,9 @@ renderer built around a Hosek-Wilkie sun+sky environment emitter.
 
 The JAX package `tpusky` is the reference; each module here has its
 counterpart at the same relative path. Plain tensor code runs on any
-device; on a CUDA device the sunsky lookups and the direct-illumination
-frame run hand-written kernels (`ops/cuda`, sources in `csrc`), built
-with nvcc at first use.
+device; on a CUDA device the sunsky lookups (RGB and spectral) and the
+direct-illumination frame run hand-written kernels (`ops/cuda`, sources
+in `csrc`), built with nvcc at first use.
 
 Quick start (sky-dome evaluation)::
 
@@ -15,6 +15,15 @@ Quick start (sky-dome evaluation)::
     state = tt.sunsky_precompute(params)
     rgb = tt.sunsky_eval(state, directions)        # (..., 3) radiance
 
+Spectral mode precomputes from the 11-channel tables and evaluates at
+wavelengths in nm::
+
+    params = tt.make_params(turbidity=3.0, albedo=0.3, mode="spectral",
+                            device="cuda")
+    state = tt.sunsky_precompute(params, mode="spectral")
+    spec = tt.sunsky_eval(state, directions, mode="spectral",
+                          wavelengths=wl)              # (..., W) radiance
+
 See `tpusky_torch.render.integrator.render` for the scene renderer.
 """
 
@@ -22,7 +31,7 @@ from .models.sunsky import constants as sunsky_constants
 from .models.sunsky import model as _sunsky_model
 from .models.sunsky.model import (SunskyParams, SunskyState, make_params,
                                   pdf_direction, precompute,
-                                  sample_direction)
+                                  sample_direction, sample_wavelengths)
 from .models.sunsky.tables import load_tables
 
 __version__ = "0.1.0"
@@ -35,14 +44,17 @@ def sunsky_precompute(params: SunskyParams, mode: str = "rgb") -> SunskyState:
     return precompute(tables, params, mode)
 
 
-def sunsky_eval(state: SunskyState, directions, mode: str = "rgb"):
+def sunsky_eval(state: SunskyState, directions, mode: str = "rgb",
+                wavelengths=None):
     """Radiance toward `directions` (unit vectors, +z up, pointing at the
-    sky) -> (..., 3); kernel K1 on a CUDA device."""
-    return _sunsky_model.eval(state, directions, mode=mode)
+    sky) -> (..., 3), kernel K1 on a CUDA device; in spectral mode
+    (..., W) at `wavelengths` (..., W) in nm, kernel K9."""
+    return _sunsky_model.eval(state, directions, mode=mode,
+                              wavelengths=wavelengths)
 
 
 __all__ = [
     "SunskyParams", "SunskyState", "load_tables", "make_params",
-    "pdf_direction", "precompute", "sample_direction", "sunsky_constants",
-    "sunsky_eval", "sunsky_precompute",
+    "pdf_direction", "precompute", "sample_direction", "sample_wavelengths",
+    "sunsky_constants", "sunsky_eval", "sunsky_precompute",
 ]

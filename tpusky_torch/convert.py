@@ -5,8 +5,8 @@ turned into numpy arrays (for example `jax.tree.map(np.asarray, state)`)
 and returns the port's counterpart as float32/int64 tensors on `device`
 (the card unless the caller names another device).
 Nothing here imports jax or tpusky: the objects are read by field name.
-Parts the port does not have yet (spectral state, area/delta lights,
-meshes, other materials) raise NotImplementedError.
+Parts the port does not have yet (area/delta lights, meshes, material
+kinds other than diffuse and rough conductor) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import numpy as np
 import torch
 
 from .models.sunsky.model import SunskyParams, SunskyState
-from .ops.distr import DiscreteDistribution
-from .render.bsdf import DIFFUSE, MaterialTable
+from .models.sunsky.tables import SunskyTables
+from .ops.distr import ContinuousDistribution, DiscreteDistribution
+from .render.bsdf import KINDS as BSDF_KINDS
+from .render.bsdf import MaterialTable
 from .render.scene import Scene
 from .render.sensors import Perspective
 from .render.shapes import KINDS, ShapeTable
@@ -44,19 +46,32 @@ def discrete_distribution(d, device="cuda") -> DiscreteDistribution:
                                 _f32(d.total, device))
 
 
+def continuous_distribution(d, device="cuda") -> ContinuousDistribution:
+    return ContinuousDistribution(*(_f32(getattr(d, f), device)
+                                    for f in ContinuousDistribution._fields))
+
+
+def sunsky_tables(t, device="cuda") -> SunskyTables:
+    """`tpusky` SunskyTables (RGB or spectral) -> SunskyTables."""
+    return SunskyTables(*(None if getattr(t, f) is None
+                          else _f32(getattr(t, f), device)
+                          for f in SunskyTables._fields))
+
+
 def sunsky_state(s, device="cuda") -> SunskyState:
-    """A `tpusky` SunskyState (RGB) -> SunskyState, including the
-    gaussian distribution it holds."""
-    if s.sun_ld is not None or s.spectral_distr is not None:
-        raise NotImplementedError("spectral sunsky state")
+    """A `tpusky` SunskyState (RGB or spectral) -> SunskyState, including
+    the distributions it holds."""
     f = {name: _f32(getattr(s, name), device)
          for name in ("sun_angles", "sun_frame_s", "sun_frame_t",
                       "sun_frame_n", "sky_params", "sky_radiance",
                       "sun_radiance", "gaussians", "sky_sampling_w")}
-    return SunskyState(params=sunsky_params(s.params, device), sun_ld=None,
-                       gaussian_distr=discrete_distribution(s.gaussian_distr,
-                                                            device),
-                       spectral_distr=None, **f)
+    return SunskyState(
+        params=sunsky_params(s.params, device),
+        sun_ld=None if s.sun_ld is None else _f32(s.sun_ld, device),
+        gaussian_distr=discrete_distribution(s.gaussian_distr, device),
+        spectral_distr=(None if s.spectral_distr is None else
+                        continuous_distribution(s.spectral_distr, device)),
+        **f)
 
 
 def shape_table(t, device="cuda") -> ShapeTable:
@@ -71,7 +86,7 @@ def shape_table(t, device="cuda") -> ShapeTable:
 
 def material_table(t, device="cuda") -> MaterialTable:
     kinds = np.asarray(t.kind)
-    if (kinds != DIFFUSE).any():
+    if not np.isin(kinds, BSDF_KINDS).all():
         raise NotImplementedError(f"material kinds {sorted(set(kinds))}")
     if t.opacity is not None and (np.asarray(t.opacity) < 1.0).any():
         raise NotImplementedError("opacity masks")
@@ -81,12 +96,14 @@ def material_table(t, device="cuda") -> MaterialTable:
             raise NotImplementedError("textured materials")
     return MaterialTable(_i64(kinds, device), _f32(t.albedo, device),
                          torch.tensor(np.asarray(t.twosided, bool),
-                                      device=device))
+                                      device=device),
+                         *(_f32(getattr(t, f), device)
+                           for f in ("albedo_spec", "alpha", "eta", "k")))
 
 
 def scene(sc, device="cuda") -> Scene:
-    """A `tpusky` Scene of analytic shapes, diffuse materials and a sunsky
-    (or no) environment -> Scene."""
+    """A `tpusky` Scene of analytic shapes, diffuse and rough-conductor
+    materials and a sunsky (or no) environment -> Scene."""
     for field in ("area_emitter_shapes", "point_lights",
                   "directional_lights"):
         if not _none_or_empty(getattr(sc, field)):

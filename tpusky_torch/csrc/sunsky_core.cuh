@@ -1,7 +1,7 @@
-// Device functions shared by the sunsky kernels (K1-K3) and the
-// direct-illumination megakernel (K4): sky/sun radiance, the mixture pdf,
-// the NEE direction sample, the counter-hash RNG and analytic shape
-// intersection.
+// Device functions shared by the sunsky kernels (K1-K3, spectral K9-K11)
+// and the direct-illumination megakernel (K4): sky/sun radiance, the
+// mixture pdf, the NEE direction sample, the counter-hash RNG and analytic
+// shape intersection.
 //
 // Each function computes what the plain PyTorch versions in
 // tpusky_torch/models/sunsky/model.py, render/sampler.py and
@@ -35,8 +35,13 @@ constexpr float SHADOW_EPS = 1e-3f;
 constexpr int N_SEG = 45;
 constexpr int SUN_F = 72;          // 3 channels x 4 elevation x 6 limb powers
 constexpr int N_GAUSS = 20;
+constexpr int N_CH = 11;           // spectral channels, 320..720 nm
+constexpr int SUN_SPEC_F = 44;     // 11 channels x 4 elevation powers
+constexpr int N_LD = 6;            // limb-darkening powers
 
 // misc row (16 floats), packed by ops/cuda/sunsky_kernel.py::_misc_row
+// (RGB: the sun scale carries the RGB conversion constant) or
+// _misc_row_spec (spectral: it does not)
 enum {
   M_SUNX, M_SUNY, M_SUNZ, M_HALF_AP, M_SKY_SCALE, M_SUN_SCALE, M_SUN_PHI,
   M_WMIX, M_COS_CUT, M_SX, M_SY, M_SZ, M_TX, M_TY, M_TZ, M_SOFT
@@ -47,12 +52,15 @@ enum {
   G_CA1, G_CB1, G_CA2, G_CB2, G_CDF_PREV
 };
 
+// RGB tables, or spectral ones (channels 11; sun (45, 44) laid out as
+// [c * 4 + k]; ld set)
 struct Tables {
   const float* __restrict__ skyp;   // (3, 9) sky formula parameters
   const float* __restrict__ skyr;   // (3,)   sky mean radiance
   const float* __restrict__ sun;    // (45, 72) sun coefficients
   const float* __restrict__ misc;   // (16,)
   const float* __restrict__ gauss;  // (14, 20)
+  const float* __restrict__ ld;     // (11, 6) limb darkening; spectral only
 };
 
 __device__ __forceinline__ float safe_sqrt(float x) {
@@ -91,6 +99,60 @@ __device__ __forceinline__ float sun_gamma(const float* __restrict__ misc,
   return dot >= 0.0f ? temp : PI_F - temp;
 }
 
+// What radiance() and radiance_spec() share about an above-horizon
+// direction: the angle to the sun, the sun's elevation segment and the
+// coordinate in it (as powers), the limb coordinate (as powers) and the
+// disc test.
+struct SkyGeom {
+  float ct;             // cos(theta) = dz >= 0
+  float gamma, cos_gamma, cg2;
+  int pos;              // sun segment
+  float xp[4];          // x^k, x the elevation within the segment
+  float cp[N_LD];       // cos_psi^j
+  bool hit_sun;         // inside the sun's disc
+};
+
+__device__ __forceinline__ SkyGeom sky_geometry(
+    const float* __restrict__ misc, float dx, float dy, float dz) {
+  SkyGeom g;
+  g.ct = dz;
+  g.gamma = sun_gamma(misc, dx, dy, dz);
+  g.cos_gamma = cosf(g.gamma);
+  g.cg2 = g.cos_gamma * g.cos_gamma;
+
+  // sun: 45-segment polynomial in elevation, limb darkening in cos_psi
+  float elevation = 0.5f * PI_F - safe_acos(g.ct);
+  int pos = (int)floorf(cbrtf(2.0f * elevation / PI_F) * N_SEG);
+  g.pos = min(max(pos, 0), N_SEG - 1);
+  float bx = (float)g.pos / N_SEG;
+  float x = fmaxf(elevation - 0.5f * PI_F * (bx * bx * bx), 0.0f);
+  float sin_ap = sinf(misc[M_HALF_AP]);
+  float sin_g = sinf(g.gamma);
+  float cos_psi = safe_sqrt(1.0f - (sin_g * sin_g) / (sin_ap * sin_ap));
+  g.hit_sun = g.cos_gamma >= misc[M_COS_CUT];
+  g.xp[0] = 1.0f;
+  g.xp[1] = x;
+  g.xp[2] = x * x;
+  g.xp[3] = x * x * x;
+  g.cp[0] = 1.0f;
+#pragma unroll
+  for (int j = 1; j < N_LD; ++j) g.cp[j] = g.cp[j - 1] * cos_psi;
+  return g;
+}
+
+// Hosek-Wilkie sky formula of one channel (model.py::_sky_formula):
+// parameters k9 (9,), mean radiance `mean`
+__device__ __forceinline__ float sky_channel(const float* __restrict__ k9,
+                                             float mean, const SkyGeom& g) {
+  float c1 = 1.0f + k9[0] * expf(k9[1] / (g.ct + 0.01f));
+  float h = k9[8];
+  float base = 1.0f + h * h - 2.0f * h * g.cos_gamma;
+  float chi = (1.0f + g.cg2) / (base * safe_sqrt(base));
+  float c2 = k9[2] + k9[3] * expf(k9[4] * g.gamma) + k9[5] * g.cg2
+             + k9[6] * chi + k9[7] * safe_sqrt(g.ct);
+  return c1 * c2 * mean;
+}
+
 // RGB radiance toward local direction d (model.py::_eval_rgb_plain)
 __device__ inline void radiance(const Tables& T, float dx, float dy,
                                 float dz, float out[3]) {
@@ -99,48 +161,78 @@ __device__ inline void radiance(const Tables& T, float dx, float dy,
     out[0] = out[1] = out[2] = 0.0f;
     return;
   }
-  float ct = dz;
-  float gamma = sun_gamma(misc, dx, dy, dz);
-  float cos_gamma = cosf(gamma);
-  float cg2 = cos_gamma * cos_gamma;
-
-  // sun: 45-segment polynomial in elevation, limb darkening in cos_psi
-  float elevation = 0.5f * PI_F - safe_acos(ct);
-  int pos = (int)floorf(cbrtf(2.0f * elevation / PI_F) * N_SEG);
-  pos = min(max(pos, 0), N_SEG - 1);
-  float bx = (float)pos / N_SEG;
-  float x = fmaxf(elevation - 0.5f * PI_F * (bx * bx * bx), 0.0f);
-  float sin_ap = sinf(misc[M_HALF_AP]);
-  float sin_g = sinf(gamma);
-  float cos_psi = safe_sqrt(1.0f - (sin_g * sin_g) / (sin_ap * sin_ap));
-  bool hit_sun = cos_gamma >= misc[M_COS_CUT];
-  float xp[4] = {1.0f, x, x * x, x * x * x};
-  float cp[6];
-  cp[0] = 1.0f;
-#pragma unroll
-  for (int j = 1; j < 6; ++j) cp[j] = cp[j - 1] * cos_psi;
-  const float* __restrict__ coefs = T.sun + pos * SUN_F;
+  SkyGeom g = sky_geometry(misc, dx, dy, dz);
+  const float* __restrict__ coefs = T.sun + g.pos * SUN_F;
 
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float* __restrict__ k9 = T.skyp + 9 * c;
-    float c1 = 1.0f + k9[0] * expf(k9[1] / (ct + 0.01f));
-    float h = k9[8];
-    float base = 1.0f + h * h - 2.0f * h * cos_gamma;
-    float chi = (1.0f + cg2) / (base * safe_sqrt(base));
-    float c2 = k9[2] + k9[3] * expf(k9[4] * gamma) + k9[5] * cg2 + k9[6] * chi
-               + k9[7] * safe_sqrt(ct);
-    float sky = c1 * c2 * T.skyr[c];
-
+    float sky = sky_channel(T.skyp + 9 * c, T.skyr[c], g);
     float sun = 0.0f;
-    if (hit_sun) {
+    if (g.hit_sun) {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
         for (int j = 0; j < 6; ++j)
-          sun += coefs[c * 24 + k * 6 + j] * (xp[k] * cp[j]);
+          sun += coefs[c * 24 + k * 6 + j] * (g.xp[k] * g.cp[j]);
     }
     out[c] = (misc[M_SKY_SCALE] * sky + misc[M_SUN_SCALE] * sun) * CIE_Y_NORM;
+  }
+}
+
+// One spectral dataset channel c at geometry g: the sky, and in the disc
+// the sun polynomial and the limb darkening (0 outside it)
+__device__ __forceinline__ void spec_channel(const Tables& T,
+                                             const SkyGeom& g, int c,
+                                             float* sky, float* sun,
+                                             float* ld) {
+  *sky = sky_channel(T.skyp + 9 * c, T.skyr[c], g);
+  float s = 0.0f, l = 0.0f;
+  if (g.hit_sun) {
+    const float* __restrict__ co = T.sun + g.pos * SUN_SPEC_F + 4 * c;
+    const float* __restrict__ lc = T.ld + N_LD * c;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s += co[k] * g.xp[k];
+#pragma unroll
+    for (int j = 0; j < N_LD; ++j) l += lc[j] * g.cp[j];
+  }
+  *sun = s;
+  *ld = l;
+}
+
+// Spectral radiance toward local direction d at the lane's nw wavelengths
+// wl (nm) -> out (model.py::_eval_spec_plain). Per wavelength only its two
+// neighbouring dataset channels are evaluated; sky, sun and limb
+// darkening are each lerped between them, then combined. Wavelengths
+// outside [320, 720] nm and directions below the horizon give 0.
+__device__ inline void radiance_spec(const Tables& T, float dx, float dy,
+                                     float dz, const float* __restrict__ wl,
+                                     int nw, float* __restrict__ out) {
+  const float* __restrict__ misc = T.misc;
+  if (dz < 0.0f) {
+    for (int w = 0; w < nw; ++w) out[w] = 0.0f;
+    return;
+  }
+  SkyGeom g = sky_geometry(misc, dx, dy, dz);
+  float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
+  for (int w = 0; w < nw; ++w) {
+    float nwl = (wl[w] - 320.0f) / 40.0f;
+    if (!(nwl >= 0.0f && nwl <= (float)(N_CH - 1))) {
+      out[w] = 0.0f;
+      continue;
+    }
+    int lo = min(max((int)floorf(nwl), 0), N_CH - 1);
+    int hi = min(lo + 1, N_CH - 1);
+    float f = nwl - (float)lo;
+    float sky0, sun0, ld0, sky1, sun1, ld1;
+    spec_channel(T, g, lo, &sky0, &sun0, &ld0);
+    spec_channel(T, g, hi, &sky1, &sun1, &ld1);
+    float r = sky_scale * ((1.0f - f) * sky0 + f * sky1);
+    if (g.hit_sun) {
+      float sun = (1.0f - f) * sun0 + f * sun1;
+      float ld = (1.0f - f) * ld0 + f * ld1;
+      r += sun_scale * sun * ld;
+    }
+    out[w] = r;
   }
 }
 

@@ -1,5 +1,6 @@
-"""Wrappers of the sunsky CUDA kernels K1-K3 (`csrc/sunsky_kernels.cu`)
-and their adjoints K5, K6 (`csrc/sunsky_adjoint.cu`).
+"""Wrappers of the sunsky CUDA kernels K1-K3 (`csrc/sunsky_kernels.cu`),
+their adjoints K5, K6 (`csrc/sunsky_adjoint.cu`) and the spectral
+kernels K9-K11 (`csrc/sunsky_spectral.cu`).
 
 The PyTorch counterparts of the TPU kernels in
 `tpusky/ops/pallas/sunsky_kernel.py`:
@@ -8,7 +9,9 @@ The PyTorch counterparts of the TPU kernels in
 * `sunsky_hit_rgb(state, d)`: K2, radiance + mixture pdf (the emitter-hit
   MIS block);
 * `sunsky_nee_rgb(state, u2)`: K3, sky/sun sample + radiance + pdf (the
-  NEE block).
+  NEE block);
+* `sunsky_eval_spec`, `sunsky_hit_spec`, `sunsky_nee_spec`: K9-K11, the
+  same three blocks in spectral mode at per-lane wavelengths (N, W).
 
 A CPU tensor goes to the kernel's plain version in `models/sunsky/model.py`
 (torch autograd differentiates it); a CUDA tensor launches the kernel or
@@ -20,11 +23,13 @@ does): K1 and K2 transpose into K5, K3 into K6. That holds for the
 render's contract, the pdf detached; the attached-pdf adjoints K7 and K8
 are not ported, so `sunsky_hit_rgb` / `sunsky_nee_rgb` with
 `pdf_detached=False` raise when a gradient is asked for on the card.
+K9-K11 run forward only: their adjoints K12 and K13 are not ported, so
+any gradient request on the card raises.
 
-`_misc_row` and `_gauss_rows` pack the state into the tables the kernels
-read, in the reference package's layout: a (16,) row of scalars and
-(14, 20) per-gaussian constants with the cdf normalised and the
-truncation CDFs precomputed.
+`_misc_row` (`_misc_row_spec` in spectral mode) and `_gauss_rows` pack
+the state into the tables the kernels read, in the reference package's
+layout: a (16,) row of scalars and (14, 20) per-gaussian constants with
+the cdf normalised and the truncation CDFs precomputed.
 """
 
 from __future__ import annotations
@@ -40,19 +45,25 @@ from ...ops.math import gaussian_cdf
 from . import build
 
 
-def _misc_row(state) -> torch.Tensor:
+def _misc_row(state, sun_conv: float = C.SPEC_TO_RGB_SUN_CONV
+              ) -> torch.Tensor:
     """(16,) scalars: sun direction, half aperture, scales (the sun's with
-    area ratio and RGB conversion folded in), sun phi, sky sampling
-    weight, cos(half aperture), sun frame s and t, disc softness."""
+    area ratio and `sun_conv` folded in), sun phi, sky sampling weight,
+    cos(half aperture), sun frame s and t, disc softness."""
     p = state.params
     n, s, t = state.sun_frame_n, state.sun_frame_s, state.sun_frame_t
     return torch.stack([
         n[0], n[1], n[2], p.sun_half_aperture, p.sky_scale,
-        p.sun_scale * M.area_ratio(p.sun_half_aperture)
-        * C.SPEC_TO_RGB_SUN_CONV,
+        p.sun_scale * M.area_ratio(p.sun_half_aperture) * sun_conv,
         state.sun_angles[0], state.sky_sampling_w,
         torch.cos(p.sun_half_aperture),
         s[0], s[1], s[2], t[0], t[1], t[2], p.disc_softness])
+
+
+def _misc_row_spec(state) -> torch.Tensor:
+    """The spectral misc row: the sun scale carries neither the RGB
+    conversion constant nor a CIE normalisation (`model.eval_spectral`)."""
+    return _misc_row(state, sun_conv=1.0)
 
 
 def _gauss_rows(state) -> torch.Tensor:
@@ -100,7 +111,37 @@ def pack_tables(state, device) -> Tables:
                     state.sun_radiance, _misc_row(state), gauss)
     tables = Tables(*(t.to(torch.float32).contiguous() for t in tables))
     for t in tables:
-        if t.device != device:
+        if t.device != torch.device(device):
+            raise ValueError(f"sunsky state on {t.device}, lanes on {device}")
+    return tables
+
+
+class SpecTables(NamedTuple):
+    """The spectral state as K9-K11 read it (contiguous float32)."""
+    skyp: torch.Tensor     # (11, 9)
+    skyr: torch.Tensor     # (11,)
+    sun: torch.Tensor      # (45, 44)
+    ld: torch.Tensor       # (11, 6)
+    misc: torch.Tensor     # (16,), `_misc_row_spec`
+    gauss: torch.Tensor    # (14, 20)
+
+    def pointers(self):
+        return [t.data_ptr() for t in self]
+
+
+def pack_tables_spec(state, device) -> SpecTables:
+    """K9-K11's tables from a spectral state."""
+    if state.sun_ld is None:
+        raise ValueError("the spectral kernels need a state precomputed in "
+                         "spectral mode")
+    with torch.no_grad():
+        gauss = _gauss_rows(state)
+    tables = SpecTables(state.sky_params, state.sky_radiance,
+                        state.sun_radiance, state.sun_ld,
+                        _misc_row_spec(state), gauss)
+    tables = SpecTables(*(t.to(torch.float32).contiguous() for t in tables))
+    for t in tables:
+        if t.device != torch.device(device):
             raise ValueError(f"sunsky state on {t.device}, lanes on {device}")
     return tables
 
@@ -118,6 +159,17 @@ def check_lanes(x, cols: int, name: str):
         raise ValueError(f"{name}: expected a contiguous tensor")
     if x.shape[0] >= 2 ** 31:
         raise ValueError(f"{name}: at most 2^31 - 1 lanes")
+
+
+def _check_wavelengths(wl, n: int, name: str):
+    """Validate (N, W) float32 wavelengths on the lanes' CUDA device."""
+    if wl.dim() != 2:
+        raise ValueError(f"{name}: expected wavelengths (N, W), got "
+                         f"{tuple(wl.shape)}")
+    check_lanes(wl, wl.shape[1], name)
+    if wl.shape[0] != n:
+        raise ValueError(f"{name}: {wl.shape[0]} wavelength rows for {n} "
+                         "lanes")
 
 
 def _stream(device):
@@ -305,4 +357,94 @@ def sunsky_nee_rgb(state, u2, pdf_detached: bool = False):
             "pdf_detached=True")
     out = _Nee.apply(u2, *tables)
     build.launches["sunsky_nee_rgb"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Spectral kernels K9-K11 (forward only)
+# ---------------------------------------------------------------------------
+
+
+def launch_eval_spec(tables: SpecTables, d, wl):
+    n, nw = wl.shape
+    out = torch.empty((n, nw), dtype=torch.float32, device=d.device)
+    sk = tables.pointers()
+    err = build.library().tsk_sunsky_eval_spec(
+        d.data_ptr(), wl.data_ptr(), n, nw, *sk[:5], out.data_ptr(),
+        _stream(d.device))
+    build.check(err, "sunsky_eval_spec")
+    return out
+
+
+def launch_hit_spec(tables: SpecTables, d, wl):
+    n, nw = wl.shape
+    rad = torch.empty((n, nw), dtype=torch.float32, device=d.device)
+    pdf = torch.empty(n, dtype=torch.float32, device=d.device)
+    err = build.library().tsk_sunsky_hit_spec(
+        d.data_ptr(), wl.data_ptr(), n, nw, *tables.pointers(),
+        rad.data_ptr(), pdf.data_ptr(), _stream(d.device))
+    build.check(err, "sunsky_hit_spec")
+    return rad, pdf
+
+
+def launch_nee_spec(tables: SpecTables, u2, wl):
+    n, nw = wl.shape
+    d = torch.empty((n, 3), dtype=torch.float32, device=u2.device)
+    rad = torch.empty((n, nw), dtype=torch.float32, device=u2.device)
+    pdf = torch.empty(n, dtype=torch.float32, device=u2.device)
+    err = build.library().tsk_sunsky_nee_spec(
+        u2.data_ptr(), wl.data_ptr(), n, nw, *tables.pointers(),
+        d.data_ptr(), rad.data_ptr(), pdf.data_ptr(), _stream(u2.device))
+    build.check(err, "sunsky_nee_spec")
+    return d, rad, pdf
+
+
+def _spec_tables(state, lanes, cols, wl, name, adjoint):
+    """Validate the lanes and wavelengths, pack the tables, and refuse a
+    gradient request: the spectral adjoints are not ported."""
+    check_lanes(lanes, cols, name)
+    _check_wavelengths(wl, lanes.shape[0], name)
+    tables = pack_tables_spec(state, lanes.device)
+    if _wants_grad(lanes, wl, *tables):
+        raise NotImplementedError(
+            f"{name}: spectral gradients on the card need {adjoint}, not "
+            "ported")
+    return tables
+
+
+def sunsky_eval_spec(state, d, wl):
+    """K9: spectral radiance toward local directions d (N, 3) at
+    wavelengths wl (N, W) in nm -> (N, W)."""
+    if d.device.type == "cpu":
+        return M._eval_spec_plain(state, d, wl)
+    tables = _spec_tables(state, d, 3, wl, "sunsky_eval_spec",
+                          "K12 (sunsky_hit_spec_bwd_pallas, with_pdf=False)")
+    out = launch_eval_spec(tables, d, wl)
+    build.launches["sunsky_eval_spec"] += 1
+    return out
+
+
+def sunsky_hit_spec(state, d, wl):
+    """K10: (spectral radiance (N, W), pdf (N,)) toward local directions
+    d (N, 3) at wavelengths wl (N, W). On the card neither output carries
+    a gradient."""
+    if d.device.type == "cpu":
+        return M._hit_spec_plain(state, d, wl)
+    tables = _spec_tables(state, d, 3, wl, "sunsky_hit_spec",
+                          "K12 (sunsky_hit_spec_bwd_pallas)")
+    out = launch_hit_spec(tables, d, wl)
+    build.launches["sunsky_hit_spec"] += 1
+    return out
+
+
+def sunsky_nee_spec(state, u2, wl):
+    """K11: uniforms u2 (N, 2), wavelengths wl (N, W) -> (direction
+    (N, 3), spectral radiance (N, W), pdf (N,)). On the card no output
+    carries a gradient."""
+    if u2.device.type == "cpu":
+        return M._sample_eval_spec_plain(state, u2, wl)
+    tables = _spec_tables(state, u2, 2, wl, "sunsky_nee_spec",
+                          "K13 (sunsky_nee_spec_bwd_pallas)")
+    out = launch_nee_spec(tables, u2, wl)
+    build.launches["sunsky_nee_spec"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Scene: analytic shapes, a diffuse material table and the sunsky sky.
+"""Scene: analytic shapes, a material table (diffuse and rough-conductor
+kinds) and the sunsky sky.
 
 The slice of `tpusky/render/scene.py` the main path uses. Area, point,
 directional and spot emitters, meshes, media, SDFs, curves and textures
@@ -30,9 +31,11 @@ def scene_occluded(scene: Scene, o, d, maxt):
 
 def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                env_to_world=None, bsdf_twosided=None, bsdf_kinds=None,
-               device="cuda") -> Scene:
+               bsdf_alphas=None, bsdf_etas=None, bsdf_ks=None,
+               bsdf_spectral_albedos=None, device="cuda") -> Scene:
     """Assemble a scene from host-side descriptions: shapes are dicts
-    accepted by `make_shape_table`."""
+    accepted by `make_shape_table`; the bsdf_* lists are the columns of
+    `make_material_table` (the reference package's keyword names)."""
     if len(shapes) == 0:
         # a never-hit placeholder keeps the table non-empty
         ph = np.eye(4)
@@ -41,7 +44,11 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
     if env_to_world is None:
         env_to_world = np.eye(3, dtype=np.float32)
     return Scene(make_shape_table(shapes, device=device),
-                 make_material_table(kinds=bsdf_kinds, albedos=bsdf_albedos,
-                                     twosided=bsdf_twosided, device=device),
+                 make_material_table(
+                     kinds=bsdf_kinds, albedos=bsdf_albedos,
+                     twosided=bsdf_twosided,
+                     spectral_albedos=bsdf_spectral_albedos,
+                     alphas=bsdf_alphas, etas=bsdf_etas, ks=bsdf_ks,
+                     device=device),
                  env, torch.tensor(np.asarray(env_to_world, np.float32),
                                    device=device))
