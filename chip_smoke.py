@@ -35,12 +35,26 @@ Phases, each of which raises (exit code != 0) on failure:
    after a spectral sky dome (K9); every spectral kernel's launch count
    must rise, the frame must agree with the plain path on the card lane
    by lane and per image, and a crop of it with the CPU's plain render;
-   a spectral gradient on the card must raise (K12/K13 are not ported);
-7. times of each kernel and its plain version (CUDA events; for the
+   then the spectral adjoints without the pdf, K12 (at 4 and at 10
+   wavelengths a lane) and K13, against autograd of their plain versions:
+   table cotangents (the limb-darkening table's too), per-lane direction
+   and wavelength cotangents, cotangents through precompute;
+7. path 1, the spectral gradient: `bench.py::bench_spectral_grad`'s loss
+   (512x512, 4 spp, depth 2, a diffuse ground, gradients to turbidity,
+   albedo and sun direction through the spectral precompute) through
+   `render_rows` and `render` (K10, K11 forward; K12, K13 backward) and a
+   spectral sky dome's (K9 forward, K12 backward); the kernels must
+   launch, the two gradients agree, and both the plain path's on the card;
+8. path 2, the emitter API's attached pdf: `eval_pdf` and `sample_eval`
+   with the pdf attached and a cotangent on it, at 2,097,152 lanes, in RGB
+   (K2 then K7, K3 then K8) and spectral mode (K10 then K12, K11 then K13,
+   both with the pdf), against autograd of the plain versions, the
+   gaussian table's cotangent included;
+9. times of each kernel and its plain version (CUDA events; for the
    adjoints, autograd's backward over a graph built once), the fwd+bwd
-   rate of bench_grad, a training step's time and peak memory, the
-   spectral frame's time and rays per second;
-8. one JSON line of kernel results, then the device line, last.
+   rates of bench_grad and bench_spectral_grad, a training step's time
+   and peak memory, the spectral frame's time and rays per second;
+10. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -78,6 +92,11 @@ DD_CAP = 1e-4
 # are ~5% of the cone's, ~3% of the lanes at the headline sky weight)
 RAMP_BAND = 0.05
 RAMP_CAP = 3e-2
+# K8/K13 against the plain sampler: lanes whose directions differ within
+# this sin(theta) of the zenith are left out of the bars (see
+# _zenith_lanes), at most this share of the lanes (~2e-4 expected)
+ZENITH_BAND = 1e-2
+ZENITH_CAP = 1e-3
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 operations/s
 PEAK_BYTES = 3.35e12
@@ -116,11 +135,63 @@ OPS = {
     "spec_wavelength": 118,
     "spec_wavelength_sun": 49,
     "spec_outside": 5,
+    # radiance_spec_vjp() (K12, K13): the geometry's forward and reverse
+    # (vjp_geometry, geometry_vjp) of an above-horizon lane, + the limb
+    # chain in the disc (the ramp's chain is "vjp_ramp"); per wavelength
+    # inside [320, 720] nm with a cotangent, two sky channels' formula and
+    # reverse (sky_channel_vjp) and the lerps; + the two channels' sun and
+    # limb values in the disc or on its ramp; + their reverse in the disc
+    "spec_vjp": 220,
+    "spec_vjp_disc": 30,
+    "spec_vjp_wavelength": 285,
+    "spec_vjp_sun_value": 85,
+    "spec_vjp_sun": 65,
+    # the mixture pdf's reverse (pdf_lane, 20 x gauss_term_vjp with the
+    # table cotangent's sum, pdf_vjp_tail), a lane with a pdf cotangent
+    # above the horizon; the sample placement's reverse (nee_sample_vjp
+    # beyond the redrawn sample), by strategy
+    "pdf_vjp": 1410,
+    "sample_sky_vjp": 55,
+    "sample_sun_vjp": 50,
 }
 TABLE_BYTES = 4 * (27 + 3 + 45 * 72 + 16)
 SPEC_TABLE_BYTES = 4 * (11 * 9 + 11 + 45 * 44 + 11 * 6 + 16)
 GAUSS_BYTES = 4 * 14 * 20
 ROW_BYTES = 4 * (45 * 72 + 46)      # the adjoints' cotangent row
+ROW_PDF_BYTES = ROW_BYTES + GAUSS_BYTES    # K7, K8's
+SPEC_ROW_BYTES = 4 * (45 * 44 + 99 + 11 + 66 + 16) + GAUSS_BYTES  # K12, K13
+
+# key -> (launch counter and kernel name, source, the TPU kernel it
+# replaces)
+_SUNSKY = "tpusky/ops/pallas/sunsky_kernel.py"
+KERNELS = {
+    "K1": ("sunsky_eval_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
+           f"{_SUNSKY}:747"),
+    "K2": ("sunsky_hit_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
+           f"{_SUNSKY}:771"),
+    "K3": ("sunsky_nee_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
+           f"{_SUNSKY}:793"),
+    "K4": ("direct_rgb_megakernel", "tpusky_torch/csrc/megakernel.cu",
+           "tpusky/ops/pallas/megakernel.py:428"),
+    "K5": ("sunsky_eval_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
+           f"{_SUNSKY}:1032"),
+    "K6": ("sunsky_nee_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
+           f"{_SUNSKY}:1133"),
+    "K7": ("sunsky_hit_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
+           f"{_SUNSKY}:1002"),
+    "K8": ("sunsky_nee_rgb_pdf_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
+           f"{_SUNSKY}:1064"),
+    "K9": ("sunsky_eval_spec", "tpusky_torch/csrc/sunsky_spectral.cu",
+           f"{_SUNSKY}:671"),
+    "K10": ("sunsky_hit_spec", "tpusky_torch/csrc/sunsky_spectral.cu",
+            f"{_SUNSKY}:695"),
+    "K11": ("sunsky_nee_spec", "tpusky_torch/csrc/sunsky_spectral.cu",
+            f"{_SUNSKY}:721"),
+    "K12": ("sunsky_hit_spec_bwd",
+            "tpusky_torch/csrc/sunsky_spectral_adjoint.cu", f"{_SUNSKY}:1284"),
+    "K13": ("sunsky_nee_spec_bwd",
+            "tpusky_torch/csrc/sunsky_spectral_adjoint.cu", f"{_SUNSKY}:1325"),
+}
 
 
 def _card_line():
@@ -197,13 +268,7 @@ def _vjp_ops(d, state):
     """radiance_vjp's operations over the directions d (N, 3), counted per
     lane class (OPS): above the horizon, in the disc, on the disc weight's
     ramp, in either."""
-    p = state.params
-    cos_cut = math.cos(float(p.sun_half_aperture))
-    half = 0.25 * (1.0 - cos_cut) * float(p.disc_softness)
-    cos_g = (d * state.sun_frame_n).sum(-1)
-    above = d[:, 2] >= 0
-    disc = above & (cos_g >= cos_cut)
-    ramp = above & ((cos_g - cos_cut).abs() <= half)
+    above, disc, ramp = _lane_classes(d, state)
     o = OPS
     return (float(above.sum()) * o["vjp"]
             + float((disc | ramp).sum()) * o["vjp_sun_value"]
@@ -223,6 +288,59 @@ def _spec_ops(d, wl, state):
             + float((valid & above[:, None]).sum()) * o["spec_wavelength"]
             + float((valid & disc[:, None]).sum()) * o["spec_wavelength_sun"]
             + float((~valid & above[:, None]).sum()) * o["spec_outside"])
+
+
+def _lane_classes(d, state):
+    """(above the horizon, in the disc, on the disc weight's ramp) masks of
+    directions d (N, 3)."""
+    p = state.params
+    cos_cut = math.cos(float(p.sun_half_aperture))
+    half = 0.25 * (1.0 - cos_cut) * float(p.disc_softness)
+    cos_g = (d * state.sun_frame_n).sum(-1)
+    above = d[:, 2] >= 0
+    return (above, above & (cos_g >= cos_cut),
+            above & ((cos_g - cos_cut).abs() <= half))
+
+
+def _spec_vjp_ops(d, wl, state):
+    """radiance_spec_vjp's operations over directions d (N, 3) at
+    wavelengths wl (N, W), every cotangent non-zero, counted per lane and
+    wavelength class (OPS)."""
+    above, disc, ramp = _lane_classes(d, state)
+    valid = (wl >= 320.0) & (wl <= 720.0) & above[:, None]
+    o = OPS
+    return (float(above.sum()) * o["spec_vjp"]
+            + float(disc.sum()) * o["spec_vjp_disc"]
+            + float(ramp.sum()) * o["vjp_ramp"]
+            + float(valid.sum()) * o["spec_vjp_wavelength"]
+            + float((valid & (disc | ramp)[:, None]).sum())
+            * o["spec_vjp_sun_value"]
+            + float((valid & disc[:, None]).sum()) * o["spec_vjp_sun"])
+
+
+def _spectral_leaf_state(dev):
+    """(leaf parameters, spectral state) at the headline parameters, the
+    state's limb-darkening table a leaf of its own (a constant of the
+    dataset, so its cotangent is checked there)."""
+    import tpusky_torch as tt
+    lp = _leaf_params(dev, "spectral")
+    st = tt.sunsky_precompute(lp, mode="spectral")
+    return lp, st._replace(sun_ld=st.sun_ld.detach().clone().requires_grad_())
+
+
+def _with_disc_edge(d, state, rng):
+    """d with the 1% of lanes after the first eighth (which the spectral
+    checks keep below the horizon) moved to the disc edge
+    (tests/test_pallas.py:215)."""
+    import torch
+    n = d.shape[0]
+    sun = state.sun_frame_n.detach().cpu().numpy()
+    edge = sun + 0.002 * rng.normal(size=(n // 100, 3))
+    out = d.clone()
+    out[n // 8:n // 8 + n // 100] = torch.tensor(
+        edge / np.linalg.norm(edge, axis=-1, keepdims=True),
+        dtype=torch.float32, device=d.device)
+    return out
 
 
 def _spectral_scene(state, device):
@@ -325,39 +443,62 @@ def train_case(scene, sensor, film, tables, dev):
     return step, opt, builder, start, target
 
 
-def _leaf_params(dev):
+def _leaf_params(dev, mode="rgb"):
     """The headline parameters, every field a leaf that requires grad."""
     import tpusky_torch as tt
     p = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
-                       device=dev)
+                       mode=mode, device=dev)
     return p._replace(**{f: getattr(p, f).detach().clone().requires_grad_()
                          for f in p._fields})
 
 
-def _adjoint_check(name, out_k, out_p, g, state, params, lanes_k=(),
-                   lanes_p=(), misc_bar=1e-3):
-    """Hold an adjoint kernel's cotangents against autograd of the plain
-    version: the tables it writes (sky params, sky radiance, sun), the
-    misc row pulled back to its state sources, each within 1e-3 of the
-    table's largest plain cotangent (misc within `misc_bar`; where it is
-    None, the misc row and each of its sources are only printed);
-    (turbidity, albedo) within 1e-3 and the sun direction within 3e-2,
-    relative. Returns (max abs error of the kernel's table cotangents,
-    per-lane cotangents of kernel and plain)."""
+def _grads(out, wrt, g):
+    """autograd.grad with unused inputs' cotangents as zeros."""
     import torch
-    tables = [state.sky_params, state.sky_radiance, state.sun_radiance]
+    got = torch.autograd.grad(out, wrt, g, retain_graph=True,
+                              allow_unused=True)
+    return [torch.zeros_like(w) if x is None else x
+            for w, x in zip(wrt, got)]
+
+
+def _adjoint_check(name, out_k, out_p, g, state, params, lanes_k=(),
+                   lanes_p=(), misc_bar=1e-3, pdf=False, read=False):
+    """Hold an adjoint kernel's cotangents against autograd of the plain
+    version (out and g may be lists): the tables it writes (sky params,
+    sky radiance, sun; the limb darkening of a spectral state, given as a
+    leaf; with `pdf` the gaussians), the misc row pulled back to its state
+    sources, each within 1e-3 of the table's largest plain cotangent (misc
+    within `misc_bar`; where it is None, the misc row and each of its
+    sources are only printed); (turbidity, albedo) within 1e-3 and the sun
+    direction within 3e-2, relative; with `read`, every number is only
+    printed. Returns (max abs error of the
+    kernel's table cotangents, per-lane cotangents of kernel and plain)."""
+    import torch
+    tables = [("skyp", state.sky_params), ("skyr", state.sky_radiance),
+              ("sun", state.sun_radiance)]
+    if state.sun_ld is not None:
+        tables.append(("ld", state.sun_ld))
+    if pdf:
+        tables.append(("gauss", state.gaussians))
     misc_names = ("sun_frame_n", "sun_half_aperture", "sky_scale",
                   "sun_scale", "disc_softness")
     misc = [state.sun_frame_n] + [getattr(params, f) for f in misc_names[1:]]
+    if pdf:
+        misc_names += ("sun_angles", "sky_sampling_w", "sun_frame_s",
+                       "sun_frame_t")
+        misc += [state.sun_angles, state.sky_sampling_w, state.sun_frame_s,
+                 state.sun_frame_t]
     pars = [params.turbidity, params.albedo, params.sun_direction]
-    wrt = tables + misc + pars
-    gk = torch.autograd.grad(out_k, wrt + list(lanes_k), g,
-                             retain_graph=True)
-    gp = torch.autograd.grad(out_p, wrt + list(lanes_p), g,
-                             retain_graph=True)
-    for i, t in enumerate(("skyp", "skyr", "sun")):
-        _check_scale(f"{name} d{t}", gk[i], gp[i], 1e-3)
-    flat = slice(3, 3 + len(misc))
+    wrt = [t for _, t in tables] + misc + pars
+    gk = _grads(out_k, wrt + list(lanes_k), g)
+    gp = _grads(out_p, wrt + list(lanes_p), g)
+    bar = None if read else 1e-3
+    if read:
+        misc_bar = None
+    for i, (t, _) in enumerate(tables):
+        _check_scale(f"{name} d{t}", gk[i], gp[i], bar)
+    nt = len(tables)
+    flat = slice(nt, nt + len(misc))
     _check_scale(f"{name} dmisc (at its state sources)",
                  torch.cat([x.reshape(-1) for x in gk[flat]]),
                  torch.cat([x.reshape(-1) for x in gp[flat]]), misc_bar)
@@ -368,17 +509,88 @@ def _adjoint_check(name, out_k, out_p, g, state, params, lanes_k=(),
     for i, (t, bar) in enumerate((("turbidity", 1e-3), ("albedo", 1e-3),
                                   ("sun_direction", 3e-2))):
         _check_scale(f"{name} d{t} through precompute",
-                     gk[n_wrt - 3 + i], gp[n_wrt - 3 + i], bar)
-    err = max(float((a - b).abs().max()) for a, b in zip(gk[:3], gp[:3]))
+                     gk[n_wrt - 3 + i], gp[n_wrt - 3 + i],
+                     None if read else bar)
+    err = max(float((a - b).abs().max()) for a, b in zip(gk[:nt], gp[:nt]))
     return err, gk[n_wrt:], gp[n_wrt:]
+
+
+def _ramp_clamp_lanes(name, d_k, d_p, state):
+    """Lanes whose kernel and plain sampler directions differ and whose
+    disc weight's ramp lies within RAMP_BAND of a clamp, capped at
+    RAMP_CAP of the lanes (see phase 3's K6 check)."""
+    import torch
+    with torch.no_grad():
+        p = state.params
+        cos_cut = math.cos(float(p.sun_half_aperture))
+        eps = 0.5 * (1.0 - cos_cut) * float(p.disc_softness)
+        cos_g = (d_p.double() * state.sun_frame_n.double()).sum(-1)
+        ramp = (cos_g - cos_cut) / eps + 0.5
+        at_clamp = (d_k != d_p).any(-1) & (
+            (ramp.abs() < RAMP_BAND) | ((ramp - 1.0).abs() < RAMP_BAND))
+    n, n_clamp = d_k.shape[0], int(at_clamp.sum())
+    print(f"check {name} lanes left out (directions differ, ramp within "
+          f"{RAMP_BAND:g} of a clamp): {n_clamp} of {n} "
+          f"(cap {int(RAMP_CAP * n)})")
+    if n_clamp > RAMP_CAP * n:
+        raise AssertionError(f"{name}: {n_clamp} lanes at the ramp's clamps")
+    return at_clamp
+
+
+def _pdf_flips(name, pdf_k, pdf_p, n):
+    """Lanes whose kernel and plain pdfs differ by more than 1e-3
+    (relative, floor 1e-3), capped at DD_CAP of the lanes: directions on
+    the sun cone's edge, whose cone test the kernel (its dot product
+    contracted into FMAs) and the plain version take differently, which
+    moves the pdf by the whole cone term, 1 / (2 pi (1 - cos_cut)) ~ 1.4e4,
+    and the mixture weight's cotangent with it."""
+    flip = _rel(pdf_k.detach(), pdf_p.detach(), 1e-3) > 1e-3
+    k = int(flip.sum())
+    print(f"check {name} lanes left out (pdfs differ by > 1e-3, the cone "
+          f"test flipped): {k} of {n} (cap {int(DD_CAP * n)})")
+    if k > DD_CAP * n:
+        raise AssertionError(f"{name}: {k} lanes' pdfs differ")
+    return flip
+
+
+def _zenith_lanes(name, d_k, d_p):
+    """Lanes whose kernel and plain sampler directions differ and lie
+    within ZENITH_BAND of the zenith (in sin(theta)), capped at
+    ZENITH_CAP of the lanes. There the pdf's 1 / sin(theta) and atan2's
+    1 / sin(theta)^2 turn the samplers' ulp differences (up to ~2e-5) into
+    relative differences of ~2e-5 / theta in a lane's cotangents through
+    the placement, and these few lanes set the gaussian table's (up to
+    4e-3 of its scale with them, 3e-7 without: one H100 run)."""
+    import torch
+    with torch.no_grad():
+        sin_t = torch.sqrt(d_p[:, 0] ** 2 + d_p[:, 1] ** 2)
+        near = (d_k != d_p).any(-1) & (sin_t < ZENITH_BAND)
+    n, k = d_k.shape[0], int(near.sum())
+    print(f"check {name} lanes left out (directions differ, sin(theta) < "
+          f"{ZENITH_BAND:g}): {k} of {n} (cap {int(ZENITH_CAP * n)})")
+    if k > ZENITH_CAP * n:
+        raise AssertionError(f"{name}: {k} lanes near the zenith")
+    return near
+
+
+def _lane_check(name, a, b, n, mask=None):
+    """Per-lane cotangents within 1e-3 of each lane's scale (floor 1e-3)
+    on all but DD_CAP of the lanes (those under `mask` left out); returns
+    the max abs error over all lanes."""
+    err = (a - b).abs().amax(-1) / (b.abs().amax(-1) + 1e-3)
+    if mask is not None:
+        err = err[~mask]
+    _count_outside(name, err, 1e-3, n, DD_CAP)
+    return float((a - b).abs().max())
 
 
 def spectral_phase(dev, dirs, rng, film, card):
     """Phase 6: K9-K11 against their plain versions, bench_spectral's
     frame through render() with the launch counts of that run, the frame
-    against the plain path and a crop against the CPU, the refusal of a
-    spectral gradient, then times. Returns {K: (name, launches, max abs
-    error, (ms, plain ms), (bound ms, bound by))}."""
+    against the plain path and a crop against the CPU, K12 and K13 without
+    the pdf against autograd of their plain versions, then times. Returns
+    {K: (name, launches, max abs error, (ms, plain ms), (bound ms, bound
+    by))}; K12's and K13's launches are filled in by phase 7."""
     import torch
     import tpusky_torch as tt
     from tpusky_torch.models.sunsky import model as M
@@ -427,9 +639,10 @@ def spectral_phase(dev, dirs, rng, film, card):
     m = min(1 << 16, n)
     wl10 = torch.tensor(rng.uniform(300.0, 760.0, (m, 10)).astype(
         np.float32), device=dev)
+    # (the last lanes: the first eighth lies below the horizon)
     _count_outside("K9 radiance, 10 wavelengths",
-                   _rel(K.sunsky_eval_spec(state, d[:m], wl10),
-                        M._eval_spec_plain(state, d[:m], wl10),
+                   _rel(K.sunsky_eval_spec(state, d[n - m:], wl10),
+                        M._eval_spec_plain(state, d[n - m:], wl10),
                         1e-3).amax(-1), 1e-4, m)
     rad10, pdf10 = K.sunsky_hit_spec(state, d, wl)
     ref10, refp10 = M._hit_spec_plain(state, d, wl)
@@ -513,32 +726,60 @@ def spectral_phase(dev, dirs, rng, film, card):
             and float(img_c.max()) > 0):
         raise AssertionError("the spectral frame disagrees with the CPU")
 
-    # the spectral adjoints K12/K13 are not ported: a gradient request on
-    # the card raises instead of running anything else
-    lp = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
-                        mode="spectral", device=dev)
-    lp = lp._replace(turbidity=lp.turbidity.clone().requires_grad_())
-    st_g = tt.sunsky_precompute(lp, mode="spectral")
-    for k, ask in (
-            ("K12", lambda: M.eval(st_g, d[:8], mode="spectral",
-                                   wavelengths=wl[:8])),
-            ("K12", lambda: M.eval_pdf(st_g, d[:8], mode="spectral",
-                                       pdf_detached=True,
-                                       wavelengths=wl[:8])),
-            ("K13", lambda: M.sample_eval(st_g, u2[:8], mode="spectral",
-                                          pdf_detached=True,
-                                          wavelengths=wl[:8]))):
-        try:
-            ask()
-        except NotImplementedError as e:
-            if k not in str(e):
-                raise
-            print(f"check spectral gradient refused: {e}")
-        else:
-            raise AssertionError(f"a spectral gradient ran without {k}")
+    # K12 and K13 without the pdf (the render's contract) against autograd
+    # of their plain versions: 1% of the directions at the disc edge, a
+    # cotangent drawn from a numpy seed, gradients through precompute
+    lp, st_g = _spectral_leaf_state(dev)
+    d_g = _with_disc_edge(d, st_g, rng)
+    g_spec = torch.tensor(rng.normal(size=(n, N_HERO)).astype(np.float32),
+                          device=dev)
+    d_k, d_p = d_g.clone().requires_grad_(), d_g.clone().requires_grad_()
+    wl_k, wl_p = wl.clone().requires_grad_(), wl.clone().requires_grad_()
+    out12p = M._eval_spec_plain(st_g, d_p, wl_p)
+    err["K12"], (dd_k, dwl_k), (dd_p, dwl_p) = _adjoint_check(
+        "K12", K.sunsky_eval_spec(st_g, d_k, wl_k), out12p, g_spec, st_g,
+        lp, [d_k, wl_k], [d_p, wl_p])
+    err["K12"] = max(err["K12"], _lane_check("K12 dd", dd_k, dd_p, n),
+                     _lane_check("K12 dwl", dwl_k, dwl_p, n))
+    out = (d_g[:, 2:] < 0) | (wl < 320) | (wl >= 720)
+    if not bool((dwl_k[out] == 0).all()):
+        raise AssertionError("K12: a wavelength cotangent below the horizon "
+                             "or outside [320, 720) nm is not zero")
+    del dd_k, dwl_k, dd_p, dwl_p, out
+    # W = 10 wavelengths a lane, as K9's check
+    d10_k = d_g[n - m:].clone().requires_grad_()
+    d10_p = d_g[n - m:].clone().requires_grad_()
+    wl10_k, wl10_p = wl10.clone().requires_grad_(), wl10.clone().requires_grad_()
+    g10 = torch.tensor(rng.normal(size=(m, 10)).astype(np.float32),
+                       device=dev)
+    _, (dd_k, dwl_k), (dd_p, dwl_p) = _adjoint_check(
+        "K12, 10 wavelengths", K.sunsky_eval_spec(st_g, d10_k, wl10_k),
+        M._eval_spec_plain(st_g, d10_p, wl10_p), g10, st_g, lp,
+        [d10_k, wl10_k], [d10_p, wl10_p])
+    _lane_check("K12 dd, 10 wavelengths", dd_k, dd_p, m)
+    _lane_check("K12 dwl, 10 wavelengths", dwl_k, dwl_p, m)
+    del dd_k, dwl_k, dd_p, dwl_p
+    # K13 redraws K11's samples bitwise: held against the plain radiance at
+    # those samples, and against the plain NEE block with its own sampler
+    # as phase 3 holds K6
+    d13, rad13, _ = K.sunsky_nee_spec(st_g, u2, wl_k, pdf_detached=True)
+    out13p = M._eval_spec_plain(st_g, d13, wl_p)
+    err["K13"], (dwl_k,), (dwl_p,) = _adjoint_check(
+        "K13 (at its samples)", rad13, out13p, g_spec, st_g, lp, [wl_k],
+        [wl_p])
+    err["K13"] = max(err["K13"], _lane_check("K13 dwl", dwl_k, dwl_p, n))
+    d_ps, rad_ps = M._sample_eval_spec_plain(st_g, u2, wl_p)[:2]
+    _adjoint_check("K13 (plain sampler, all lanes)", rad13, rad_ps, g_spec,
+                   st_g, lp, misc_bar=None)
+    at_clamp = _ramp_clamp_lanes("K13", d13, d_ps, st_g)
+    _adjoint_check("K13 (plain sampler, ramp clamps left out)", rad13,
+                   rad_ps, g_spec * (~at_clamp)[:, None], st_g, lp)
+    del dwl_k, dwl_p, d_ps, rad_ps, rad13, at_clamp
 
     # times (CUDA events) and bounds
     tables = K.pack_tables_spec(state, dev)
+    leaves = [st_g.sky_params, st_g.sky_radiance, st_g.sun_radiance,
+              st_g.sun_ld]
     times = {
         "K9": _pair_ms(lambda: K.launch_eval_spec(tables, d, wl),
                        lambda: M._eval_spec_plain(state, d, wl)),
@@ -546,6 +787,13 @@ def spectral_phase(dev, dirs, rng, film, card):
                         lambda: M._hit_spec_plain(state, d, wl)),
         "K11": _pair_ms(lambda: K.launch_nee_spec(tables, u2, wl),
                         lambda: M._sample_eval_spec_plain(state, u2, wl)),
+        # the adjoints: autograd's backward alone over the graphs above
+        "K12": _pair_ms(
+            lambda: K.launch_hit_spec_bwd(tables, d_g, wl, g_spec),
+            lambda: _grads(out12p, leaves + [d_p, wl_p], g_spec), reps=3),
+        "K13": _pair_ms(
+            lambda: K.launch_nee_spec_bwd(tables, u2, wl, g_spec),
+            lambda: _grads(out13p, leaves + [wl_p], g_spec), reps=3),
     }
     frame_ms, frame_plain_ms = _pair_ms(
         lambda: integrator.render(scene, sensor, film, SEED, spp=SPP,
@@ -554,7 +802,7 @@ def spectral_phase(dev, dirs, rng, film, card):
                                        SPEC_DEPTH, 1000, "spectral", 0, H,
                                        kinds=kinds, plain=True), reps=3)
     rays = H * W * SPP * (1 + 2 * (SPEC_DEPTH - 1))
-    for key in ("K9", "K10", "K11"):
+    for key in ("K9", "K10", "K11", "K12", "K13"):
         k, p = times[key]
         print(f"time {key}: {k:.4f} ms, plain {p:.4f} ms at {n} lanes x "
               f"{N_HERO} wavelengths [{card}]")
@@ -571,20 +819,338 @@ def spectral_phase(dev, dirs, rng, film, card):
         d11 = K.launch_nee_spec(tables, u2, wl)[0]
         above11 = float((d11[:, 2] >= 0).sum())
         ops9 = _spec_ops(d, wl, state)
-        ops11 = (sky_pick * OPS["sample_sky"]
-                 + (n - sky_pick) * OPS["sample_sun"]
-                 + above11 * OPS["pdf"] + _spec_ops(d11, wl, state))
-    gauss = 4 * 14 * 20
+        sample_ops = (sky_pick * OPS["sample_sky"]
+                      + (n - sky_pick) * OPS["sample_sun"])
+        ops11 = sample_ops + above11 * OPS["pdf"] + _spec_ops(d11, wl, state)
+        ops12 = _spec_vjp_ops(d_g, wl, state)
+        ops13 = sample_ops + _spec_vjp_ops(d11, wl, state)
     bounds = {
         "K9": _bound(44 * n + SPEC_TABLE_BYTES, ops9),
-        "K10": _bound(48 * n + SPEC_TABLE_BYTES + gauss,
+        "K10": _bound(48 * n + SPEC_TABLE_BYTES + GAUSS_BYTES,
                       ops9 + above * OPS["pdf"]),
-        "K11": _bound(56 * n + SPEC_TABLE_BYTES + gauss, ops11),
+        "K11": _bound(56 * n + SPEC_TABLE_BYTES + GAUSS_BYTES, ops11),
+        # d, wl, g in; dd, dwl out; the cotangent row out
+        "K12": _bound(72 * n + SPEC_TABLE_BYTES + SPEC_ROW_BYTES, ops12),
+        # u, wl, g in; dwl out
+        "K13": _bound(56 * n + SPEC_TABLE_BYTES + GAUSS_BYTES
+                      + SPEC_ROW_BYTES, ops13),
     }
-    names = {"K9": "sunsky_eval_spec", "K10": "sunsky_hit_spec",
-             "K11": "sunsky_nee_spec"}
-    return {key: (names[key], launches[names[key]], err[key], times[key],
-                  bounds[key]) for key in names}
+    return {key: (KERNELS[key][0], launches[KERNELS[key][0]], err[key],
+                  times[key], bounds[key]) for key in bounds}
+
+
+def spectral_grad_case(kind, scene, sensor, film, tables, dev):
+    """bench.py::bench_spectral_grad: the loss mean(img^2) of the spectral
+    frame (512x512, GRAD_SPP, depth MAX_DEPTH, a diffuse ground) and its
+    gradient to (turbidity, albedo (11,), sun direction) through
+    precompute(..., "spectral"). kind "rows" runs render_rows with the
+    kernels, "plain" with the plain versions, "render" render().
+    Returns (loss, gradients)."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky.model import precompute
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.bsdf import table_kinds
+    from tpusky_torch.render.film import develop
+    t = torch.tensor(3.0, device=dev, requires_grad=True)
+    alb = torch.full((11,), 0.3, device=dev, requires_grad=True)
+    sd = torch.tensor(SUN, device=dev, requires_grad=True)
+    p = tt.make_params(turbidity=t, albedo=alb,
+                       sun_direction=sd / torch.sqrt((sd ** 2).sum()),
+                       mode="spectral", device=dev)
+    sc = scene._replace(env=precompute(tables, p, "spectral"))
+    if kind == "render":
+        im = integrator.render(sc, sensor, film, SEED, spp=GRAD_SPP,
+                               max_depth=MAX_DEPTH, mode="spectral")
+    else:
+        im = develop(integrator.render_rows(
+            sc, sensor, film, SEED, GRAD_SPP, MAX_DEPTH, 1000, "spectral",
+            0, H, kinds=table_kinds(sc.bsdfs), plain=kind == "plain"))
+    loss = (im ** 2).mean()
+    return loss.detach().item(), torch.autograd.grad(loss, [t, alb, sd])
+
+
+def _spectral_grad_scene(state, device):
+    """bench.py::bench_spectral_grad's scene: a 20x20 diffuse ground
+    (albedo 0.5) under the spectral sunsky, the camera of bench_spectral."""
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
+    scene = make_scene(shapes=[dict(kind=1, to_world=ground, bsdf_idx=0)],
+                       bsdf_albedos=[[0.5, 0.5, 0.5]], env=state,
+                       device=device)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 0.5], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+def spectral_grad_phase(dev, dirs, rng, film, card):
+    """Phase 7 (path 1): bench_spectral_grad's gradient through render_rows
+    and render() (K10, K11 forward; K12, K13 without the pdf backward) and
+    a spectral sky dome's (K9 forward, K12 backward), the launch counts of
+    that run; both gradients against each other and against the plain
+    path's on the card; then the step's time. Returns the launch counts."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky import model as M
+    from tpusky_torch.ops import spectrum
+    from tpusky_torch.ops.cuda import build
+    tables = tt.load_tables("spectral", device=dev)
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, mode="spectral",
+        device=dev), mode="spectral")
+    scene, sensor = _spectral_grad_scene(state, dev)
+    n = dirs.shape[0]
+    u_wl = torch.tensor(rng.random(n, dtype=np.float32), device=dev)
+    wl = spectrum.sample_rgb_spectrum(
+        spectrum.sample_shifted(u_wl, N_HERO))[0].contiguous()
+
+    def case(kind):
+        return spectral_grad_case(kind, scene, sensor, film, tables, dev)
+
+    def dome(plain):
+        lp = _leaf_params(dev, "spectral")
+        st = tt.sunsky_precompute(lp, mode="spectral")
+        sky = (M.eval(st, dirs, mode="spectral", plain=plain,
+                      wavelengths=wl) ** 2).mean()
+        return torch.autograd.grad(sky, [lp.turbidity, lp.albedo,
+                                         lp.sun_direction])
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    loss_k, grad_k = case("rows")
+    loss_r, grad_r = case("render")
+    dome_k = dome(False)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    print(f"spectral gradient main path: {path_s:.2f} s, launches "
+          f"{launches}")
+    for name in ("sunsky_eval_spec", "sunsky_hit_spec", "sunsky_nee_spec",
+                 "sunsky_hit_spec_bwd", "sunsky_nee_spec_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the spectral gradient path never "
+                                 f"launched {name}")
+    names = ("turbidity", "albedo", "sun_direction")
+    print("bench_spectral_grad loss %.6e, d/d(turbidity, albedo, sun) = %s"
+          % (loss_k, [g.tolist() for g in grad_k]))
+    if not all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in grad_k):
+        raise AssertionError("bench_spectral_grad: gradients not finite or "
+                             "zero")
+    for name, a, b in zip(names, grad_r, grad_k):
+        _check_scale(f"bench_spectral_grad render() vs render_rows d{name}",
+                     a, b, 1e-4)
+    loss_p, grad_p = case("plain")
+    dome_p = dome(True)
+    print(f"bench_spectral_grad loss: kernels {loss_k:.6e}, render() "
+          f"{loss_r:.6e}, plain {loss_p:.6e}")
+    for (name, bar), a, b, c, e in zip(
+            ((names[0], 1e-3), (names[1], 1e-3), (names[2], 3e-2)), grad_k,
+            grad_p, dome_k, dome_p):
+        _check_scale(f"bench_spectral_grad d{name}: kernels vs plain on the "
+                     f"card", a, b, bar)
+        _check_scale(f"spectral sky dome d{name}: K9/K12 vs plain", c, e,
+                     bar)
+
+    step_ms, plain_ms = _pair_ms(lambda: case("rows"), lambda: case("plain"),
+                                 reps=3)
+    rays = H * W * GRAD_SPP * (1 + 2 * (MAX_DEPTH - 1))
+    print(f"time bench_spectral_grad fwd+bwd ({W}x{H}x{GRAD_SPP}, depth "
+          f"{MAX_DEPTH}, {rays} rays, precompute included): render_rows "
+          f"with K10/K11/K12/K13 {step_ms:.2f} ms "
+          f"({rays / step_ms / 1e3:.2f} M rays/s), plain {plain_ms:.2f} ms "
+          f"({rays / plain_ms / 1e3:.2f} M rays/s) [{card}]")
+    return launches
+
+
+def attached_pdf_phase(dev, dirs, u2, rng, card):
+    """Phase 8 (path 2): the emitter API's attached pdf. `eval_pdf` and
+    `sample_eval` with pdf_detached=False at N_LANES lanes, differentiated
+    with a cotangent on the radiance and on the pdf: RGB mode (K2 then K7,
+    K3 then K8) and spectral mode at 4 hero wavelengths (K10 then K12 with
+    the pdf, K11 then K13 with the pdf; K12 again at 64K lanes x 10
+    wavelengths), the launch counts of that run; each held against
+    autograd of its plain version. Then times. Returns {K: (name,
+    launches, max abs error, (ms, plain ms), (bound ms, bound by))}."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky import model as M
+    from tpusky_torch.ops import spectrum
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import sunsky_kernel as K
+    n = dirs.shape[0]
+    lp = _leaf_params(dev)
+    st = tt.sunsky_precompute(lp)
+    lps, sts = _spectral_leaf_state(dev)
+    d = dirs.clone()
+    d[: n // 8, 2] = -d[: n // 8, 2]
+    d = _with_disc_edge(d, st, rng)
+    u_wl = torch.tensor(rng.random(n, dtype=np.float32), device=dev)
+    wl = spectrum.sample_rgb_spectrum(
+        spectrum.sample_shifted(u_wl, N_HERO))[0].contiguous()
+
+    def normal(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device=dev)
+    g_rad, g_pdf, g_spec = normal(n, 3), normal(n), normal(n, N_HERO)
+    m = min(1 << 16, n)
+    wl10 = torch.tensor(rng.uniform(300.0, 760.0, (m, 10)).astype(
+        np.float32), device=dev)
+    g10 = normal(m, 10)
+
+    def pair(x):
+        return x.clone().requires_grad_(), x.clone().requires_grad_()
+    err, graphs = {}, {}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # RGB hit: K2 forward, K7 backward
+    d_k, d_p = pair(d)
+    out_k, out_p = list(M.eval_pdf(st, d_k)), list(M._hit_rgb_plain(st, d_p))
+    _adjoint_check("K7 (all lanes)", out_k, out_p, [g_rad, g_pdf], st, lp,
+                   pdf=True, read=True)
+    keep = (~_pdf_flips("K7", out_k[1], out_p[1], n)).float()
+    err["K7"], (dd_k,), (dd_p,) = _adjoint_check(
+        "K7 (cone flips left out)", out_k, out_p,
+        [g_rad * keep[:, None], g_pdf * keep], st, lp, [d_k], [d_p],
+        pdf=True)
+    err["K7"] = max(err["K7"], _lane_check("K7 dd", dd_k, dd_p, n))
+    graphs["K7"] = (list(out_p), [d_p], [g_rad, g_pdf])
+    # RGB NEE: K3 forward, K8 backward; held against the plain NEE block
+    # with its own sampler, as phase 3 holds K6, without the lanes at the
+    # ramp's clamps, near the zenith or whose cone test flipped
+    d8, rad8, pdf8 = M.sample_eval(st, u2)
+    d_ps, rad_ps, pdf_ps = M._sample_eval_rgb_plain(st, u2)
+    _adjoint_check("K8 (all lanes)", [rad8, pdf8], [rad_ps, pdf_ps],
+                   [g_rad, g_pdf], st, lp, pdf=True, read=True)
+    keep = (~(_ramp_clamp_lanes("K8", d8, d_ps, st)
+              | _zenith_lanes("K8", d8, d_ps)
+              | _pdf_flips("K8", pdf8, pdf_ps, n))).float()
+    err["K8"], _, _ = _adjoint_check(
+        "K8 (those lanes left out)", [rad8, pdf8], [rad_ps, pdf_ps],
+        [g_rad * keep[:, None], g_pdf * keep], st, lp, pdf=True)
+    graphs["K8"] = ([rad_ps, pdf_ps], [], [g_rad, g_pdf])
+    # spectral hit: K10 forward, K12 with the pdf backward
+    (d_k, d_p), (wl_k, wl_p) = pair(d), pair(wl)
+    out_k = list(M.eval_pdf(sts, d_k, mode="spectral", wavelengths=wl_k))
+    out_p = list(M._hit_spec_plain(sts, d_p, wl_p))
+    _adjoint_check("K12 with the pdf (all lanes)", out_k, out_p,
+                   [g_spec, g_pdf], sts, lps, pdf=True, read=True)
+    keep = (~_pdf_flips("K12 with the pdf", out_k[1], out_p[1], n)).float()
+    err["K12"], (dd_k, dwl_k), (dd_p, dwl_p) = _adjoint_check(
+        "K12 with the pdf (cone flips left out)", out_k, out_p,
+        [g_spec * keep[:, None], g_pdf * keep], sts, lps, [d_k, wl_k],
+        [d_p, wl_p], pdf=True)
+    err["K12"] = max(err["K12"],
+                     _lane_check("K12 with the pdf dd", dd_k, dd_p, n),
+                     _lane_check("K12 with the pdf dwl", dwl_k, dwl_p, n))
+    graphs["K12"] = (list(out_p), [d_p, wl_p], [g_spec, g_pdf])
+    (d10_k, d10_p), (w10_k, w10_p) = pair(d[n - m:]), pair(wl10)
+    out_k = list(M.eval_pdf(sts, d10_k, mode="spectral", wavelengths=w10_k))
+    out_p = list(M._hit_spec_plain(sts, d10_p, w10_p))
+    keep = (~_pdf_flips("K12 with the pdf, 10 wavelengths", out_k[1],
+                        out_p[1], m)).float()
+    _, (dd_k, dwl_k), (dd_p, dwl_p) = _adjoint_check(
+        "K12 with the pdf, 10 wavelengths", out_k, out_p,
+        [g10 * keep[:, None], g_pdf[:m] * keep], sts, lps, [d10_k, w10_k],
+        [d10_p, w10_p], pdf=True)
+    _lane_check("K12 with the pdf dd, 10 wavelengths", dd_k, dd_p, m)
+    _lane_check("K12 with the pdf dwl, 10 wavelengths", dwl_k, dwl_p, m)
+    # spectral NEE: K11 forward, K13 with the pdf backward; its wavelength
+    # cotangent (the radiance's alone) held at the kernel's own samples
+    (wl_k, wl_p), wl_q = pair(wl), wl.clone().requires_grad_()
+    d13, rad13, pdf13 = M.sample_eval(sts, u2, mode="spectral",
+                                      wavelengths=wl_k)
+    d_ps, rad_ps, pdf_ps = M._sample_eval_spec_plain(sts, u2, wl_p)
+    _adjoint_check("K13 with the pdf (all lanes)", [rad13, pdf13],
+                   [rad_ps, pdf_ps], [g_spec, g_pdf], sts, lps, pdf=True,
+                   read=True)
+    keep = (~(_ramp_clamp_lanes("K13 with the pdf", d13, d_ps, sts)
+              | _zenith_lanes("K13 with the pdf", d13, d_ps)
+              | _pdf_flips("K13 with the pdf", pdf13, pdf_ps, n))).float()
+    err["K13"], _, _ = _adjoint_check(
+        "K13 with the pdf (those lanes left out)", [rad13, pdf13],
+        [rad_ps, pdf_ps], [g_spec * keep[:, None], g_pdf * keep], sts, lps,
+        pdf=True)
+    (dwl_k,) = _grads([rad13, pdf13], [wl_k], [g_spec, g_pdf])
+    (dwl_q,) = _grads(M._eval_spec_plain(sts, d13, wl_q), [wl_q], g_spec)
+    err["K13"] = max(err["K13"], _lane_check(
+        "K13 with the pdf dwl (at its samples)", dwl_k, dwl_q, n))
+    graphs["K13"] = ([rad_ps, pdf_ps], [wl_p], [g_spec, g_pdf])
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    print(f"attached-pdf path: launches {launches}")
+    for key in ("K2", "K3", "K7", "K8", "K10", "K11", "K12", "K13"):
+        if launches[KERNELS[key][0]] <= 0:
+            raise AssertionError(f"the attached-pdf path never launched "
+                                 f"{KERNELS[key][0]}")
+    del dd_k, dwl_k, dd_p, dwl_p, dwl_q
+
+    # times: each kernel against autograd's backward alone over the plain
+    # graphs built above
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
+    spec = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, mode="spectral",
+        device=dev), mode="spectral")
+    tab = K.pack_tables(state, dev)
+    tab_s = K.pack_tables_spec(spec, dev)
+    rgb = [st.sky_params, st.sky_radiance, st.sun_radiance, st.gaussians]
+    spc = [sts.sky_params, sts.sky_radiance, sts.sun_radiance, sts.sun_ld,
+           sts.gaussians]
+    kernels = {
+        "K7": lambda: K.launch_hit_bwd(tab, d, g_rad, g_pdf),
+        "K8": lambda: K.launch_nee_pdf_bwd(tab, u2, g_rad, g_pdf),
+        "K12": lambda: K.launch_hit_spec_bwd(tab_s, d, wl, g_spec, g_pdf),
+        "K13": lambda: K.launch_nee_spec_bwd(tab_s, u2, wl, g_spec, g_pdf),
+    }
+    times = {}
+    for key, run in kernels.items():
+        out, lanes, cts = graphs[key]
+        leaves = (rgb if key in ("K7", "K8") else spc) + lanes
+        times[key] = _pair_ms(run, lambda: _grads(out, leaves, cts), reps=3)
+        print(f"time {key} with the pdf: {times[key][0]:.4f} ms, plain "
+              f"{times[key][1]:.4f} ms at {n} lanes [{card}]")
+    del graphs
+
+    with torch.no_grad():
+        o = OPS
+        w_sky = float(state.sky_sampling_w)
+        sky_pick = float((u2[:, 0] < w_sky).sum())
+        d3 = K.launch_nee(tab, u2)[0]
+        sample_ops = (sky_pick * (o["sample_sky"] + o["sample_sky_vjp"])
+                      + (n - sky_pick) * (o["sample_sun"]
+                                          + o["sample_sun_vjp"]))
+        above = float((d[:, 2] >= 0).sum())
+        above3 = float((d3[:, 2] >= 0).sum())
+        ops7 = _vjp_ops(d, state) + above * o["pdf_vjp"]
+        ops8 = sample_ops + _vjp_ops(d3, state) + above3 * o["pdf_vjp"]
+        d11 = K.launch_nee_spec(tab_s, u2, wl)[0]
+        above11 = float((d11[:, 2] >= 0).sum())
+        ops12 = _spec_vjp_ops(d, wl, spec) + above * o["pdf_vjp"]
+        ops13 = (sample_ops + _spec_vjp_ops(d11, wl, spec)
+                 + above11 * o["pdf_vjp"])
+    bounds = {
+        # d, g_rad, g_pdf in; dd out
+        "K7": _bound(40 * n + TABLE_BYTES + GAUSS_BYTES + ROW_PDF_BYTES,
+                     ops7),
+        # u, g_rad, g_pdf in
+        "K8": _bound(24 * n + TABLE_BYTES + GAUSS_BYTES + ROW_PDF_BYTES,
+                     ops8),
+        # d, wl, g_rad, g_pdf in; dd, dwl out
+        "K12": _bound(76 * n + SPEC_TABLE_BYTES + GAUSS_BYTES
+                      + SPEC_ROW_BYTES, ops12),
+        # u, wl, g_rad, g_pdf in; dwl out
+        "K13": _bound(60 * n + SPEC_TABLE_BYTES + GAUSS_BYTES
+                      + SPEC_ROW_BYTES, ops13),
+    }
+    for key, (ms, by) in bounds.items():
+        print(f"bound {key} with the pdf: {ms:.4f} ms ({by}); measured "
+              f"{times[key][0]:.4f} ms, {100 * ms / times[key][0]:.1f}% of "
+              f"the bound's rate [{card}]")
+    return {key: (KERNELS[key][0], launches[KERNELS[key][0]], err[key],
+                  times[key], bounds[key]) for key in bounds}
 
 
 START = time.perf_counter()
@@ -716,35 +1282,10 @@ def main():
     d_ps, rad_ps = M._sample_eval_rgb_plain(st_g, u2)[:2]
     _adjoint_check("K6 (plain sampler, all lanes)", rad6, rad_ps, g_rad,
                    st_g, lp, misc_bar=None)
-    with torch.no_grad():
-        cos_cut = math.cos(float(lp.sun_half_aperture))
-        eps = 0.5 * (1.0 - cos_cut) * float(lp.disc_softness)
-        cos_g = (d_ps.double() * st_g.sun_frame_n.double()).sum(-1)
-        ramp = (cos_g - cos_cut) / eps + 0.5
-        at_clamp = (d6 != d_ps).any(-1) & (
-            (ramp.abs() < RAMP_BAND) | ((ramp - 1.0).abs() < RAMP_BAND))
-    n_clamp = int(at_clamp.sum())
-    print(f"check K6 lanes left out (directions differ, ramp within "
-          f"{RAMP_BAND:g} of a clamp): {n_clamp} of {n} "
-          f"(cap {int(RAMP_CAP * n)})")
-    if n_clamp > RAMP_CAP * n:
-        raise AssertionError(f"K6: {n_clamp} lanes at the ramp's clamps")
+    at_clamp = _ramp_clamp_lanes("K6", d6, d_ps, st_g)
     _adjoint_check("K6 (plain sampler, ramp clamps left out)", rad6, rad_ps,
                    g_rad * (~at_clamp)[:, None], st_g, lp)
-    # the attached-pdf adjoints K7, K8 are not ported: asking for them on
-    # the card raises instead of running anything else
-    for k, ask in (("K7", lambda: M.eval_pdf(st_g, d_k[:8])),
-                   ("K8", lambda: M.sample_eval(st_g, u2[:8]))):
-        try:
-            ask()
-        except NotImplementedError as e:
-            if k not in str(e):
-                raise
-            print(f"check {k} refused: {e}")
-        else:
-            raise AssertionError(f"the attached pdf's gradient ran without "
-                                 f"{k}")
-    del dd_k, dd_p, dd_err, d_k, d_p, st_g, d6, rad6, d_ps, rad_ps, cos_g, ramp
+    del dd_k, dd_p, dd_err, d_k, d_p, st_g, d6, rad6, d_ps, rad_ps
 
     # ---- 4. the forward main path ----
     film = Film(H, W, 3)
@@ -869,8 +1410,12 @@ def main():
 
     # ---- 6. the spectral main path ----
     spec = spectral_phase(dev, dirs, rng, film, card)
+    # ---- 7. path 1, the spectral gradient ----
+    spec_grad_launches = spectral_grad_phase(dev, dirs, rng, film, card)
+    # ---- 8. path 2, the attached pdf ----
+    attached = attached_pdf_phase(dev, dirs, u2, rng, card)
 
-    # ---- 7. times ----
+    # ---- 9. times ----
     tables = K.pack_tables(state, dev)
     mega = MK.pack(scene, sensor, state)
     st_l = state._replace(**{
@@ -952,7 +1497,7 @@ def main():
           f"steps 2-{TRAIN_STEPS} {step_ms:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB [{card}]")
 
-    # ---- 8. bounds and results ----
+    # ---- 10. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -992,41 +1537,33 @@ def main():
         "K6": _bound(20 * n + TABLE_BYTES + GAUSS_BYTES + ROW_BYTES,
                      sample_ops + vjp6),
     }
-    for key, (_, _, _, t, b) in spec.items():
-        times[key], bounds[key] = t, b
+    # K12 and K13 stand in the line with their main path's variant (the
+    # pdf detached, path 1's launches); K7 and K8 with path 2's
+    counts = {key: (grad_launches if key in ("K5", "K6") else launches)[
+        KERNELS[key][0]] for key in bounds}
+    for key, (name, count, err, t, b) in spec.items():
+        times[key], bounds[key], results[key] = t, b, err
+        counts[key] = (spec_grad_launches[name] if key in ("K12", "K13")
+                       else count)
+    for key, (_, count, err, t, b) in attached.items():
+        if key in ("K7", "K8"):
+            times[key], bounds[key], counts[key] = t, b, count
+            results[key] = err
+        else:
+            results[key] = max(results[key], err)
     for key, (ms, by) in bounds.items():
         print(f"bound {key}: {ms:.4f} ms ({by}); measured "
               f"{times[key][0]:.4f} ms, {100 * ms / times[key][0]:.1f}% of "
               f"the bound's rate [{card}]")
 
     here = os.path.dirname(os.path.abspath(__file__))
-    src = {
-        "K1": ("sunsky_eval_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:747", launches),
-        "K2": ("sunsky_hit_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:771", launches),
-        "K3": ("sunsky_nee_rgb", "tpusky_torch/csrc/sunsky_kernels.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:793", launches),
-        "K4": ("direct_rgb_megakernel", "tpusky_torch/csrc/megakernel.cu",
-               "tpusky/ops/pallas/megakernel.py:428", launches),
-        "K5": ("sunsky_eval_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:1032", grad_launches),
-        "K6": ("sunsky_nee_rgb_bwd", "tpusky_torch/csrc/sunsky_adjoint.cu",
-               "tpusky/ops/pallas/sunsky_kernel.py:1133", grad_launches),
-    }
-    spec_src = {"K9": "tpusky/ops/pallas/sunsky_kernel.py:671",
-                "K10": "tpusky/ops/pallas/sunsky_kernel.py:695",
-                "K11": "tpusky/ops/pallas/sunsky_kernel.py:721"}
-    for key, (name, count, err, _, _) in spec.items():
-        src[key] = (name, "tpusky_torch/csrc/sunsky_spectral.cu",
-                    spec_src[key], {name: count})
-        results[key] = err
     kernels = []
-    for key, (name, source, replaces, counts) in src.items():
+    for key in sorted(KERNELS, key=lambda k: int(k[1:])):
+        name, source, replaces = KERNELS[key]
         if not os.path.exists(os.path.join(here, source)):
             raise AssertionError(f"missing source {source}")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": counts[key],
                         "max_abs_err": results[key], "ms": times[key][0],
                         "plain_ms": times[key][1],
                         "bound_ms": bounds[key][0],

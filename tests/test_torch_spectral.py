@@ -329,7 +329,8 @@ def test_spectral_wrappers_refuse_other_devices(states):
 
 def test_spectral_gradients_on_cpu_are_plain_autograd(states):
     """On the CPU the spectral radiance differentiates through its plain
-    version (the card's adjoints K12/K13 are not ported)."""
+    version (on the card, its adjoint K12; tests/test_torch_spectral_grad.py
+    holds the plain adjoints against the JAX package)."""
     _, st = states
     d, wl = (torch.tensor(x) for x in _lanes(np.asarray(st.sun_frame_n), 4,
                                              8))

@@ -7,11 +7,14 @@ to turbidity, albedo and sun direction through precompute; render_rows
 with K2/K3 forward and K5/K6 backward), one `make_train_step_single`
 step at 512x512, 8 spp (log_l2_blur, Adam), and `bench.py::
 bench_spectral`'s frame (512x512, 8 spp, depth 4, `render(mode=
-"spectral")` with K10/K11). For each it prints the wall time per
-iteration, the device's busy share of it, the device time of the
-hand-written kernels against all the rest, and the 15 largest device-time
-entries. Run from the repository root on a machine with a card, for all
-cases or the named ones (grad, train, spectral):
+"spectral")` with K10/K11), and `bench.py::bench_spectral_grad`'s step
+(512x512, 4 spp, depth 2, a diffuse ground, gradients through the
+spectral precompute; K10/K11 forward, K12/K13 backward). For each it
+prints the wall time per iteration, the device's busy share of it, the
+device time of the hand-written kernels against all the rest, and the 15
+largest device-time entries. Run from the repository root on a machine
+with a card, for all cases or the named ones (grad, train, spectral,
+spectral_grad):
 
     python3 tools/torch_grad_profile.py [case ...]
 """
@@ -27,8 +30,10 @@ def _device_us(evt):
 
 
 _OWN = ("hit_kernel", "nee_kernel", "eval_kernel", "mega_kernel",
-        "eval_bwd_kernel", "nee_bwd_kernel", "reduce_partials",
-        "eval_spec_kernel", "hit_spec_kernel", "nee_spec_kernel")
+        "eval_bwd_kernel", "nee_bwd_kernel", "hit_bwd_kernel",
+        "nee_pdf_bwd_kernel", "reduce_partials", "eval_spec_kernel",
+        "hit_spec_kernel", "nee_spec_kernel", "spec_hit_bwd_kernel",
+        "spec_nee_bwd_kernel")
 
 
 def _profile(name, fn, iters=3):
@@ -70,7 +75,8 @@ def main():
     from tpusky_torch.render import integrator
     from tpusky_torch.render.film import Film
 
-    cases = set(sys.argv[1:]) or {"grad", "train", "spectral"}
+    cases = set(sys.argv[1:]) or {"grad", "train", "spectral",
+                                  "spectral_grad"}
     dev = torch.device("cuda", 0)
     state = tt.sunsky_precompute(tt.make_params(
         turbidity=3.0, albedo=0.3, sun_direction=cs.SUN, device=dev))
@@ -85,6 +91,8 @@ def main():
         turbidity=3.0, albedo=0.3, sun_direction=cs.SUN, mode="spectral",
         device=dev), mode="spectral")
     spec_scene, spec_sensor = cs._spectral_scene(spec, dev)
+    grad_scene, grad_sensor = cs._spectral_grad_scene(spec, dev)
+    spec_tables = tt.load_tables("spectral", device=dev)
 
     print(f"card: {cs._card_line()}, torch {torch.__version__}")
     if "grad" in cases:
@@ -101,6 +109,12 @@ def main():
                                            cs.SEED, spp=cs.SPP,
                                            max_depth=cs.SPEC_DEPTH,
                                            mode="spectral"))
+    if "spectral_grad" in cases:
+        _profile(f"bench_spectral_grad fwd+bwd, {cs.H}x{cs.W}x{cs.GRAD_SPP}, "
+                 f"depth {cs.MAX_DEPTH}",
+                 lambda: cs.spectral_grad_case("rows", grad_scene,
+                                               grad_sensor, film,
+                                               spec_tables, dev))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-// Device functions shared by the sunsky kernels (K1-K3, spectral K9-K11)
-// and the direct-illumination megakernel (K4): sky/sun radiance, the
-// mixture pdf, the NEE direction sample, the counter-hash RNG and analytic
-// shape intersection.
+// Device functions shared by the sunsky kernels (K1-K3, spectral K9-K11),
+// their adjoints (K5-K8, K12, K13) and the direct-illumination megakernel
+// (K4): sky/sun radiance, the mixture pdf, the NEE direction sample, the
+// reverse sweeps of all three, the counter-hash RNG and analytic shape
+// intersection.
 //
 // Each function computes what the plain PyTorch versions in
 // tpusky_torch/models/sunsky/model.py, render/sampler.py and
@@ -242,220 +243,422 @@ constexpr int ACC_SKYP = 0;
 constexpr int ACC_SKYR = 27;
 constexpr int ACC_MISC = 30;
 constexpr int N_ACC = 46;
+// The spectral small tables' cotangents (radiance_spec_vjp's `small`):
+// skyp (11, 9), then skyr (11,), then ld (11, 6).
+constexpr int SPEC_SKYP = 0;
+constexpr int SPEC_SKYR = 99;
+constexpr int SPEC_LD = 110;
+constexpr int N_SPEC_SMALL = 176;
 
-// Reverse-mode derivative of radiance(): what torch autograd computes for
-// model.py::_eval_rgb_plain at one direction, given the cotangent g of its
-// RGB output. Adds the direction's cotangent to dd, the small tables'
-// cotangents to acc (layout ACC_*; only what radiance() reads is touched)
-// and the sun row's to sun_acc (the (45, 72) table in shared memory, by
-// atomics: lanes of a block share rows). Gradient-safe where the plain
-// version is: zero through sqrt at 0 and through asin/acos at |x| >= 1.
-// The disc mask is the straight-through surrogate of model.py::_disc_weight:
-// its value is the hard cone test, its derivative the ramp
-// clamp((cos_gamma - cos_cut) / eps + 1/2, 0, 1), eps = (1 - cos_cut) *
-// disc_softness / 2, so lanes just outside the disc get a sun-direction
-// cotangent. Clamps pass the derivative at their bounds, as torch's do.
-__device__ inline void radiance_vjp(const Tables& T, float dx, float dy,
-                                    float dz, const float g[3], float dd[3],
-                                    float acc[N_ACC], float* sun_acc) {
+// How a reverse sweep adds a cotangent: into a thread's own registers, or
+// into memory other threads share.
+struct PlainAdd {
+  __device__ __forceinline__ void operator()(float* p, float v) const {
+    *p += v;
+  }
+};
+struct AtomicAdd {
+  __device__ __forceinline__ void operator()(float* p, float v) const {
+    atomicAdd(p, v);
+  }
+};
+
+// The reverse sweeps below are what torch autograd computes for the plain
+// versions in model.py at one lane. They are gradient-safe where the plain
+// versions are: zero through sqrt at 0 and through asin/acos at |x| >= 1;
+// clamps pass the derivative at their bounds, as torch's do.
+
+// The forward intermediates of radiance() and radiance_spec() at an
+// above-horizon direction that their reverse sweeps read.
+struct VjpGeom {
+  float ct;                     // cos(theta) = dz
+  float dot, s, ex, ey, ez, len, hc;   // gamma = 2 asin(|d - s n| / 2)
+  float gamma, cos_g, sin_g, cg2;
+  int pos;                      // sun segment
+  float x_raw, xp[4];           // coordinate in the segment, its powers
+  float sin_ap, q, cos_psi, cp[N_LD];  // cos_psi = sqrt(q), its powers
+  float cos_cut, hard, eps, eps_c, ramp;   // the disc weight
+};
+
+__device__ __forceinline__ VjpGeom vjp_geometry(
+    const float* __restrict__ misc, float dx, float dy, float dz) {
+  VjpGeom v;
+  float nx = misc[M_SUNX], ny = misc[M_SUNY], nz = misc[M_SUNZ];
+  v.ct = dz;
+  v.dot = nx * dx + ny * dy + nz * dz;
+  v.s = v.dot >= 0.0f ? 1.0f : -1.0f;
+  v.ex = dx - v.s * nx;
+  v.ey = dy - v.s * ny;
+  v.ez = dz - v.s * nz;
+  v.len = sqrtf(v.ex * v.ex + v.ey * v.ey + v.ez * v.ez);
+  v.hc = 0.5f * v.len;
+  float temp = 2.0f * safe_asin(v.hc);
+  v.gamma = v.dot >= 0.0f ? temp : PI_F - temp;
+  v.cos_g = cosf(v.gamma);
+  v.sin_g = sinf(v.gamma);
+  v.cg2 = v.cos_g * v.cos_g;
+
+  float elevation = 0.5f * PI_F - safe_acos(v.ct);
+  int pos = (int)floorf(cbrtf(2.0f * elevation / PI_F) * N_SEG);
+  v.pos = min(max(pos, 0), N_SEG - 1);
+  float bx = (float)v.pos / N_SEG;
+  v.x_raw = elevation - 0.5f * PI_F * (bx * bx * bx);
+  float x = fmaxf(v.x_raw, 0.0f);
+  v.xp[0] = 1.0f;
+  v.xp[1] = x;
+  v.xp[2] = x * x;
+  v.xp[3] = x * x * x;
+  v.sin_ap = sinf(misc[M_HALF_AP]);
+  v.q = 1.0f - (v.sin_g * v.sin_g) / (v.sin_ap * v.sin_ap);
+  v.cos_psi = safe_sqrt(v.q);
+  v.cp[0] = 1.0f;
+#pragma unroll
+  for (int j = 1; j < N_LD; ++j) v.cp[j] = v.cp[j - 1] * v.cos_psi;
+  v.cos_cut = misc[M_COS_CUT];
+  v.hard = v.cos_g >= v.cos_cut ? 1.0f : 0.0f;
+  v.eps = 0.5f * (1.0f - v.cos_cut) * misc[M_SOFT];
+  v.eps_c = fmaxf(v.eps, 1e-12f);
+  v.ramp = (v.cos_g - v.cos_cut) / v.eps_c + 0.5f;
+  return v;
+}
+
+// Cotangents of the shared geometry's values: cos(theta), gamma,
+// cos(gamma), cos^2(gamma), the segment coordinate x, cos_psi and the disc
+// weight w.
+struct GeomCot {
+  float ct, gamma, cg, cg2, x, cpsi, w;
+};
+
+// The sky formula of one channel (sky_channel, model.py::_sky_formula)
+// and its reverse for the cotangent gs of its value: adds its 9
+// parameters' cotangents to ak[0..8] and its mean radiance's to *amean,
+// with `add`, and the geometry's to c. Returns the value.
+template <class Add>
+__device__ __forceinline__ float sky_channel_vjp(
+    const float* __restrict__ k9, float mean, const VjpGeom& v, float gs,
+    float* ak, float* amean, GeomCot& c, Add add) {
+  float a = k9[0], b = k9[1], kc = k9[2], kd = k9[3], ke = k9[4];
+  float kf = k9[5], kg = k9[6], ki = k9[7], h = k9[8];
+  float r = safe_sqrt(v.ct);
+  float ct1 = v.ct + 0.01f;
+  float e1 = expf(b / ct1);
+  float c1 = 1.0f + a * e1;
+  float base = 1.0f + h * h - 2.0f * h * v.cos_g;
+  float sqb = safe_sqrt(base);
+  float den = base * sqb;
+  float chi = (1.0f + v.cg2) / den;
+  float e2 = expf(ke * v.gamma);
+  float c2 = kc + kd * e2 + kf * v.cg2 + kg * chi + ki * r;
+  float sky = c1 * c2 * mean;
+
+  add(amean, gs * c1 * c2);
+  float g_c1 = gs * c2 * mean;
+  float g_c2 = gs * c1 * mean;
+  // c1 = 1 + a exp(b / (ct + 0.01))
+  add(ak + 0, g_c1 * e1);
+  float g_arg1 = g_c1 * a * e1;
+  add(ak + 1, g_arg1 / ct1);
+  c.ct -= g_arg1 * b / (ct1 * ct1);
+  // c2 = c + d exp(e gamma) + f cg2 + g chi + i sqrt(ct)
+  add(ak + 2, g_c2);
+  add(ak + 3, g_c2 * e2);
+  float g_arg2 = g_c2 * kd * e2;
+  add(ak + 4, g_arg2 * v.gamma);
+  c.gamma += g_arg2 * ke;
+  add(ak + 5, g_c2 * v.cg2);
+  c.cg2 += g_c2 * kf;
+  add(ak + 6, g_c2 * chi);
+  float g_chi = g_c2 * kg;
+  add(ak + 7, g_c2 * r);
+  if (v.ct > 0.0f) c.ct += g_c2 * ki * 0.5f / r;
+  // chi = (1 + cg2) / (base sqrt(base))
+  c.cg2 += g_chi / den;
+  float g_den = -g_chi * chi / den;
+  float g_base = g_den * sqb;
+  if (base > 0.0f) g_base += g_den * base * 0.5f / sqb;
+  // base = 1 + h^2 - 2 h cos_gamma
+  add(ak + 8, g_base * (2.0f * h - 2.0f * v.cos_g));
+  c.cg -= g_base * 2.0f * h;
+  return sky;
+}
+
+// The reverse of the shared geometry, from its values' cotangents c: adds
+// the direction's cotangent to dd and the misc row's (sun direction, half
+// aperture, cos_cut, disc softness) to am. The disc mask is the
+// straight-through surrogate of model.py::_disc_weight: its value is the
+// hard cone test, its derivative the ramp clamp((cos_gamma - cos_cut) /
+// eps + 1/2, 0, 1), eps = (1 - cos_cut) * disc_softness / 2, so lanes just
+// outside the disc get a sun-direction cotangent.
+__device__ __forceinline__ void geometry_vjp(const float* __restrict__ misc,
+                                             const VjpGeom& v, GeomCot c,
+                                             float dd[3], float* am) {
+  c.cg += c.cg2 * 2.0f * v.cos_g;
+  // disc surrogate: w = clamp(ramp, 0, 1) + (hard - that, detached)
+  if (v.ramp >= 0.0f && v.ramp <= 1.0f) {
+    c.cg += c.w / v.eps_c;
+    am[M_COS_CUT] -= c.w / v.eps_c;
+    float g_eps = -c.w * (v.cos_g - v.cos_cut) / (v.eps_c * v.eps_c);
+    if (v.eps >= 1e-12f) {
+      am[M_COS_CUT] -= 0.5f * misc[M_SOFT] * g_eps;
+      am[M_SOFT] += 0.5f * (1.0f - v.cos_cut) * g_eps;
+    }
+  }
+  // cos_psi = sqrt(1 - sin_g^2 / sin_ap^2) (zero derivative where q <= 0)
+  if (v.q > 0.0f) {
+    float g_q = c.cpsi * 0.5f / v.cos_psi;
+    float sa2 = v.sin_ap * v.sin_ap;
+    c.gamma += g_q * (-2.0f * v.sin_g / sa2) * v.cos_g;
+    am[M_HALF_AP] += g_q * (2.0f * v.sin_g * v.sin_g / (sa2 * v.sin_ap))
+                     * cosf(misc[M_HALF_AP]);
+  }
+  // x = max(elevation - break_x, 0), elevation = pi/2 - acos(ct)
+  if (v.x_raw >= 0.0f && fabsf(v.ct) < 1.0f)
+    c.ct += c.x / sqrtf(1.0f - v.ct * v.ct);
+  // gamma = 2 asin(|d - s n| / 2), mirrored past 90 degrees
+  c.gamma -= c.cg * v.sin_g;
+  float g_temp = v.dot >= 0.0f ? c.gamma : -c.gamma;
+  if (fabsf(v.hc) < 1.0f && v.len > 0.0f) {
+    float g_len = g_temp / sqrtf(1.0f - v.hc * v.hc);   // 2 * asin' * 1/2
+    float k = g_len / v.len;
+    float gx = k * v.ex, gy = k * v.ey, gz = k * v.ez;
+    dd[0] += gx;
+    dd[1] += gy;
+    dd[2] += gz;
+    am[M_SUNX] -= v.s * gx;
+    am[M_SUNY] -= v.s * gy;
+    am[M_SUNZ] -= v.s * gz;
+  }
+  dd[2] += c.ct;
+}
+
+// Reverse-mode derivative of radiance() (model.py::_eval_rgb_plain) at one
+// direction, given the cotangent g of its RGB output. Adds the direction's
+// cotangent to dd, the small tables' cotangents to acc (layout ACC_*; only
+// what radiance() reads is touched) and the sun row's to sun_acc (the
+// (45, 72) table in shared memory, by atomics: lanes of a block share
+// rows).
+__device__ __forceinline__ void radiance_vjp(const Tables& T, float dx,
+                                             float dy, float dz,
+                                             const float g[3], float dd[3],
+                                             float acc[N_ACC],
+                                             float* sun_acc) {
   if (dz < 0.0f) return;                  // below the horizon: radiance 0
   const float* __restrict__ misc = T.misc;
-  // ---- forward, as radiance() ----
-  float nx = misc[M_SUNX], ny = misc[M_SUNY], nz = misc[M_SUNZ];
-  float dot = nx * dx + ny * dy + nz * dz;
-  float s = dot >= 0.0f ? 1.0f : -1.0f;
-  float ex = dx - s * nx, ey = dy - s * ny, ez = dz - s * nz;
-  float len = sqrtf(ex * ex + ey * ey + ez * ez);
-  float hc = 0.5f * len;
-  float temp = 2.0f * safe_asin(hc);
-  float gamma = dot >= 0.0f ? temp : PI_F - temp;
-  float ct = dz;
-  float cos_g = cosf(gamma);
-  float sin_g = sinf(gamma);
-  float cg2 = cos_g * cos_g;
-
-  float elevation = 0.5f * PI_F - safe_acos(ct);
-  int pos = (int)floorf(cbrtf(2.0f * elevation / PI_F) * N_SEG);
-  pos = min(max(pos, 0), N_SEG - 1);
-  float bx = (float)pos / N_SEG;
-  float x_raw = elevation - 0.5f * PI_F * (bx * bx * bx);
-  float x = fmaxf(x_raw, 0.0f);
-  float half_ap = misc[M_HALF_AP];
-  float sin_ap = sinf(half_ap);
-  float q = 1.0f - (sin_g * sin_g) / (sin_ap * sin_ap);
-  float cos_psi = safe_sqrt(q);
-  float cos_cut = misc[M_COS_CUT];
-  float hard = cos_g >= cos_cut ? 1.0f : 0.0f;
-  float soft = misc[M_SOFT];
-  float eps = 0.5f * (1.0f - cos_cut) * soft;
-  float eps_c = fmaxf(eps, 1e-12f);
-  float ramp = (cos_g - cos_cut) / eps_c + 0.5f;
-  float xp[4] = {1.0f, x, x * x, x * x * x};
-  float cp[6];
-  cp[0] = 1.0f;
-#pragma unroll
-  for (int j = 1; j < 6; ++j) cp[j] = cp[j - 1] * cos_psi;
-  const float* __restrict__ coefs = T.sun + pos * SUN_F;
-  float* __restrict__ sun_row = sun_acc + pos * SUN_F;
+  VjpGeom v = vjp_geometry(misc, dx, dy, dz);
+  const float* __restrict__ coefs = T.sun + v.pos * SUN_F;
+  float* __restrict__ sun_row = sun_acc + v.pos * SUN_F;
   float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
-
-  // ---- reverse ----
-  float g_ct = 0.0f, g_gamma = 0.0f, g_cg = 0.0f, g_cg2 = 0.0f;
-  float g_x = 0.0f, g_cpsi = 0.0f, g_w = 0.0f;
-  float r = safe_sqrt(ct);
-  float ct1 = ct + 0.01f;
+  GeomCot c = {};
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float G = g[c] * CIE_Y_NORM;
+  for (int ch = 0; ch < 3; ++ch) {
+    float G = g[ch] * CIE_Y_NORM;
     // sun polynomial and its partials in x and cos_psi
     float sun = 0.0f, sun_x = 0.0f, sun_cp = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
       for (int j = 0; j < 6; ++j) {
-        float co = coefs[c * 24 + k * 6 + j];
-        sun += co * (xp[k] * cp[j]);
-        if (k > 0) sun_x += co * ((float)k * xp[k - 1] * cp[j]);
-        if (j > 0) sun_cp += co * (xp[k] * (float)j * cp[j - 1]);
+        float co = coefs[ch * 24 + k * 6 + j];
+        sun += co * (v.xp[k] * v.cp[j]);
+        if (k > 0) sun_x += co * ((float)k * v.xp[k - 1] * v.cp[j]);
+        if (j > 0) sun_cp += co * (v.xp[k] * (float)j * v.cp[j - 1]);
       }
-    // sky formula (model.py::_sky_formula)
-    const float* __restrict__ k9 = T.skyp + 9 * c;
-    float a = k9[0], b = k9[1], kc = k9[2], kd = k9[3], ke = k9[4];
-    float kf = k9[5], kg = k9[6], ki = k9[7], h = k9[8];
-    float e1 = expf(b / ct1);
-    float c1 = 1.0f + a * e1;
-    float base = 1.0f + h * h - 2.0f * h * cos_g;
-    float sqb = safe_sqrt(base);
-    float den = base * sqb;
-    float chi = (1.0f + cg2) / den;
-    float e2 = expf(ke * gamma);
-    float c2 = kc + kd * e2 + kf * cg2 + kg * chi + ki * r;
-    float mean = T.skyr[c];
-    float sky = c1 * c2 * mean;
-
     // out = (sky_scale * sky + w * sun_scale * sun) * CIE_Y_NORM
+    float sky = sky_channel_vjp(T.skyp + 9 * ch, T.skyr[ch], v,
+                                G * sky_scale, acc + ACC_SKYP + 9 * ch,
+                                acc + ACC_SKYR + ch, c, PlainAdd());
     acc[ACC_MISC + M_SKY_SCALE] += G * sky;
-    acc[ACC_MISC + M_SUN_SCALE] += G * hard * sun;
-    g_w += G * sun_scale * sun;
-    float g_sun = G * sun_scale * hard;
+    acc[ACC_MISC + M_SUN_SCALE] += G * v.hard * sun;
+    c.w += G * sun_scale * sun;
+    float g_sun = G * sun_scale * v.hard;
     if (g_sun != 0.0f) {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
         for (int j = 0; j < 6; ++j)
-          atomicAdd(sun_row + c * 24 + k * 6 + j, g_sun * (xp[k] * cp[j]));
-      g_x += g_sun * sun_x;
-      g_cpsi += g_sun * sun_cp;
-    }
-    float g_sky = G * sky_scale;
-    acc[ACC_SKYR + c] += g_sky * c1 * c2;
-    float g_c1 = g_sky * c2 * mean;
-    float g_c2 = g_sky * c1 * mean;
-    float* __restrict__ ak = acc + ACC_SKYP + 9 * c;
-    // c1 = 1 + a exp(b / (ct + 0.01))
-    ak[0] += g_c1 * e1;
-    float g_arg1 = g_c1 * a * e1;
-    ak[1] += g_arg1 / ct1;
-    g_ct -= g_arg1 * b / (ct1 * ct1);
-    // c2 = c + d exp(e gamma) + f cg2 + g chi + i sqrt(ct)
-    ak[2] += g_c2;
-    ak[3] += g_c2 * e2;
-    float g_arg2 = g_c2 * kd * e2;
-    ak[4] += g_arg2 * gamma;
-    g_gamma += g_arg2 * ke;
-    ak[5] += g_c2 * cg2;
-    g_cg2 += g_c2 * kf;
-    ak[6] += g_c2 * chi;
-    float g_chi = g_c2 * kg;
-    ak[7] += g_c2 * r;
-    if (ct > 0.0f) g_ct += g_c2 * ki * 0.5f / r;
-    // chi = (1 + cg2) / (base sqrt(base))
-    g_cg2 += g_chi / den;
-    float g_den = -g_chi * chi / den;
-    float g_base = g_den * sqb;
-    if (base > 0.0f) g_base += g_den * base * 0.5f / sqb;
-    // base = 1 + h^2 - 2 h cos_gamma
-    ak[8] += g_base * (2.0f * h - 2.0f * cos_g);
-    g_cg -= g_base * 2.0f * h;
-  }
-  g_cg += g_cg2 * 2.0f * cos_g;
-
-  // disc surrogate: w = clamp(ramp, 0, 1) + (hard - that, detached)
-  if (ramp >= 0.0f && ramp <= 1.0f) {
-    g_cg += g_w / eps_c;
-    acc[ACC_MISC + M_COS_CUT] -= g_w / eps_c;
-    float g_eps = -g_w * (cos_g - cos_cut) / (eps_c * eps_c);
-    if (eps >= 1e-12f) {
-      acc[ACC_MISC + M_COS_CUT] -= 0.5f * soft * g_eps;
-      acc[ACC_MISC + M_SOFT] += 0.5f * (1.0f - cos_cut) * g_eps;
+          atomicAdd(sun_row + ch * 24 + k * 6 + j,
+                    g_sun * (v.xp[k] * v.cp[j]));
+      c.x += g_sun * sun_x;
+      c.cpsi += g_sun * sun_cp;
     }
   }
-  // cos_psi = sqrt(1 - sin_g^2 / sin_ap^2) (zero derivative where q <= 0)
-  if (q > 0.0f) {
-    float g_q = g_cpsi * 0.5f / cos_psi;
-    float sa2 = sin_ap * sin_ap;
-    g_gamma += g_q * (-2.0f * sin_g / sa2) * cos_g;
-    acc[ACC_MISC + M_HALF_AP] +=
-        g_q * (2.0f * sin_g * sin_g / (sa2 * sin_ap)) * cosf(half_ap);
-  }
-  // x = max(elevation - break_x, 0), elevation = pi/2 - acos(ct)
-  if (x_raw >= 0.0f && fabsf(ct) < 1.0f)
-    g_ct += g_x / sqrtf(1.0f - ct * ct);
-  // gamma = 2 asin(|d - s n| / 2), mirrored past 90 degrees
-  g_gamma -= g_cg * sin_g;
-  float g_temp = dot >= 0.0f ? g_gamma : -g_gamma;
-  if (fabsf(hc) < 1.0f && len > 0.0f) {
-    float g_len = g_temp / sqrtf(1.0f - hc * hc);   // 2 * asin' * 1/2
-    float k = g_len / len;
-    float gx = k * ex, gy = k * ey, gz = k * ez;
-    dd[0] += gx;
-    dd[1] += gy;
-    dd[2] += gz;
-    acc[ACC_MISC + M_SUNX] -= s * gx;
-    acc[ACC_MISC + M_SUNY] -= s * gy;
-    acc[ACC_MISC + M_SUNZ] -= s * gz;
-  }
-  dd[2] += g_ct;
+  geometry_vjp(misc, v, c, dd, acc + ACC_MISC);
 }
 
-// Solid-angle pdf of the sky/sun mixture (model.py::compute_pdfs + lerp).
-// check_sun: count the cone pdf only inside the cone.
-__device__ inline float mixture_pdf(const Tables& T, float dx, float dy,
-                                   float dz, bool check_sun) {
-  const float* __restrict__ misc = T.misc;
-  const float* __restrict__ g = T.gauss;
-  float sin_theta = safe_sqrt(dx * dx + dy * dy);
-  bool active = (dz >= 0.0f) && (sin_theta != 0.0f);
-  float sin_theta_c = fmaxf(sin_theta, SIN_OFFSET);
+// Spectral channel ch's sun polynomial and limb darkening at the lane's
+// geometry, with their partials in x and cos_psi.
+struct SpecSun {
+  float sun, sun_x, ld, ld_cp;
+};
 
+__device__ __forceinline__ SpecSun spec_sun_channel(const Tables& T,
+                                                    const VjpGeom& v,
+                                                    int ch) {
+  const float* __restrict__ co = T.sun + v.pos * SUN_SPEC_F + 4 * ch;
+  const float* __restrict__ lc = T.ld + N_LD * ch;
+  SpecSun s = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    s.sun += co[k] * v.xp[k];
+    if (k > 0) s.sun_x += co[k] * ((float)k * v.xp[k - 1]);
+  }
+#pragma unroll
+  for (int j = 0; j < N_LD; ++j) {
+    s.ld += lc[j] * v.cp[j];
+    if (j > 0) s.ld_cp += lc[j] * ((float)j * v.cp[j - 1]);
+  }
+  return s;
+}
+
+// The reverse of spec_sun_channel for its values' cotangents gs (sun) and
+// gl (limb darkening): the sun row's cotangent to sun_acc, the limb table's
+// to small, both shared (atomics), the geometry's to c.
+__device__ __forceinline__ void spec_sun_vjp(const VjpGeom& v, int ch,
+                                             const SpecSun& s, float gs,
+                                             float gl, float* small,
+                                             float* sun_acc, GeomCot& c) {
+  float* __restrict__ row = sun_acc + v.pos * SUN_SPEC_F + 4 * ch;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) atomicAdd(row + k, gs * v.xp[k]);
+  c.x += gs * s.sun_x;
+  float* __restrict__ lrow = small + SPEC_LD + N_LD * ch;
+#pragma unroll
+  for (int j = 0; j < N_LD; ++j) atomicAdd(lrow + j, gl * v.cp[j]);
+  c.cpsi += gl * s.ld_cp;
+}
+
+// Reverse-mode derivative of radiance_spec() (model.py::_eval_spec_plain)
+// at one direction and its nw wavelengths wl, given the cotangents g (nw)
+// of its outputs. Adds the direction's cotangent to dd; writes each
+// wavelength's cotangent to dwl (unless null): through the lerp weight f
+// of each of the sky, sun and limb-darkening lerps, 0 outside [320, 720]
+// nm and, since both channels are channel 10 there, at 720 nm exactly.
+// The misc row's cotangent goes to am (registers); skyp, skyr and ld's to
+// small (layout SPEC_*) and the (45, 44) sun table's to sun_acc, both in
+// shared memory, by atomics.
+__device__ __forceinline__ void radiance_spec_vjp(
+    const Tables& T, float dx, float dy, float dz,
+    const float* __restrict__ wl, const float* __restrict__ g, int nw,
+    float dd[3], float* __restrict__ dwl, float am[16], float* small,
+    float* sun_acc) {
+  if (dz < 0.0f) {                        // below the horizon: radiance 0
+    if (dwl != nullptr)
+      for (int w = 0; w < nw; ++w) dwl[w] = 0.0f;
+    return;
+  }
+  const float* __restrict__ misc = T.misc;
+  VjpGeom v = vjp_geometry(misc, dx, dy, dz);
+  // the sun and limb darkening's values reach the cotangents in the disc
+  // and, through the disc weight, on its ramp
+  bool sun_value = v.hard != 0.0f || (v.ramp >= 0.0f && v.ramp <= 1.0f);
+  float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
+  GeomCot c = {};
+  for (int w = 0; w < nw; ++w) {
+    float G = g[w];
+    float nwl = (wl[w] - 320.0f) / 40.0f;
+    float g_f = 0.0f;
+    if (G != 0.0f && nwl >= 0.0f && nwl <= (float)(N_CH - 1)) {
+      int lo = min(max((int)floorf(nwl), 0), N_CH - 1);
+      int hi = min(lo + 1, N_CH - 1);
+      float f = nwl - (float)lo;
+      // r = sky_scale lerp(sky) + w sun_scale lerp(sun) lerp(ld)
+      float g_sky = G * sky_scale;
+      float sky0 = sky_channel_vjp(T.skyp + 9 * lo, T.skyr[lo], v,
+                                   (1.0f - f) * g_sky,
+                                   small + SPEC_SKYP + 9 * lo,
+                                   small + SPEC_SKYR + lo, c, AtomicAdd());
+      float sky1 = sky_channel_vjp(T.skyp + 9 * hi, T.skyr[hi], v,
+                                   f * g_sky, small + SPEC_SKYP + 9 * hi,
+                                   small + SPEC_SKYR + hi, c, AtomicAdd());
+      am[M_SKY_SCALE] += G * ((1.0f - f) * sky0 + f * sky1);
+      g_f = g_sky * (sky1 - sky0);
+      if (sun_value) {
+        SpecSun s0 = spec_sun_channel(T, v, lo);
+        SpecSun s1 = spec_sun_channel(T, v, hi);
+        float sun = (1.0f - f) * s0.sun + f * s1.sun;
+        float ld = (1.0f - f) * s0.ld + f * s1.ld;
+        am[M_SUN_SCALE] += G * v.hard * sun * ld;
+        c.w += G * sun_scale * sun * ld;
+        if (v.hard != 0.0f) {
+          float g_sun = G * sun_scale * ld;
+          float g_ld = G * sun_scale * sun;
+          g_f += g_sun * (s1.sun - s0.sun) + g_ld * (s1.ld - s0.ld);
+          spec_sun_vjp(v, lo, s0, (1.0f - f) * g_sun, (1.0f - f) * g_ld,
+                       small, sun_acc, c);
+          spec_sun_vjp(v, hi, s1, f * g_sun, f * g_ld, small, sun_acc, c);
+        }
+      }
+    }
+    if (dwl != nullptr) dwl[w] = g_f / 40.0f;
+  }
+  geometry_vjp(misc, v, c, dd, am);
+}
+
+// mixture_pdf()'s forward state at one direction (model.py::compute_pdfs):
+// its reverse keeps it, with the cotangent of the gaussian sum.
+struct PdfLane {
+  float sin_theta, stc, len;   // sin(theta), clamped; |(dx, dy, |dz| - 1)|
+  float phi_rel, theta;        // the TGMM coordinates (0 where !sky)
+  float sun_pdf, w;
+  bool sky;                    // active and in range: the gaussian sum counts
+  float g_tg;                  // the gaussian sum's cotangent (the reverse's)
+};
+
+// check_sun: count the cone pdf only inside the cone.
+__device__ __forceinline__ PdfLane pdf_lane(const Tables& T, float dx,
+                                            float dy, float dz,
+                                            bool check_sun) {
+  const float* __restrict__ misc = T.misc;
+  PdfLane P;
+  P.sin_theta = safe_sqrt(dx * dx + dy * dy);
+  bool active = (dz >= 0.0f) && (P.sin_theta != 0.0f);
+  P.stc = fmaxf(P.sin_theta, SIN_OFFSET);
   float phi = atan2f(dy, dx);
   float az = fabsf(dz) - 1.0f;
-  float tz = 2.0f * safe_asin(0.5f * sqrtf(dx * dx + dy * dy + az * az));
+  P.len = sqrtf(dx * dx + dy * dy + az * az);
+  float tz = 2.0f * safe_asin(0.5f * P.len);
   float theta = dz >= 0.0f ? tz : PI_F - tz;
   float phi_rel = phi - (misc[M_SUN_PHI] - 0.5f * PI_F);
   if (phi_rel < 0.0f) phi_rel += 2.0f * PI_F;
   if (phi_rel > 2.0f * PI_F) phi_rel -= 2.0f * PI_F;
   bool in_range = theta >= 0.0f && theta <= 0.5f * PI_F;
-
-  float sky_pdf = 0.0f;
-  if (active && in_range) {
-    float tg = 0.0f;
-#pragma unroll 4
-    for (int i = 0; i < N_GAUSS; ++i) {
-      float z1 = (phi_rel - g[G_MU1 * N_GAUSS + i]) / g[G_S1 * N_GAUSS + i];
-      float z2 = (theta - g[G_MU2 * N_GAUSS + i]) / g[G_S2 * N_GAUSS + i];
-      tg += g[G_A * N_GAUSS + i] * expf(-0.5f * (z1 * z1 + z2 * z2));
-    }
-    sky_pdf = tg / sin_theta_c;
-  }
-
   float cos_cut = misc[M_COS_CUT];
   bool in_cone = misc[M_SUNX] * dx + misc[M_SUNY] * dy + misc[M_SUNZ] * dz
                  >= cos_cut;
-  float sun_pdf = (active && (in_cone || !check_sun))
-                      ? INV_TWO_PI_F / (1.0f - cos_cut) : 0.0f;
-  float w = misc[M_WMIX];
-  return (1.0f - w) * sun_pdf + w * sky_pdf;
+  P.sun_pdf = (active && (in_cone || !check_sun))
+                  ? INV_TWO_PI_F / (1.0f - cos_cut) : 0.0f;
+  P.w = misc[M_WMIX];
+  P.sky = active && in_range;
+  P.phi_rel = P.sky ? phi_rel : 0.0f;
+  P.theta = P.sky ? theta : 0.0f;
+  P.g_tg = 0.0f;
+  return P;
+}
+
+// exp(-|z|^2 / 2) of gaussian i at (phi_rel, theta), z = (x - mu) / sigma
+__device__ __forceinline__ float gauss_exp(const float* __restrict__ g,
+                                           int i, float phi_rel, float theta,
+                                           float* z1, float* z2) {
+  *z1 = (phi_rel - g[G_MU1 * N_GAUSS + i]) / g[G_S1 * N_GAUSS + i];
+  *z2 = (theta - g[G_MU2 * N_GAUSS + i]) / g[G_S2 * N_GAUSS + i];
+  return expf(-0.5f * (*z1 * *z1 + *z2 * *z2));
+}
+
+// Solid-angle pdf of the sky/sun mixture (model.py::compute_pdfs + lerp).
+__device__ inline float mixture_pdf(const Tables& T, float dx, float dy,
+                                   float dz, bool check_sun) {
+  const float* __restrict__ g = T.gauss;
+  PdfLane P = pdf_lane(T, dx, dy, dz, check_sun);
+  float sky_pdf = 0.0f;
+  if (P.sky) {
+    float tg = 0.0f, z1, z2;
+#pragma unroll 4
+    for (int i = 0; i < N_GAUSS; ++i)
+      tg += g[G_A * N_GAUSS + i] * gauss_exp(g, i, P.phi_rel, P.theta, &z1,
+                                             &z2);
+    sky_pdf = tg / P.stc;
+  }
+  return (1.0f - P.w) * P.sun_pdf + P.w * sky_pdf;
 }
 
 // Concentric square -> disk map (ops/warp.py)
@@ -474,6 +677,42 @@ __device__ __forceinline__ void disk_concentric(float u0, float u1,
   *py = r * sinf(phi);
 }
 
+// A TGMM sky sample's discrete part (model.py::sample_sky): the gaussian
+// picked over the normalised cdf (searchsorted, side=right), the reused
+// uniform, and the two placement uniforms before their clamp.
+struct SkyPick {
+  int idx;
+  float reused, p1, p2;
+};
+
+__device__ __forceinline__ SkyPick sky_pick(const float* __restrict__ g,
+                                            float w, float u0, float u1) {
+  SkyPick k;
+  float su0 = clamp01(u0 / fmaxf(w, 1e-12f));
+  int idx = 0;
+#pragma unroll 4
+  for (int i = 0; i < N_GAUSS; ++i) idx += g[G_CDF * N_GAUSS + i] <= su0;
+  k.idx = min(idx, N_GAUSS - 1);
+  float pmf = fmaxf(g[G_PMF * N_GAUSS + k.idx], 1e-37f);
+  k.reused = clamp01((su0 - g[G_CDF_PREV * N_GAUSS + k.idx]) / pmf);
+  k.p1 = (1.0f - k.reused) * g[G_CA1 * N_GAUSS + k.idx]
+         + k.reused * g[G_CB1 * N_GAUSS + k.idx];
+  k.p2 = (1.0f - u1) * g[G_CA2 * N_GAUSS + k.idx]
+         + u1 * g[G_CB2 * N_GAUSS + k.idx];
+  return k;
+}
+
+__device__ __forceinline__ float clamp_eps(float p) {
+  return fminf(fmaxf(p, EPS_F32), 1.0f - EPS_F32);
+}
+
+// A sun-cone sample's point on the unit disk (model.py::sample_sun).
+__device__ __forceinline__ void cone_disk(float w, float u0, float u1,
+                                          float* px, float* py) {
+  float su0 = clamp01((u0 - w) / fmaxf(1.0f - w, 1e-12f));
+  disk_concentric(su0, u1, px, py);
+}
+
 // NEE direction sample (model.py::sample_direction): strategy pick, TGMM
 // inverse CDF for the sky, uniform cone for the sun. Returns pick_sky.
 __device__ inline bool nee_sample(const Tables& T, float u0, float u1,
@@ -483,24 +722,11 @@ __device__ inline bool nee_sample(const Tables& T, float u0, float u1,
   float w = misc[M_WMIX];
   bool pick_sky = u0 < w;
   if (pick_sky) {
-    float su0 = clamp01(u0 / fmaxf(w, 1e-12f));
-    // discrete pick over the normalised cdf (searchsorted, side=right)
-    int idx = 0;
-#pragma unroll 4
-    for (int i = 0; i < N_GAUSS; ++i) idx += g[G_CDF * N_GAUSS + i] <= su0;
-    idx = min(idx, N_GAUSS - 1);
-    float pmf = fmaxf(g[G_PMF * N_GAUSS + idx], 1e-37f);
-    float reused = clamp01((su0 - g[G_CDF_PREV * N_GAUSS + idx]) / pmf);
-    float ca1 = g[G_CA1 * N_GAUSS + idx], cb1 = g[G_CB1 * N_GAUSS + idx];
-    float ca2 = g[G_CA2 * N_GAUSS + idx], cb2 = g[G_CB2 * N_GAUSS + idx];
-    float p1 = fminf(fmaxf((1.0f - reused) * ca1 + reused * cb1, EPS_F32),
-                     1.0f - EPS_F32);
-    float p2 = fminf(fmaxf((1.0f - u1) * ca2 + u1 * cb2, EPS_F32),
-                     1.0f - EPS_F32);
-    float ang1 = SQRT2_F * erfinv_polished(2.0f * p1 - 1.0f)
-                     * g[G_S1 * N_GAUSS + idx] + g[G_MU1 * N_GAUSS + idx];
-    float ang2 = SQRT2_F * erfinv_polished(2.0f * p2 - 1.0f)
-                     * g[G_S2 * N_GAUSS + idx] + g[G_MU2 * N_GAUSS + idx];
+    SkyPick k = sky_pick(g, w, u0, u1);
+    float ang1 = SQRT2_F * erfinv_polished(2.0f * clamp_eps(k.p1) - 1.0f)
+                     * g[G_S1 * N_GAUSS + k.idx] + g[G_MU1 * N_GAUSS + k.idx];
+    float ang2 = SQRT2_F * erfinv_polished(2.0f * clamp_eps(k.p2) - 1.0f)
+                     * g[G_S2 * N_GAUSS + k.idx] + g[G_MU2 * N_GAUSS + k.idx];
     float phi = ang1 + misc[M_SUN_PHI] - 0.5f * PI_F;
     float theta = fminf(ang2, THETA_MAX);
     float st = sinf(theta);
@@ -508,9 +734,8 @@ __device__ inline bool nee_sample(const Tables& T, float u0, float u1,
     d[1] = sinf(phi) * st;
     d[2] = cosf(theta);
   } else {
-    float su0 = clamp01((u0 - w) / fmaxf(1.0f - w, 1e-12f));
     float px, py;
-    disk_concentric(su0, u1, &px, &py);
+    cone_disk(w, u0, u1, &px, &py);
     float cos_cut = misc[M_COS_CUT];
     float one_minus = 1.0f - cos_cut;
     float pn = px * px + py * py;
@@ -532,6 +757,186 @@ __device__ __forceinline__ float nee(const Tables& T, float u0, float u1,
                            : 0.0f;
   radiance(T, d[0], d[1], d[2], rad);
   return pdf;
+}
+
+// ---- reverse of the mixture pdf and of the sample's placement ----
+
+// mixture_pdf()'s forward state for the pdf's cotangent g_pdf: the gaussian
+// sum is needed, and has a cotangent, only where g_pdf is not 0. The sum
+// itself is taken by the caller (gauss_term_vjp per gaussian, summed over
+// a warp's lanes for the table).
+__device__ __forceinline__ PdfLane pdf_lane_vjp(const Tables& T, float dx,
+                                                float dy, float dz,
+                                                bool check_sun,
+                                                float g_pdf) {
+  PdfLane P = pdf_lane(T, dx, dy, dz, check_sun);
+  P.sky = P.sky && g_pdf != 0.0f;
+  if (!P.sky) P.phi_rel = P.theta = 0.0f;
+  P.g_tg = P.sky ? g_pdf * P.w / P.stc : 0.0f;
+  return P;
+}
+
+// Gaussian i of the sky pdf's sum at (phi_rel, theta) and its reverse for
+// the sum's cotangent g_tg: returns the term A exp(-|z|^2 / 2), adds the
+// coordinates' cotangents to *g_phi and *g_theta and writes the table's
+// cotangents of [A, mu1, sigma1, mu2, sigma2] to out. The table is read
+// as mixture_pdf() reads it (z = (x - mu) / sigma; the amplitude row folds
+// in the weight and the truncated volume), so its cotangent is the packed
+// table's and autograd through `_gauss_rows` takes it to the state.
+__device__ __forceinline__ float gauss_term_vjp(const float* __restrict__ g,
+                                                int i, float phi_rel,
+                                                float theta, float g_tg,
+                                                float* g_phi, float* g_theta,
+                                                float out[5]) {
+  float s1 = g[G_S1 * N_GAUSS + i], s2 = g[G_S2 * N_GAUSS + i];
+  float z1, z2;
+  float e = gauss_exp(g, i, phi_rel, theta, &z1, &z2);
+  float a = g[G_A * N_GAUSS + i];
+  float gq = -0.5f * (g_tg * a * e);      // d/d(z1^2 + z2^2)
+  float gz1 = gq * 2.0f * z1, gz2 = gq * 2.0f * z2;
+  *g_phi += gz1 / s1;
+  *g_theta += gz2 / s2;
+  out[0] = g_tg * e;
+  out[1] = -gz1 / s1;
+  out[2] = -gz1 * z1 / s1;
+  out[3] = -gz2 / s2;
+  out[4] = -gz2 * z2 / s2;
+  return a * e;
+}
+
+// mixture_pdf()'s reverse after its gaussian sum tg, given the
+// coordinates' cotangents g_phi, g_theta: adds the direction's cotangent
+// to dd and the misc row's (the sun's phi, cos_cut through the cone pdf,
+// and the mixture weight unless detach_w) to am.
+__device__ __forceinline__ void pdf_vjp_tail(const float* __restrict__ misc,
+                                             float dx, float dy, float dz,
+                                             const PdfLane& P, float tg,
+                                             float g_pdf, bool detach_w,
+                                             float g_phi, float g_theta,
+                                             float dd[3], float* am) {
+  float sky_pdf = P.sky ? tg / P.stc : 0.0f;
+  // pdf = (1 - w) sun_pdf + w sky_pdf
+  if (!detach_w) am[M_WMIX] += g_pdf * (sky_pdf - P.sun_pdf);
+  if (P.sun_pdf != 0.0f) {
+    float om = 1.0f - misc[M_COS_CUT];
+    am[M_COS_CUT] += g_pdf * (1.0f - P.w) * INV_TWO_PI_F / (om * om);
+  }
+  if (!P.sky) return;
+  // sky_pdf = tg / max(sin_theta, SIN_OFFSET), sin_theta = |(dx, dy)|
+  if (P.sin_theta >= SIN_OFFSET) {
+    float g_s = -(g_pdf * P.w) * tg / (P.stc * P.stc);
+    float k = g_s / P.sin_theta;
+    dd[0] += k * dx;
+    dd[1] += k * dy;
+  }
+  // phi_rel = atan2(dy, dx) - (sun_phi - pi/2), wrapped
+  am[M_SUN_PHI] -= g_phi;
+  float r2 = dx * dx + dy * dy;
+  dd[0] -= g_phi * dy / r2;
+  dd[1] += g_phi * dx / r2;
+  // theta = 2 asin(|(dx, dy, |dz| - 1)| / 2) (dz >= 0 here)
+  float hc = 0.5f * P.len;
+  if (hc < 1.0f && P.len > 0.0f) {
+    float k = g_theta / sqrtf(1.0f - hc * hc) / P.len;
+    float sz = dz > 0.0f ? 1.0f : (dz < 0.0f ? -1.0f : 0.0f);
+    dd[0] += k * dx;
+    dd[1] += k * dy;
+    dd[2] += k * (fabsf(dz) - 1.0f) * sz;
+  }
+}
+
+// erfinv_polished(x) and erfinv's derivative there, c exp(y^2), c =
+// sqrt(pi) / 2. Autograd of the plain version (ops/math.py::erfinv)
+// differentiates the Newton step too: it multiplies this by
+// (1 - 2 c y0 r e), e = exp(y0^2), where r = erf(y0) - x is the step's
+// residual, in float32 the rounding of erf near +-1 (~6e-8). That factor
+// is noise: below 1e-6 of the derivative for p (x = 2p - 1) in
+// [1e-2, 1 - 1e-2], 3e-4 at 1e-4 from a bound, 6e-2 at 1e-6.
+__device__ __forceinline__ float erfinv_polished_vjp(float x, float* dydx) {
+  float y = erfinv_polished(x);
+  *dydx = HALF_SQRT_PI * expf(y * y);
+  return y;
+}
+
+// The reverse of nee_sample()'s placement for the cotangent gd of the
+// sampled direction, as the plain version keeps it attached
+// (model.py::sample_direction): the strategy pick, the gaussian pick and
+// the reused uniform are detached; a sky sample's mu, sigma and truncation
+// CDFs of its gaussian and the sun's phi, and a cone sample's cos_cut and
+// sun frame, are attached. Adds the picked gaussian's cotangents to gacc
+// (the (14, 20) table, with `add`) and the misc row's to am.
+template <class Add>
+__device__ __forceinline__ void nee_sample_vjp(const Tables& T, float u0,
+                                               float u1, const float gd[3],
+                                               float* am, float* gacc,
+                                               Add add) {
+  const float* __restrict__ misc = T.misc;
+  const float* __restrict__ g = T.gauss;
+  float w = misc[M_WMIX];
+  if (u0 < w) {
+    SkyPick k = sky_pick(g, w, u0, u1);
+    int idx = k.idx;
+    float reused = k.reused, p1r = k.p1, p2r = k.p2;
+    float p1 = clamp_eps(p1r), p2 = clamp_eps(p2r);
+    float dy1, dy2;
+    float y1 = erfinv_polished_vjp(2.0f * p1 - 1.0f, &dy1);
+    float y2 = erfinv_polished_vjp(2.0f * p2 - 1.0f, &dy2);
+    float s1 = g[G_S1 * N_GAUSS + idx], s2 = g[G_S2 * N_GAUSS + idx];
+    float ang1 = SQRT2_F * y1 * s1 + g[G_MU1 * N_GAUSS + idx];
+    float ang2 = SQRT2_F * y2 * s2 + g[G_MU2 * N_GAUSS + idx];
+    float phi = ang1 + misc[M_SUN_PHI] - 0.5f * PI_F;
+    float theta = fminf(ang2, THETA_MAX);
+    float st = sinf(theta), ct = cosf(theta);
+    float sp = sinf(phi), cph = cosf(phi);
+    // d = (cos phi sin theta, sin phi sin theta, cos theta)
+    float g_theta = (gd[0] * cph + gd[1] * sp) * ct - gd[2] * st;
+    float g_phi = (gd[1] * cph - gd[0] * sp) * st;
+    float g_ang2 = ang2 <= THETA_MAX ? g_theta : 0.0f;
+    am[M_SUN_PHI] += g_phi;
+    // ang = sqrt(2) erfinv(2 p - 1) sigma + mu, p = clamp(lerp(ca, cb, u))
+    add(gacc + G_MU1 * N_GAUSS + idx, g_phi);
+    add(gacc + G_S1 * N_GAUSS + idx, g_phi * (SQRT2_F * y1));
+    add(gacc + G_MU2 * N_GAUSS + idx, g_ang2);
+    add(gacc + G_S2 * N_GAUSS + idx, g_ang2 * (SQRT2_F * y2));
+    if (p1r >= EPS_F32 && p1r <= 1.0f - EPS_F32) {
+      float gp = 2.0f * dy1 * (g_phi * SQRT2_F * s1);
+      add(gacc + G_CA1 * N_GAUSS + idx, gp * (1.0f - reused));
+      add(gacc + G_CB1 * N_GAUSS + idx, gp * reused);
+    }
+    if (p2r >= EPS_F32 && p2r <= 1.0f - EPS_F32) {
+      float gp = 2.0f * dy2 * (g_ang2 * SQRT2_F * s2);
+      add(gacc + G_CA2 * N_GAUSS + idx, gp * (1.0f - u1));
+      add(gacc + G_CB2 * N_GAUSS + idx, gp * u1);
+    }
+  } else {
+    float px, py;
+    cone_disk(w, u0, u1, &px, &py);
+    float cos_cut = misc[M_COS_CUT];
+    float om = 1.0f - cos_cut;
+    float pn = px * px + py * py;
+    float lz = cos_cut + om * (1.0f - pn);
+    float q = om * (2.0f - om * pn);
+    float scale = safe_sqrt(q);
+    float lx = px * scale, ly = py * scale;
+    // d = lx s + ly t + lz n
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      am[M_SX + k] += gd[k] * lx;
+      am[M_TX + k] += gd[k] * ly;
+      am[M_SUNX + k] += gd[k] * lz;
+    }
+    float g_lx = gd[0] * misc[M_SX] + gd[1] * misc[M_SY] + gd[2] * misc[M_SZ];
+    float g_ly = gd[0] * misc[M_TX] + gd[1] * misc[M_TY] + gd[2] * misc[M_TZ];
+    float g_lz = gd[0] * misc[M_SUNX] + gd[1] * misc[M_SUNY]
+                 + gd[2] * misc[M_SUNZ];
+    // lz = cos_cut + om (1 - pn), scale = sqrt(om (2 - om pn)), om =
+    // 1 - cos_cut
+    float g_om = g_lz * (1.0f - pn);
+    if (q > 0.0f)
+      g_om += (g_lx * px + g_ly * py) * 0.5f / scale
+              * (2.0f - 2.0f * om * pn);
+    am[M_COS_CUT] += g_lz - g_om;
+  }
 }
 
 // ---- counter-hash RNG (render/sampler.py, kind "independent") ----

@@ -1,0 +1,222 @@
+// Spectral sunsky adjoint kernels K12 and K13 for sm_90a.
+//
+// K12 sunsky_hit_spec_bwd  replaces tpusky/ops/pallas/sunsky_kernel.py:
+//                          sunsky_hit_spec_bwd_pallas (_spec_hit_bwd_kernel):
+//                          the adjoint of the spectral eval (K9) and
+//                          emitter-hit (K10) blocks. (d, wl, g_rad (N, W)
+//                          [, g_pdf]) -> per-lane dd (N, 3) and dwl (N, W)
+//                          and the table cotangents summed over all lanes.
+//                          with_pdf adds the mixture pdf's reverse, the
+//                          mixture weight attached (model.py::pdf_direction).
+// K13 sunsky_nee_spec_bwd  replaces sunsky_kernel.py:
+//                          sunsky_nee_spec_bwd_pallas (_spec_nee_bwd_kernel):
+//                          the spectral NEE block's adjoint. Each lane
+//                          redraws its sample with K11's nee_sample and
+//                          runs the radiance's reverse there (the direction
+//                          detached) -> dwl and the tables. with_pdf adds
+//                          the pdf at the sample, the mixture weight
+//                          detached, through the sample's placement; without
+//                          it the placement is fully detached, as in K6.
+//
+// with_pdf is a template flag, chosen at launch by whether g_pdf is given.
+// The reverse sweeps are sunsky_core.cuh's: radiance_spec_vjp (sharing
+// radiance_vjp's geometry, sky formula, disc surrogate and gamma chain),
+// pdf_lane_vjp/gauss_term_vjp/pdf_vjp_tail and nee_sample_vjp. The TPU kernels
+// traced a jax.vjp over (11, B) channel tiles and one-hot products
+// (sunsky_kernel.py:1203-1280); here a lane reverses only the two channels
+// around each of its wavelengths.
+//
+// What bounds them on an H100: arithmetic, as K5-K8 (the forward plus its
+// reverse, ~3x K9's work a lane). The reduction over lanes takes
+// adjoint_common.cuh's two passes. The spectral small tables' cotangents
+// (skyp (11, 9), skyr, ld (11, 6): 176 floats) are too many for per-thread
+// registers, and a lane touches only two channels a wavelength, so they go
+// to a copy per warp in shared memory by atomics; the misc row's (16),
+// which every lane touches, stay in registers and are summed at the end;
+// the (45, 44) sun table takes K5's block-wide copy and atomics; the
+// gaussian table (with_pdf) K7's per-warp copy. A block's partial row is
+// [sun 1980 | skyp 99 | skyr 11 | ld 66 | misc 16 | gauss 280] (gauss zero
+// without the pdf).
+
+#include "adjoint_common.cuh"
+
+namespace {
+
+constexpr int kSunN = tsk::N_SEG * tsk::SUN_SPEC_F;            // 1980
+constexpr int kMiscCol = kSunN + tsk::N_SPEC_SMALL;            // 2156
+constexpr int kGaussCol = kMiscCol + 16;                        // 2172
+constexpr int kRow = kGaussCol + kGaussN;                       // 2452
+
+// Pass 1. kNee false (K12) reads directions (n, 3) and writes dd (unless
+// null); kNee true (K13) reads uniforms (n, 2) and redraws each sample.
+// Both write dwl (n, nw) unless it is null.
+template <bool kNee, bool kPdf>
+__device__ __forceinline__ void spec_adjoint_pass(
+    const float* __restrict__ in, const float* __restrict__ wl,
+    const float* __restrict__ g, const float* __restrict__ g_pdf, int n,
+    int nw, const tsk::Tables& T, float* __restrict__ dd_out,
+    float* __restrict__ dwl_out, float* __restrict__ partial) {
+  __shared__ float s_sun[kSunN];
+  __shared__ float s_small[kWarps * tsk::N_SPEC_SMALL];
+  __shared__ float s_misc[kWarps * 16];
+  __shared__ float s_gauss[kPdf ? kWarps * kGaussN : 1];
+  for (int i = threadIdx.x; i < kSunN; i += kThreads) s_sun[i] = 0.0f;
+  for (int i = threadIdx.x; i < kWarps * tsk::N_SPEC_SMALL; i += kThreads)
+    s_small[i] = 0.0f;
+  if (kPdf)
+    for (int i = threadIdx.x; i < kWarps * kGaussN; i += kThreads)
+      s_gauss[i] = 0.0f;
+  __syncthreads();
+  int warp = threadIdx.x >> 5;
+  float* s_small_w = s_small + warp * tsk::N_SPEC_SMALL;
+  float* s_gauss_w = s_gauss + (kPdf ? warp * kGaussN : 0);
+
+  float am[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) am[k] = 0.0f;
+
+  for (long long base = (long long)blockIdx.x * kThreads; base < n;
+       base += (long long)gridDim.x * kThreads) {
+    int i = (int)base + threadIdx.x;
+    bool live = i < n;
+    size_t row = (size_t)(live ? i : 0) * nw;
+    bool rad = false;
+    if (live)
+      for (int w = 0; w < nw; ++w) rad = rad || g[row + w] != 0.0f;
+    float gp = (kPdf && live) ? g_pdf[i] : 0.0f;
+    float d[3] = {0.0f, 0.0f, 1.0f};
+    float u0 = 0.0f, u1 = 0.0f;
+    bool pick_sky = true;
+    float dd[3] = {0.0f, 0.0f, 0.0f};
+    float* dwl = (live && dwl_out != nullptr) ? dwl_out + row : nullptr;
+    if (live && (rad || gp != 0.0f)) {
+      if (kNee) {
+        u0 = in[2 * i];
+        u1 = in[2 * i + 1];
+        pick_sky = tsk::nee_sample(T, u0, u1, d);
+      } else {
+        d[0] = in[3 * i];
+        d[1] = in[3 * i + 1];
+        d[2] = in[3 * i + 2];
+      }
+    }
+    if (live && rad) {
+      tsk::radiance_spec_vjp(T, d[0], d[1], d[2], wl + row, g + row, nw, dd,
+                             dwl, am, s_small_w, s_sun);
+    } else if (dwl != nullptr) {
+      for (int w = 0; w < nw; ++w) dwl[w] = 0.0f;
+    }
+    if (kPdf) {
+      // an NEE sample's pdf is masked below the horizon
+      if (kNee && !(d[2] >= 0.0f)) gp = 0.0f;
+      tsk::PdfLane P = tsk::pdf_lane_vjp(T, d[0], d[1], d[2], pick_sky, gp);
+      float g_phi, g_theta;
+      float tg = gauss_sum_vjp_warp(T.gauss, P, &g_phi, &g_theta, s_gauss_w);
+      if (gp != 0.0f) {
+        if (kNee) {
+          float dp[3] = {0.0f, 0.0f, 0.0f};
+          tsk::pdf_vjp_tail(T.misc, d[0], d[1], d[2], P, tg, gp, true,
+                            g_phi, g_theta, dp, am);
+          tsk::nee_sample_vjp(T, u0, u1, dp, am, s_gauss_w,
+                              tsk::AtomicAdd());
+        } else {
+          tsk::pdf_vjp_tail(T.misc, d[0], d[1], d[2], P, tg, gp, false,
+                            g_phi, g_theta, dd, am);
+        }
+      }
+    }
+    if (!kNee && live && dd_out != nullptr) {
+      dd_out[3 * i] = dd[0];
+      dd_out[3 * i + 1] = dd[1];
+      dd_out[3 * i + 2] = dd[2];
+    }
+  }
+
+  warp_partials<16>(am, s_misc);
+  __syncthreads();
+  float* __restrict__ out = partial + (size_t)blockIdx.x * kRow;
+  for (int j = threadIdx.x; j < kSunN; j += kThreads) out[j] = s_sun[j];
+  for (int j = threadIdx.x; j < tsk::N_SPEC_SMALL; j += kThreads)
+    out[kSunN + j] = warps_sum(s_small, tsk::N_SPEC_SMALL, j);
+  if (threadIdx.x < 16)
+    out[kMiscCol + threadIdx.x] = warps_sum(s_misc, 16, threadIdx.x);
+  for (int j = threadIdx.x; j < kGaussN; j += kThreads)
+    out[kGaussCol + j] = kPdf ? warps_sum(s_gauss, kGaussN, j) : 0.0f;
+}
+
+template <bool kPdf>
+__global__ void __launch_bounds__(kThreads)
+spec_hit_bwd_kernel(const float* __restrict__ d, const float* __restrict__ wl,
+                    const float* __restrict__ g,
+                    const float* __restrict__ g_pdf, int n, int nw,
+                    tsk::Tables T, float* __restrict__ dd,
+                    float* __restrict__ dwl, float* __restrict__ partial) {
+  spec_adjoint_pass<false, kPdf>(d, wl, g, g_pdf, n, nw, T, dd, dwl,
+                                 partial);
+}
+
+template <bool kPdf>
+__global__ void __launch_bounds__(kThreads)
+spec_nee_bwd_kernel(const float* __restrict__ u, const float* __restrict__ wl,
+                    const float* __restrict__ g,
+                    const float* __restrict__ g_pdf, int n, int nw,
+                    tsk::Tables T, float* __restrict__ dwl,
+                    float* __restrict__ partial) {
+  spec_adjoint_pass<true, kPdf>(u, wl, g, g_pdf, n, nw, T, nullptr, dwl,
+                                partial);
+}
+
+tsk::Tables tables(const float* skyp, const float* skyr, const float* sun,
+                   const float* ld, const float* misc, const float* gauss) {
+  return tsk::Tables{skyp, skyr, sun, misc, gauss, ld};
+}
+
+}  // namespace
+
+extern "C" {
+
+// K12: d (n, 3), wl (n, nw), g (n, nw), g_pdf (n,) or null (with_pdf
+// false) -> dd (n, 3) and dwl (n, nw), each unless null, and out (2452,) =
+// [sun (45, 44) | skyp (11, 9) | skyr (11,) | ld (11, 6) | misc (16,) |
+// gauss (14, 20)] cotangents; partial: tsk_adjoint_rows(n) x 2452 floats.
+int tsk_sunsky_hit_spec_bwd(const float* d, const float* wl, const float* g,
+                            const float* g_pdf, int n, int nw,
+                            const float* skyp, const float* skyr,
+                            const float* sun, const float* ld,
+                            const float* misc, const float* gauss, float* dd,
+                            float* dwl, float* partial, float* out,
+                            void* stream) {
+  int rows = adjoint_rows(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  tsk::Tables T = tables(skyp, skyr, sun, ld, misc, gauss);
+  if (g_pdf != nullptr)
+    spec_hit_bwd_kernel<true><<<rows, kThreads, 0, s>>>(
+        d, wl, g, g_pdf, n, nw, T, dd, dwl, partial);
+  else
+    spec_hit_bwd_kernel<false><<<rows, kThreads, 0, s>>>(
+        d, wl, g, nullptr, n, nw, T, dd, dwl, partial);
+  return finish(partial, rows, kRow, out, s);
+}
+
+// K13: u (n, 2), wl (n, nw), g (n, nw), g_pdf (n,) or null -> dwl (n, nw)
+// unless null, out (2452,) as K12.
+int tsk_sunsky_nee_spec_bwd(const float* u, const float* wl, const float* g,
+                            const float* g_pdf, int n, int nw,
+                            const float* skyp, const float* skyr,
+                            const float* sun, const float* ld,
+                            const float* misc, const float* gauss,
+                            float* dwl, float* partial, float* out,
+                            void* stream) {
+  int rows = adjoint_rows(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  tsk::Tables T = tables(skyp, skyr, sun, ld, misc, gauss);
+  if (g_pdf != nullptr)
+    spec_nee_bwd_kernel<true><<<rows, kThreads, 0, s>>>(
+        u, wl, g, g_pdf, n, nw, T, dwl, partial);
+  else
+    spec_nee_bwd_kernel<false><<<rows, kThreads, 0, s>>>(
+        u, wl, g, nullptr, n, nw, T, dwl, partial);
+  return finish(partial, rows, kRow, out, s);
+}
+
+}  // extern "C"

@@ -13,9 +13,9 @@ versions:
 * the hand-written CUDA kernels behind `eval`, `eval_pdf` and
   `sample_eval` (`ops/cuda/sunsky_kernel.py`), launched for CUDA tensors:
   K1-K3 in RGB mode, whose backward under autograd is the adjoint kernel
-  K5 (radiance) or K6 (the NEE block's radiance), for the pdf-detached
-  contract only; K9-K11 in spectral mode, forward only (their adjoints
-  K12/K13 are not ported, so a gradient request on the card raises).
+  K5 (radiance) or K6 (the NEE block's radiance) with the pdf detached,
+  K7 or K8 with it attached; K9-K11 in spectral mode, whose backward is
+  K12 (eval and hit) or K13 (NEE), each with or without the pdf.
 
 Reference behaviour (`src/emitters/sunsky.cpp`): 9-parameter sky formula
 (:538-555), 45-segment sun polynomial with baked limb darkening
@@ -388,7 +388,7 @@ def eval(state: SunskyState, d, mode: str = "rgb", plain: bool = False,
     """Emitted radiance along local direction d (pointing at the sky)
     (reference `sunsky.cpp:303-352`): RGB mode -> (..., 3) linear sRGB,
     kernel K1 (K5 backward) for CUDA tensors; spectral mode -> (..., W) at
-    `wavelengths` (..., W) in nm, kernel K9. `plain=True` runs the plain
+    `wavelengths` (..., W) in nm, kernel K9 (K12 backward). `plain=True` runs the plain
     version on any device (the reference the kernels are held against)."""
     _need_wavelengths(mode, wavelengths)
     if mode == "spectral":
@@ -545,11 +545,10 @@ def eval_pdf(state: SunskyState, d, mode: str = "rgb",
              pdf_detached: bool = False, plain: bool = False,
              wavelengths=None):
     """Radiance + solid-angle pdf toward local direction d (the
-    emitter-hit MIS block): kernel K2 (K5 backward) for CUDA tensors, or
-    K10 in spectral mode. pdf_detached=True is the render contract (the
-    pdf is only used detached); on the card a gradient through the
-    attached pdf raises (its adjoint K7 is not ported), as does any
-    spectral gradient (K12)."""
+    emitter-hit MIS block): kernel K2 for CUDA tensors, or K10 in
+    spectral mode. pdf_detached=True is the render contract (the pdf is
+    only used detached): K5 (K12 without the pdf) backward; with the pdf
+    attached K7 (K12 with the pdf)."""
     _need_wavelengths(mode, wavelengths)
     if mode == "spectral":
         if plain:
@@ -558,7 +557,8 @@ def eval_pdf(state: SunskyState, d, mode: str = "rgb",
             batch = d.shape[:-1]
             rad, pdf = _kernels().sunsky_hit_spec(
                 state, d.reshape(-1, 3).contiguous(),
-                _flat_wavelengths(wavelengths, batch))
+                _flat_wavelengths(wavelengths, batch),
+                pdf_detached=pdf_detached)
             rad = rad.reshape(batch + rad.shape[-1:])
             pdf = pdf.reshape(batch)
     elif plain:
@@ -575,11 +575,10 @@ def sample_eval(state: SunskyState, u2, mode: str = "rgb",
                 pdf_detached: bool = False, plain: bool = False,
                 wavelengths=None):
     """Importance-sample a direction and evaluate its radiance + pdf (the
-    NEE block): kernel K3 for CUDA tensors, K6 backward (on the card only
-    with pdf_detached=True under autograd: K8 is not ported); in spectral
-    mode kernel K11, forward only (K13 is not ported). Returns
-    (d_local (..., 3), detached; radiance (..., 3) or (..., W); pdf
-    (...,))."""
+    NEE block): kernel K3 for CUDA tensors, K6 backward with the pdf
+    detached, K8 with it attached; in spectral mode kernel K11, K13
+    backward (without or with the pdf). Returns (d_local (..., 3),
+    detached; radiance (..., 3) or (..., W); pdf (...,))."""
     _need_wavelengths(mode, wavelengths)
     if mode == "spectral":
         if plain:
@@ -588,7 +587,8 @@ def sample_eval(state: SunskyState, u2, mode: str = "rgb",
             batch = u2.shape[:-1]
             d, rad, pdf = _kernels().sunsky_nee_spec(
                 state, u2.reshape(-1, 2).contiguous(),
-                _flat_wavelengths(wavelengths, batch))
+                _flat_wavelengths(wavelengths, batch),
+                pdf_detached=pdf_detached)
             d = d.reshape(batch + (3,))
             rad = rad.reshape(batch + rad.shape[-1:])
             pdf = pdf.reshape(batch)

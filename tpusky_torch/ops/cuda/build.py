@@ -26,14 +26,16 @@ _CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "build", "tpusky_torch")
 _SOURCES = ("sunsky_kernels.cu", "megakernel.cu", "sunsky_adjoint.cu",
-            "sunsky_spectral.cu")
+            "sunsky_spectral.cu", "sunsky_spectral_adjoint.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = {"sunsky_eval_rgb": 0, "sunsky_hit_rgb": 0, "sunsky_nee_rgb": 0,
             "direct_rgb_megakernel": 0, "sunsky_eval_rgb_bwd": 0,
-            "sunsky_nee_rgb_bwd": 0, "sunsky_eval_spec": 0,
-            "sunsky_hit_spec": 0, "sunsky_nee_spec": 0}
+            "sunsky_nee_rgb_bwd": 0, "sunsky_hit_rgb_bwd": 0,
+            "sunsky_nee_rgb_pdf_bwd": 0, "sunsky_eval_spec": 0,
+            "sunsky_hit_spec": 0, "sunsky_nee_spec": 0,
+            "sunsky_hit_spec_bwd": 0, "sunsky_nee_spec_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +56,12 @@ _SIGNATURES = {
     "tsk_sunsky_eval_rgb_bwd": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # u, g, n, skyp, skyr, sun, misc, gauss, partial, out, stream
     "tsk_sunsky_nee_rgb_bwd": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # d, g, g_pdf, n, skyp, skyr, sun, misc, gauss, dd, partial, out, stream
+    "tsk_sunsky_hit_rgb_bwd": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P),
+    # u, g, g_pdf, n, skyp, skyr, sun, misc, gauss, partial, out, stream
+    "tsk_sunsky_nee_rgb_pdf_bwd": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                   _P, _P),
     # d, wl, n, w, skyp, skyr, sun, ld, misc, out, stream
     "tsk_sunsky_eval_spec": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # d, wl, n, w, skyp, skyr, sun, ld, misc, gauss, rad, pdf, stream
@@ -62,6 +70,14 @@ _SIGNATURES = {
     # u, wl, n, w, skyp, skyr, sun, ld, misc, gauss, d, rad, pdf, stream
     "tsk_sunsky_nee_spec": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P),
+    # d, wl, g, g_pdf (or null), n, w, skyp, skyr, sun, ld, misc, gauss,
+    # dd, dwl (each or null), partial, out, stream
+    "tsk_sunsky_hit_spec_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P),
+    # u, wl, g, g_pdf (or null), n, w, skyp, skyr, sun, ld, misc, gauss,
+    # dwl (or null), partial, out, stream
+    "tsk_sunsky_nee_spec_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P),
 }
 
 

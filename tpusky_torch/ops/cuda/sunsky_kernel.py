@@ -1,6 +1,7 @@
 """Wrappers of the sunsky CUDA kernels K1-K3 (`csrc/sunsky_kernels.cu`),
-their adjoints K5, K6 (`csrc/sunsky_adjoint.cu`) and the spectral
-kernels K9-K11 (`csrc/sunsky_spectral.cu`).
+their adjoints K5-K8 (`csrc/sunsky_adjoint.cu`), the spectral kernels
+K9-K11 (`csrc/sunsky_spectral.cu`) and their adjoints K12, K13
+(`csrc/sunsky_spectral_adjoint.cu`).
 
 The PyTorch counterparts of the TPU kernels in
 `tpusky/ops/pallas/sunsky_kernel.py`:
@@ -19,12 +20,22 @@ raises. On the card each forward kernel runs inside a
 `torch.autograd.Function` whose tensor inputs are the packed tables, so
 autograd pulls the table cotangents back into the state and the
 parameters (what the reference package's `jax.vjp(_derived_rgb, state)`
-does): K1 and K2 transpose into K5, K3 into K6. That holds for the
-render's contract, the pdf detached; the attached-pdf adjoints K7 and K8
-are not ported, so `sunsky_hit_rgb` / `sunsky_nee_rgb` with
-`pdf_detached=False` raise when a gradient is asked for on the card.
-K9-K11 run forward only: their adjoints K12 and K13 are not ported, so
-any gradient request on the card raises.
+does). The backward kernel follows the pdf's contract, `pdf_detached`:
+
+| forward | pdf detached (the render's contract) | pdf attached |
+|---|---|---|
+| K1 eval | K5 | - |
+| K2 hit | K5 | K7 |
+| K3 NEE | K6 | K8 |
+| K9 eval | K12, without the pdf | - |
+| K10 hit | K12, without the pdf | K12 with the pdf |
+| K11 NEE | K13, without the pdf | K13 with the pdf |
+
+With the pdf detached, the pdf output is non-differentiable and the
+gaussian table is packed outside autograd (it only places samples); with
+it attached, the table is packed under autograd, so the adjoint's
+cotangent of it reaches `state.gaussians` through `_gauss_rows`. The
+spectral adjoints also give the wavelengths' cotangent.
 
 `_misc_row` (`_misc_row_spec` in spectral mode) and `_gauss_rows` pack
 the state into the tables the kernels read, in the reference package's
@@ -89,6 +100,25 @@ def _gauss_rows(state) -> torch.Tensor:
         cdf_a[:, 0], cdf_b[:, 0], cdf_a[:, 1], cdf_b[:, 1], cdf_prev])
 
 
+def _gauss_table(state, attached: bool) -> torch.Tensor:
+    """The gaussian table, under autograd only when the pdf's gradient is
+    asked for (otherwise it only places samples and weighs a detached
+    pdf)."""
+    if attached:
+        return _gauss_rows(state)
+    with torch.no_grad():
+        return _gauss_rows(state)
+
+
+def _on_device(tables, device):
+    tables = type(tables)(*(t.to(torch.float32).contiguous()
+                            for t in tables))
+    for t in tables:
+        if t.device != torch.device(device):
+            raise ValueError(f"sunsky state on {t.device}, lanes on {device}")
+    return tables
+
+
 class Tables(NamedTuple):
     """The state as the kernels read it (contiguous float32, one device)."""
     skyp: torch.Tensor     # (3, 9)
@@ -101,23 +131,16 @@ class Tables(NamedTuple):
         return [None if t is None else t.data_ptr() for t in self]
 
 
-def pack_tables(state, device) -> Tables:
-    """The kernels' tables, differentiable in the state. The gaussian table
-    only places samples and weighs the detached pdf, so it is built
-    outside autograd."""
-    with torch.no_grad():
-        gauss = _gauss_rows(state)
-    tables = Tables(state.sky_params, state.sky_radiance,
-                    state.sun_radiance, _misc_row(state), gauss)
-    tables = Tables(*(t.to(torch.float32).contiguous() for t in tables))
-    for t in tables:
-        if t.device != torch.device(device):
-            raise ValueError(f"sunsky state on {t.device}, lanes on {device}")
-    return tables
+def pack_tables(state, device, pdf_attached: bool = False) -> Tables:
+    """The kernels' tables, differentiable in the state; the gaussian
+    table too when `pdf_attached`."""
+    return _on_device(Tables(state.sky_params, state.sky_radiance,
+                             state.sun_radiance, _misc_row(state),
+                             _gauss_table(state, pdf_attached)), device)
 
 
 class SpecTables(NamedTuple):
-    """The spectral state as K9-K11 read it (contiguous float32)."""
+    """The spectral state as K9-K13 read it (contiguous float32)."""
     skyp: torch.Tensor     # (11, 9)
     skyr: torch.Tensor     # (11,)
     sun: torch.Tensor      # (45, 44)
@@ -129,21 +152,16 @@ class SpecTables(NamedTuple):
         return [t.data_ptr() for t in self]
 
 
-def pack_tables_spec(state, device) -> SpecTables:
-    """K9-K11's tables from a spectral state."""
+def pack_tables_spec(state, device, pdf_attached: bool = False
+                     ) -> SpecTables:
+    """K9-K13's tables from a spectral state, as `pack_tables`."""
     if state.sun_ld is None:
         raise ValueError("the spectral kernels need a state precomputed in "
                          "spectral mode")
-    with torch.no_grad():
-        gauss = _gauss_rows(state)
-    tables = SpecTables(state.sky_params, state.sky_radiance,
-                        state.sun_radiance, state.sun_ld,
-                        _misc_row_spec(state), gauss)
-    tables = SpecTables(*(t.to(torch.float32).contiguous() for t in tables))
-    for t in tables:
-        if t.device != torch.device(device):
-            raise ValueError(f"sunsky state on {t.device}, lanes on {device}")
-    return tables
+    return _on_device(SpecTables(state.sky_params, state.sky_radiance,
+                                 state.sun_radiance, state.sun_ld,
+                                 _misc_row_spec(state),
+                                 _gauss_table(state, pdf_attached)), device)
 
 
 def check_lanes(x, cols: int, name: str):
@@ -174,6 +192,10 @@ def _check_wavelengths(wl, n: int, name: str):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def launch_eval(tables: Tables, d):
@@ -208,30 +230,36 @@ def launch_nee(tables: Tables, u2):
     return d, rad, pdf
 
 
-# the adjoints' output row (csrc/sunsky_adjoint.cu): sun (45, 72), then
-# skyp (3, 9), skyr (3,) and misc (16,) cotangents
+# the RGB adjoints' output row (csrc/sunsky_adjoint.cu): sun (45, 72), then
+# skyp (3, 9), skyr (3,) and misc (16,) cotangents; K7 and K8 add the
+# gaussian table (14, 20)
 _N_SUN = C.N_SUN_SEGMENTS * 72
 _ROW = _N_SUN + 27 + 3 + 16
+_GAUSS = 14 * 20
+_ROW_PDF = _ROW + _GAUSS
 
 
 def _split_cotangents(row):
-    """(3286,) [sun | skyp | skyr | misc] -> (dskyp, dskyr, dsun, dmisc)."""
-    return (row[_N_SUN:_N_SUN + 27].view(3, 9),
-            row[_N_SUN + 27:_N_SUN + 30],
-            row[:_N_SUN].view(C.N_SUN_SEGMENTS, 72), row[_N_SUN + 30:])
+    """[sun | skyp | skyr | misc (| gauss)] -> (dskyp, dskyr, dsun, dmisc
+    (, dgauss)), in the order of `Tables`."""
+    out = (row[_N_SUN:_N_SUN + 27].view(3, 9),
+           row[_N_SUN + 27:_N_SUN + 30],
+           row[:_N_SUN].view(C.N_SUN_SEGMENTS, 72),
+           row[_N_SUN + 30:_ROW])
+    return out if row.shape[0] == _ROW else (*out, row[_ROW:].view(14, 20))
 
 
-def _adjoint_scratch(n, device):
+def _adjoint_scratch(n, cols, device):
     rows = build.library().tsk_adjoint_rows(n)
-    partial = torch.empty((rows, _ROW), dtype=torch.float32, device=device)
-    return partial, torch.empty(_ROW, dtype=torch.float32, device=device)
+    partial = torch.empty((rows, cols), dtype=torch.float32, device=device)
+    return partial, torch.empty(cols, dtype=torch.float32, device=device)
 
 
 def launch_eval_bwd(tables: Tables, d, g_rad):
     """K5: -> (dd (N, 3), dskyp, dskyr, dsun, dmisc)."""
     n = d.shape[0]
     dd = torch.empty_like(d)
-    partial, row = _adjoint_scratch(n, d.device)
+    partial, row = _adjoint_scratch(n, _ROW, d.device)
     sk = tables.pointers()
     err = build.library().tsk_sunsky_eval_rgb_bwd(
         d.data_ptr(), g_rad.data_ptr(), n, sk[0], sk[1], sk[2], sk[3],
@@ -243,7 +271,7 @@ def launch_eval_bwd(tables: Tables, d, g_rad):
 def launch_nee_bwd(tables: Tables, u2, g_rad):
     """K6: -> (dskyp, dskyr, dsun, dmisc)."""
     n = u2.shape[0]
-    partial, row = _adjoint_scratch(n, u2.device)
+    partial, row = _adjoint_scratch(n, _ROW, u2.device)
     err = build.library().tsk_sunsky_nee_rgb_bwd(
         u2.data_ptr(), g_rad.data_ptr(), n, *tables.pointers(),
         partial.data_ptr(), row.data_ptr(), _stream(u2.device))
@@ -251,13 +279,41 @@ def launch_nee_bwd(tables: Tables, u2, g_rad):
     return _split_cotangents(row)
 
 
-def _eval_adjoint(ctx, g_rad):
-    """K5 from a Function's saved (d, skyp, skyr, sun, misc)."""
-    d, *small = ctx.saved_tensors
-    g_rad = g_rad.to(torch.float32).contiguous()
-    dd, *dtables = launch_eval_bwd(Tables(*small, None), d, g_rad)
+def launch_hit_bwd(tables: Tables, d, g_rad, g_pdf):
+    """K7: -> (dd (N, 3), dskyp, dskyr, dsun, dmisc, dgauss)."""
+    n = d.shape[0]
+    dd = torch.empty_like(d)
+    partial, row = _adjoint_scratch(n, _ROW_PDF, d.device)
+    err = build.library().tsk_sunsky_hit_rgb_bwd(
+        d.data_ptr(), g_rad.data_ptr(), g_pdf.data_ptr(), n,
+        *tables.pointers(), dd.data_ptr(), partial.data_ptr(),
+        row.data_ptr(), _stream(d.device))
+    build.check(err, "sunsky_hit_rgb_bwd")
+    return (dd, *_split_cotangents(row))
+
+
+def launch_nee_pdf_bwd(tables: Tables, u2, g_rad, g_pdf):
+    """K8: -> (dskyp, dskyr, dsun, dmisc, dgauss)."""
+    n = u2.shape[0]
+    partial, row = _adjoint_scratch(n, _ROW_PDF, u2.device)
+    err = build.library().tsk_sunsky_nee_rgb_pdf_bwd(
+        u2.data_ptr(), g_rad.data_ptr(), g_pdf.data_ptr(), n,
+        *tables.pointers(), partial.data_ptr(), row.data_ptr(),
+        _stream(u2.device))
+    build.check(err, "sunsky_nee_rgb_pdf_bwd")
+    return _split_cotangents(row)
+
+
+def _f32(g):
+    return g.to(torch.float32).contiguous()
+
+
+def _eval_adjoint(ctx, g_rad, want_dd):
+    """K5 from a Function's saved (d, skyp, skyr, sun, misc, ...)."""
+    d, *small = ctx.saved_tensors[:5]
+    dd, *dtables = launch_eval_bwd(Tables(*small, None), d, _f32(g_rad))
     build.launches["sunsky_eval_rgb_bwd"] += 1
-    return (dd if ctx.needs_input_grad[0] else None, *dtables)
+    return (dd if want_dd else None, *dtables)
 
 
 class _Eval(torch.autograd.Function):
@@ -270,42 +326,59 @@ class _Eval(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rad):
-        return _eval_adjoint(ctx, g_rad)
+        return _eval_adjoint(ctx, g_rad, ctx.needs_input_grad[0])
 
 
 class _Hit(torch.autograd.Function):
-    """K2 forward; backward K5 (the pdf output is detached)."""
+    """K2 forward; backward K5 with the pdf detached (its output is then
+    non-differentiable), K7 with it attached."""
 
     @staticmethod
-    def forward(ctx, d, skyp, skyr, sun, misc, gauss):
+    def forward(ctx, pdf_detached, d, skyp, skyr, sun, misc, gauss):
         rad, pdf = launch_hit(Tables(skyp, skyr, sun, misc, gauss), d)
-        ctx.mark_non_differentiable(pdf)
-        ctx.save_for_backward(d, skyp, skyr, sun, misc)
+        if pdf_detached:
+            ctx.mark_non_differentiable(pdf)
+        ctx.pdf_detached = pdf_detached
+        ctx.save_for_backward(d, skyp, skyr, sun, misc, gauss)
         return rad, pdf
 
     @staticmethod
-    def backward(ctx, g_rad, _g_pdf):
-        return (*_eval_adjoint(ctx, g_rad), None)
+    def backward(ctx, g_rad, g_pdf):
+        if ctx.pdf_detached:
+            return (None, *_eval_adjoint(ctx, g_rad,
+                                         ctx.needs_input_grad[1]), None)
+        d, *tables = ctx.saved_tensors
+        dd, *dtables = launch_hit_bwd(Tables(*tables), d, _f32(g_rad),
+                                      _f32(g_pdf))
+        build.launches["sunsky_hit_rgb_bwd"] += 1
+        return (None, dd if ctx.needs_input_grad[1] else None, *dtables)
 
 
 class _Nee(torch.autograd.Function):
-    """K3 forward; backward K6 (direction and pdf detached)."""
+    """K3 forward (the direction non-differentiable: sample placement);
+    backward K6 with the pdf detached (non-differentiable), K8 with it
+    attached."""
 
     @staticmethod
-    def forward(ctx, u2, skyp, skyr, sun, misc, gauss):
+    def forward(ctx, pdf_detached, u2, skyp, skyr, sun, misc, gauss):
         tables = Tables(skyp, skyr, sun, misc, gauss)
         d, rad, pdf = launch_nee(tables, u2)
-        ctx.mark_non_differentiable(d, pdf)
+        ctx.mark_non_differentiable(*((d, pdf) if pdf_detached else (d,)))
+        ctx.pdf_detached = pdf_detached
         ctx.save_for_backward(u2, skyp, skyr, sun, misc, gauss)
         return d, rad, pdf
 
     @staticmethod
-    def backward(ctx, _g_d, g_rad, _g_pdf):
+    def backward(ctx, _g_d, g_rad, g_pdf):
         u2, *tables = ctx.saved_tensors
-        g_rad = g_rad.to(torch.float32).contiguous()
-        dtables = launch_nee_bwd(Tables(*tables), u2, g_rad)
-        build.launches["sunsky_nee_rgb_bwd"] += 1
-        return (None, *dtables, None)
+        if ctx.pdf_detached:
+            dtables = launch_nee_bwd(Tables(*tables), u2, _f32(g_rad))
+            build.launches["sunsky_nee_rgb_bwd"] += 1
+            return (None, None, *dtables, None)
+        dtables = launch_nee_pdf_bwd(Tables(*tables), u2, _f32(g_rad),
+                                     _f32(g_pdf))
+        build.launches["sunsky_nee_rgb_pdf_bwd"] += 1
+        return (None, None, *dtables)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -324,44 +397,32 @@ def sunsky_eval_rgb(state, d):
 
 
 def sunsky_hit_rgb(state, d, pdf_detached: bool = False):
-    """K2: (radiance (N, 3), pdf (N,)) toward local directions d (N, 3).
-    On the card the pdf carries no gradient: with pdf_detached=False a
-    gradient request raises (its adjoint, K7, is not ported)."""
+    """K2: (radiance (N, 3), pdf (N,)) toward local directions d (N, 3);
+    under autograd K5 (pdf_detached) or K7 backward."""
     if d.device.type == "cpu":
         return M._hit_rgb_plain(state, d)
     check_lanes(d, 3, "sunsky_hit_rgb")
-    tables = pack_tables(state, d.device)
-    if not pdf_detached and _wants_grad(d, *tables):
-        raise NotImplementedError(
-            "sunsky_hit_rgb: the gradient of the attached pdf needs K7 "
-            "(sunsky_hit_rgb_bwd_pallas), not ported; pass "
-            "pdf_detached=True")
-    out = _Hit.apply(d, *tables)
+    out = _Hit.apply(pdf_detached, d,
+                     *pack_tables(state, d.device, not pdf_detached))
     build.launches["sunsky_hit_rgb"] += 1
     return out
 
 
 def sunsky_nee_rgb(state, u2, pdf_detached: bool = False):
     """K3: uniforms u2 (N, 2) -> (direction (N, 3), radiance (N, 3),
-    pdf (N,)). On the card only the radiance carries a gradient: with
-    pdf_detached=False a gradient request raises (its adjoint, K8, is not
-    ported)."""
+    pdf (N,)); under autograd K6 (pdf_detached) or K8 backward. The
+    direction is sample placement and carries no gradient."""
     if u2.device.type == "cpu":
         return M._sample_eval_rgb_plain(state, u2)
     check_lanes(u2, 2, "sunsky_nee_rgb")
-    tables = pack_tables(state, u2.device)
-    if not pdf_detached and _wants_grad(u2, *tables):
-        raise NotImplementedError(
-            "sunsky_nee_rgb: the gradient of the attached pdf needs K8 "
-            "(sunsky_nee_rgb_bwd_pallas), not ported; pass "
-            "pdf_detached=True")
-    out = _Nee.apply(u2, *tables)
+    out = _Nee.apply(pdf_detached, u2,
+                     *pack_tables(state, u2.device, not pdf_detached))
     build.launches["sunsky_nee_rgb"] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# Spectral kernels K9-K11 (forward only)
+# Spectral kernels K9-K11 and their adjoints K12, K13
 # ---------------------------------------------------------------------------
 
 
@@ -399,52 +460,173 @@ def launch_nee_spec(tables: SpecTables, u2, wl):
     return d, rad, pdf
 
 
-def _spec_tables(state, lanes, cols, wl, name, adjoint):
-    """Validate the lanes and wavelengths, pack the tables, and refuse a
-    gradient request: the spectral adjoints are not ported."""
+# the spectral adjoints' output row (csrc/sunsky_spectral_adjoint.cu):
+# sun (45, 44), skyp (11, 9), skyr (11,), ld (11, 6), misc (16,),
+# gauss (14, 20)
+_SPEC_COLS = ((C.N_SUN_SEGMENTS, 44), (11, 9), (11,), (11, 6), (16,),
+              (14, 20))
+_SPEC_ROW = sum(math.prod(s) for s in _SPEC_COLS)
+
+
+def _split_spec_cotangents(row):
+    """The spectral row -> cotangents in the order of `SpecTables`."""
+    parts, at = [], 0
+    for shape in _SPEC_COLS:
+        size = math.prod(shape)
+        parts.append(row[at:at + size].view(shape))
+        at += size
+    dsun, dskyp, dskyr, dld, dmisc, dgauss = parts
+    return dskyp, dskyr, dsun, dld, dmisc, dgauss
+
+
+def launch_hit_spec_bwd(tables: SpecTables, d, wl, g_rad, g_pdf=None,
+                        want_dd=True, want_dwl=True):
+    """K12, with the pdf when g_pdf is given: -> (dd (N, 3) or None,
+    dwl (N, W) or None, dskyp, dskyr, dsun, dld, dmisc, dgauss)."""
+    n, nw = wl.shape
+    dd = torch.empty_like(d) if want_dd else None
+    dwl = torch.empty_like(wl) if want_dwl else None
+    partial, row = _adjoint_scratch(n, _SPEC_ROW, d.device)
+    err = build.library().tsk_sunsky_hit_spec_bwd(
+        d.data_ptr(), wl.data_ptr(), g_rad.data_ptr(), _ptr(g_pdf), n, nw,
+        *tables.pointers(), _ptr(dd), _ptr(dwl), partial.data_ptr(),
+        row.data_ptr(), _stream(d.device))
+    build.check(err, "sunsky_hit_spec_bwd")
+    return (dd, dwl, *_split_spec_cotangents(row))
+
+
+def launch_nee_spec_bwd(tables: SpecTables, u2, wl, g_rad, g_pdf=None,
+                        want_dwl=True):
+    """K13, with the pdf when g_pdf is given: -> (dwl (N, W) or None,
+    dskyp, dskyr, dsun, dld, dmisc, dgauss)."""
+    n, nw = wl.shape
+    dwl = torch.empty_like(wl) if want_dwl else None
+    partial, row = _adjoint_scratch(n, _SPEC_ROW, u2.device)
+    err = build.library().tsk_sunsky_nee_spec_bwd(
+        u2.data_ptr(), wl.data_ptr(), g_rad.data_ptr(), _ptr(g_pdf), n, nw,
+        *tables.pointers(), _ptr(dwl), partial.data_ptr(), row.data_ptr(),
+        _stream(u2.device))
+    build.check(err, "sunsky_nee_spec_bwd")
+    return (dwl, *_split_spec_cotangents(row))
+
+
+def _hit_spec_adjoint(ctx, g_rad, g_pdf, want_dd, want_dwl):
+    """K12 from a Function's saved (d, wl, *SpecTables); g_pdf None for
+    the variant without the pdf. -> (dd, dwl, table cotangents)."""
+    d, wl, *tables = ctx.saved_tensors
+    out = launch_hit_spec_bwd(
+        SpecTables(*tables), d, wl, _f32(g_rad),
+        None if g_pdf is None else _f32(g_pdf), want_dd, want_dwl)
+    build.launches["sunsky_hit_spec_bwd"] += 1
+    return out
+
+
+class _EvalSpec(torch.autograd.Function):
+    """K9 forward, K12 without the pdf backward."""
+
+    @staticmethod
+    def forward(ctx, d, wl, skyp, skyr, sun, ld, misc, gauss):
+        ctx.save_for_backward(d, wl, skyp, skyr, sun, ld, misc, gauss)
+        return launch_eval_spec(SpecTables(skyp, skyr, sun, ld, misc, gauss),
+                                d, wl)
+
+    @staticmethod
+    def backward(ctx, g_rad):
+        dd, dwl, *dtables = _hit_spec_adjoint(ctx, g_rad, None,
+                                              *ctx.needs_input_grad[:2])
+        return (dd, dwl, *dtables[:5], None)
+
+
+class _HitSpec(torch.autograd.Function):
+    """K10 forward; backward K12, with the pdf unless it is detached (its
+    output is then non-differentiable)."""
+
+    @staticmethod
+    def forward(ctx, pdf_detached, d, wl, skyp, skyr, sun, ld, misc, gauss):
+        rad, pdf = launch_hit_spec(
+            SpecTables(skyp, skyr, sun, ld, misc, gauss), d, wl)
+        if pdf_detached:
+            ctx.mark_non_differentiable(pdf)
+        ctx.pdf_detached = pdf_detached
+        ctx.save_for_backward(d, wl, skyp, skyr, sun, ld, misc, gauss)
+        return rad, pdf
+
+    @staticmethod
+    def backward(ctx, g_rad, g_pdf):
+        dd, dwl, *dtables = _hit_spec_adjoint(
+            ctx, g_rad, None if ctx.pdf_detached else g_pdf,
+            *ctx.needs_input_grad[1:3])
+        if ctx.pdf_detached:
+            dtables[5] = None
+        return (None, dd, dwl, *dtables)
+
+
+class _NeeSpec(torch.autograd.Function):
+    """K11 forward (the direction non-differentiable: sample placement);
+    backward K13, with the pdf unless it is detached (non-differentiable)."""
+
+    @staticmethod
+    def forward(ctx, pdf_detached, u2, wl, skyp, skyr, sun, ld, misc, gauss):
+        d, rad, pdf = launch_nee_spec(
+            SpecTables(skyp, skyr, sun, ld, misc, gauss), u2, wl)
+        ctx.mark_non_differentiable(*((d, pdf) if pdf_detached else (d,)))
+        ctx.pdf_detached = pdf_detached
+        ctx.save_for_backward(u2, wl, skyp, skyr, sun, ld, misc, gauss)
+        return d, rad, pdf
+
+    @staticmethod
+    def backward(ctx, _g_d, g_rad, g_pdf):
+        u2, wl, *tables = ctx.saved_tensors
+        dwl, *dtables = launch_nee_spec_bwd(
+            SpecTables(*tables), u2, wl, _f32(g_rad),
+            None if ctx.pdf_detached else _f32(g_pdf),
+            want_dwl=ctx.needs_input_grad[2])
+        build.launches["sunsky_nee_spec_bwd"] += 1
+        if ctx.pdf_detached:
+            dtables[5] = None
+        return (None, None, dwl, *dtables)
+
+
+def _spec_tables(state, lanes, cols, wl, name, pdf_attached=False):
+    """Validate the lanes and wavelengths; pack the tables."""
     check_lanes(lanes, cols, name)
     _check_wavelengths(wl, lanes.shape[0], name)
-    tables = pack_tables_spec(state, lanes.device)
-    if _wants_grad(lanes, wl, *tables):
-        raise NotImplementedError(
-            f"{name}: spectral gradients on the card need {adjoint}, not "
-            "ported")
-    return tables
+    return pack_tables_spec(state, lanes.device, pdf_attached)
 
 
 def sunsky_eval_spec(state, d, wl):
     """K9: spectral radiance toward local directions d (N, 3) at
-    wavelengths wl (N, W) in nm -> (N, W)."""
+    wavelengths wl (N, W) in nm -> (N, W); under autograd K12 (without
+    the pdf) backward."""
     if d.device.type == "cpu":
         return M._eval_spec_plain(state, d, wl)
-    tables = _spec_tables(state, d, 3, wl, "sunsky_eval_spec",
-                          "K12 (sunsky_hit_spec_bwd_pallas, with_pdf=False)")
-    out = launch_eval_spec(tables, d, wl)
+    tables = _spec_tables(state, d, 3, wl, "sunsky_eval_spec")
+    out = _EvalSpec.apply(d, wl, *tables)
     build.launches["sunsky_eval_spec"] += 1
     return out
 
 
-def sunsky_hit_spec(state, d, wl):
+def sunsky_hit_spec(state, d, wl, pdf_detached: bool = False):
     """K10: (spectral radiance (N, W), pdf (N,)) toward local directions
-    d (N, 3) at wavelengths wl (N, W). On the card neither output carries
-    a gradient."""
+    d (N, 3) at wavelengths wl (N, W); under autograd K12, with the pdf
+    unless pdf_detached."""
     if d.device.type == "cpu":
         return M._hit_spec_plain(state, d, wl)
     tables = _spec_tables(state, d, 3, wl, "sunsky_hit_spec",
-                          "K12 (sunsky_hit_spec_bwd_pallas)")
-    out = launch_hit_spec(tables, d, wl)
+                          not pdf_detached)
+    out = _HitSpec.apply(pdf_detached, d, wl, *tables)
     build.launches["sunsky_hit_spec"] += 1
     return out
 
 
-def sunsky_nee_spec(state, u2, wl):
+def sunsky_nee_spec(state, u2, wl, pdf_detached: bool = False):
     """K11: uniforms u2 (N, 2), wavelengths wl (N, W) -> (direction
-    (N, 3), spectral radiance (N, W), pdf (N,)). On the card no output
-    carries a gradient."""
+    (N, 3), spectral radiance (N, W), pdf (N,)); under autograd K13, with
+    the pdf unless pdf_detached. The direction carries no gradient."""
     if u2.device.type == "cpu":
         return M._sample_eval_spec_plain(state, u2, wl)
     tables = _spec_tables(state, u2, 2, wl, "sunsky_nee_spec",
-                          "K13 (sunsky_nee_spec_bwd_pallas)")
-    out = launch_nee_spec(tables, u2, wl)
+                          not pdf_detached)
+    out = _NeeSpec.apply(pdf_detached, u2, wl, *tables)
     build.launches["sunsky_nee_spec"] += 1
     return out

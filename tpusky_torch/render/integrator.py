@@ -22,8 +22,9 @@ with the plain sunsky functions on any device: the reference K4 is held
 against.
 
 Gradients: the wavefront path is plain tensor code, so torch autograd
-differentiates it; on the card its sky lookups transpose into the adjoint
-kernels K5 and K6. K4 has no adjoint: `_Megakernel` runs it forward and
+differentiates it; on the card its sky lookups, whose pdfs the estimator
+uses detached, transpose into the adjoint kernels K5 and K6 (RGB) or K12
+and K13 without the pdf (spectral). K4 has no adjoint: `_Megakernel` runs it forward and
 replays the wavefront path under autograd in its backward, as the
 reference package's `mega` custom_jvp does
 (`tpusky/render/integrator.py:989-1026`).
