@@ -50,11 +50,19 @@ Phases, each of which raises (exit code != 0) on failure:
    (K2 then K7, K3 then K8) and spectral mode (K10 then K12, K11 then K13,
    both with the pdf), against autograd of the plain versions, the
    gaussian table's cotangent included;
-9. times of each kernel and its plain version (CUDA events; for the
+9. meshes: K14 against its plain version on icosphere meshes of 5,120 to
+   327,680 triangles, on bench_mesh's coherent and incoherent wavefronts
+   of 1,048,576 rays, direct and after the wavefront sort (hits, t, b1,
+   b2, triangle ids and mesh_test), with its times and bound; then
+   `tools/gen_scene_goldens.py::scene_mesh_gi` at 81,920 triangles
+   through `render` (512x512, 8 spp, depth 3; K14 ten times, K2 and K3,
+   not K4), a band of rows against the plain path on the card, a crop
+   against the CPU's plain render, and the frame's time;
+10. times of each kernel and its plain version (CUDA events; for the
    adjoints, autograd's backward over a graph built once), the fwd+bwd
    rates of bench_grad and bench_spectral_grad, a training step's time
    and peak memory, the spectral frame's time and rays per second;
-10. one JSON line of kernel results, then the device line, last.
+11. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -80,6 +88,17 @@ TRAIN_STEPS = 5
 SPEC_DEPTH = 4              # bench.py::bench_spectral
 N_HERO = 4                  # hero wavelengths per path
 CROP = (224, 160, 32, 32)   # x0, y0, width, height of the CPU-checked crop
+# phase 9: icosphere meshes of 20 * 4^n triangles, the last one 327,680;
+# the frame's is 81,920 (tools/bench_mesh.py:114)
+MESH_SUBDIV = (4, 5, 6, 7)
+FRAME_SUBDIV = 6
+MESH_RAYS = 1 << 20         # bench_mesh's wavefronts
+MESH_SUBSET = 1 << 16       # rays a wavefront the plain version runs on
+MESH_SUPER = 16             # tiles a supertile
+MESH_DEPTH = 3              # scene_mesh_gi's
+MESH_BAND = (240, 32)       # first row and rows of the band held to plain
+MESH_CROP = (352, 240, 32, 32)    # across the sphere's right limb
+MESH_CROP_SPP = 2
 # the allowed share of lanes outside a per-lane bar of phase 3
 LANE_CAP = 1e-5
 # the share of lanes whose direction cotangent may miss its bar: a lane
@@ -153,6 +172,13 @@ OPS = {
     "pdf_vjp": 1410,
     "sample_sky_vjp": 55,
     "sample_sun_vjp": 50,
+    # K14 (csrc/mesh_kernel.cu): a ray's set-up (3 reciprocals), one box's
+    # slab test (6 subtractions, 6 products; min/max are compares), one
+    # triangle's Moller-Trumbore (mt_hit: the cross products, 3 dot
+    # products, the reciprocal, t's vector, 3 scalings and u + v)
+    "ray_setup": 12,
+    "slab": 12,
+    "mt": 49,
 }
 TABLE_BYTES = 4 * (27 + 3 + 45 * 72 + 16)
 SPEC_TABLE_BYTES = 4 * (11 * 9 + 11 + 45 * 44 + 11 * 6 + 16)
@@ -191,6 +217,8 @@ KERNELS = {
             "tpusky_torch/csrc/sunsky_spectral_adjoint.cu", f"{_SUNSKY}:1284"),
     "K13": ("sunsky_nee_spec_bwd",
             "tpusky_torch/csrc/sunsky_spectral_adjoint.cu", f"{_SUNSKY}:1325"),
+    "K14": ("mesh_intersect", "tpusky_torch/csrc/mesh_kernel.cu",
+            "tpusky/ops/pallas/mesh_kernel.py:260"),
 }
 
 
@@ -1153,6 +1181,355 @@ def attached_pdf_phase(dev, dirs, u2, rng, card):
                   times[key], bounds[key]) for key in bounds}
 
 
+def _mesh_wavefronts(rng, dev):
+    """tools/bench_mesh.py:75-96's two wavefronts of MESH_RAYS rays, made
+    with numpy: coherent, raster-ordered camera-style rays from y = -4;
+    incoherent, bounce-style rays from the r = 1.3 sphere in random
+    directions. {kind: (o, d)} on the card."""
+    import torch
+    side = int(math.isqrt(MESH_RAYS))
+    ys, xs = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    u0 = (xs.ravel() + 0.5) / side * 2 - 1
+    u1 = (ys.ravel() + 0.5) / side * 2 - 1
+    coherent = (np.stack([u0 * 2, np.full(side * side, -4.0), u1 * 2], -1),
+                np.stack([-0.2 * u0, np.ones(side * side), -0.2 * u1], -1))
+    d = rng.normal(size=(MESH_RAYS, 3))
+    o = 1.5 * rng.normal(size=(MESH_RAYS, 3))
+    incoherent = (o / np.linalg.norm(o, axis=-1, keepdims=True) * 1.3, d)
+    out = {}
+    for kind, (o, d) in (("coherent", coherent), ("incoherent", incoherent)):
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        out[kind] = tuple(torch.tensor(x.astype(np.float32), device=dev)
+                          for x in (o, d))
+    return out
+
+
+def _median_ms(fn, reps=5, warmup=1):
+    """Median over reps of one call's CUDA-event time (ms)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def _mesh_ops(tables, o, d, t_best):
+    """K14's operations for rays o, d (N, 3) whose closest hits are t_best
+    (inf on a miss), as these inputs need them (OPS): per ray its set-up
+    and every supertile's slab test, 16 tile slab tests in each supertile
+    it enters before t_best, and Moller-Trumbore against the 128
+    triangles of each tile it enters before t_best. Returns (operations,
+    supertiles and tiles the rays enter, and the tiles that at least one
+    ray of a warp of 32 and of a block of 128 consecutive rays enters:
+    K14 runs the triangle loop on a warp's and stages a block's, so
+    these are lower bounds of its work, the kernel testing against its
+    running best in place of t_best)."""
+    import torch
+
+    def enters(box, o, inv, t):
+        t0 = (box[None, :, 0:3] - o[:, None]) * inv[:, None]
+        t1 = (box[None, :, 4:7] - o[:, None]) * inv[:, None]
+        tn = torch.minimum(t0, t1).amax(-1)
+        tf = torch.maximum(t0, t1).amin(-1)
+        return (tf >= tn.clamp(min=0.0)) & (tn < t[:, None])
+
+    n_super, n_tiles = tables.super_boxes.shape[0], tables.boxes.shape[0]
+    step = max(128, (1 << 24) // n_tiles // 128 * 128)
+    supers = tiles = warp_tiles = block_tiles = 0
+    with torch.no_grad():
+        for r0 in range(0, o.shape[0], step):
+            oc, tc = o[r0:r0 + step], t_best[r0:r0 + step]
+            dc = d[r0:r0 + step]
+            inv = 1.0 / torch.where(dc == 0.0, 1e-20, dc)
+            sup = enters(tables.super_boxes, oc, inv, tc)
+            tile = enters(tables.boxes, oc, inv, tc) & sup.repeat_interleave(
+                MESH_SUPER, 1)
+            supers += int(sup.sum())
+            tiles += int(tile.sum())
+            warp_tiles += int(tile.reshape(-1, 32, n_tiles).any(1).sum())
+            block_tiles += int(tile.reshape(-1, 128, n_tiles).any(1).sum())
+    o_ = OPS
+    ops = (o.shape[0] * (o_["ray_setup"] + n_super * o_["slab"])
+           + supers * MESH_SUPER * o_["slab"] + tiles * 128 * o_["mt"])
+    return ops, supers, tiles, warp_tiles, block_tiles
+
+
+def _mesh_scene(state, n_subdiv, device):
+    """tools/gen_scene_goldens.py::scene_mesh_gi: an icosphere with vertex
+    normals at (0, 0, 1) on a 20x20 diffuse ground under the sunsky, seen
+    by a 45-degree camera at [3.5, -3.5, 2] looking at [0, 0, 1]."""
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    from tpusky_torch.utils.meshio import icosphere
+    pos, idx = icosphere(n_subdiv)
+    t2w = np.eye(4, dtype=np.float32)
+    t2w[2, 3] = 1.0
+    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=ground, bsdf_idx=0)],
+        bsdf_albedos=[[0.5, 0.5, 0.5], [0.3, 0.5, 0.7]],
+        meshes=[dict(positions=pos, indices=idx, normals=pos.copy(),
+                     to_world=t2w, bsdf_idx=1)], env=state, device=device)
+    sensor = make_perspective([3.5, -3.5, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+def mesh_kernel_phase(dev, card):
+    """Phase 9a: K14 against its plain version on icosphere meshes of
+    MESH_SUBDIV subdivisions, on bench_mesh's coherent and incoherent
+    wavefronts of MESH_RAYS rays, direct and after the wavefront sort. The
+    plain version runs on a strided MESH_SUBSET-ray subset of each
+    wavefront (on all of them for the frame's mesh and the incoherent
+    wavefront, whose numbers stand in the kernels line); mesh_test on the
+    subset. Prints each case's times and bound. Returns (max abs error, (ms, plain ms), (bound ms, by)) of the
+    frame's mesh and the incoherent wavefront, sorted."""
+    import torch
+    from tpusky_torch.ops.cuda import mesh_kernel as MKT
+    from tpusky_torch.render import mesh as TM
+    from tpusky_torch.utils.meshio import icosphere
+    rng = np.random.default_rng(14)
+    waves = _mesh_wavefronts(rng, dev)
+    maxt = torch.tensor(rng.uniform(0.0, 4.0, MESH_RAYS).astype(np.float32),
+                        device=dev)
+    err, line = 0.0, None
+    for n_subdiv in MESH_SUBDIV:
+        pos, idx = icosphere(n_subdiv)
+        mesh = TM.make_mesh_table([dict(positions=pos, indices=idx,
+                                        normals=pos.copy(), bsdf_idx=0)],
+                                  device=dev)
+        n_tris = len(idx)
+        tables = MKT.mesh_tables(mesh)
+        for kind, (o, d) in waves.items():
+            tag = f"K14 {n_tris} triangles, {kind}"
+            t, b1, b2, tri, hit = MKT.mesh_intersect_kernel(mesh, o, d,
+                                                            tables)
+            order, inv = TM._ray_sort_order(mesh, o, d)
+            o_s, d_s = o[order].contiguous(), d[order].contiguous()
+            sorted_ = [x[inv] for x in MKT.mesh_intersect_kernel(
+                mesh, o_s, d_s, tables)]
+            torch.cuda.synchronize()
+            # the sorted query returns the direct one's results
+            same = ((sorted_[0] == t) | (torch.isinf(sorted_[0])
+                                          & torch.isinf(t)))
+            same &= (sorted_[3] == tri) & (sorted_[4] == hit)
+            _count_outside(f"{tag}: sorted vs direct",
+                           (~same).float(), 0.5, MESH_RAYS)
+            full = n_subdiv == FRAME_SUBDIV and kind == "incoherent"
+            sel = (torch.arange(MESH_RAYS, device=dev) if full else
+                   torch.arange(0, MESH_RAYS, MESH_RAYS // MESH_SUBSET,
+                                device=dev))
+            n_sel = sel.shape[0]
+            res = []
+            plain_ms = _median_ms(lambda: res.append(TM._closest_plain(
+                mesh, o[sel], d[sel])), reps=1, warmup=0)
+            t_p, b1_p, b2_p, tri_p = res[0]
+            hit_p = torch.isfinite(t_p) & (tri_p >= 0)
+            _count_outside(f"{tag}: hit vs plain",
+                           (hit[sel] != hit_p).float(), 0.5, n_sel)
+            both = hit[sel] & hit_p
+            rel_t = _rel(t[sel][both], t_p[both], 0.0)
+            _count_outside(f"{tag}: t vs plain (relative, both hit)", rel_t,
+                           1e-5, n_sel)
+            db = torch.maximum((b1[sel] - b1_p).abs(),
+                               (b2[sel] - b2_p).abs())[both]
+            _count_outside(f"{tag}: b1, b2 vs plain (both hit)", db, 1e-4,
+                           n_sel)
+            tri_eq = float((tri[sel].long()[both] == tri_p[both])
+                           .float().mean())
+            print(f"check {tag}: tri equal on {tri_eq:.6f} of "
+                  f"{int(both.sum())} hits (bar 0.999)")
+            if not tri_eq >= 0.999:
+                raise AssertionError(f"{tag}: triangle ids")
+            occ = TM.mesh_test(mesh, o, d, maxt)
+            sub = torch.arange(0, MESH_RAYS, MESH_RAYS // MESH_SUBSET,
+                               device=dev)
+            occ_p = TM._occluded_plain(mesh, o[sub], d[sub], maxt[sub])
+            _count_outside(f"{tag}: mesh_test vs plain",
+                           (occ[sub] != occ_p).float(), 0.5, MESH_SUBSET)
+            if bool(both.any()):
+                err = max(err, float((t[sel][both] - t_p[both]).abs().max()),
+                          float(db.max()))
+            del res, t_p, b1_p, b2_p, tri_p, hit_p, occ, occ_p
+
+            ms = _median_ms(lambda: MKT.launch(tables, o, d))
+            ms_s = _median_ms(lambda: MKT.launch(tables, o_s, d_s))
+            ms_path = _median_ms(lambda: TM._closest(mesh, o, d, False))
+            ops, supers, tiles, warp_tiles, block_tiles = _mesh_ops(
+                tables, o_s, d_s, t[order].contiguous())
+            nbytes = (40 * MESH_RAYS
+                      + sum(x.numel() * 4 for x in tables))
+            bound = _bound(nbytes, ops)
+            print(f"time {tag}: direct {ms:.3f} ms "
+                  f"({MESH_RAYS / ms / 1e3:.1f} M rays/s), sorted "
+                  f"{ms_s:.3f} ms ({MESH_RAYS / ms_s / 1e3:.1f} M rays/s), "
+                  f"sort + kernel + unsort {ms_path:.3f} ms "
+                  f"({MESH_RAYS / ms_path / 1e3:.1f} M rays/s); plain "
+                  f"{plain_ms:.1f} ms at {n_sel} rays [{card}]")
+            print(f"bound {tag}, sorted: {bound[0]:.4f} ms ({bound[1]}; "
+                  f"{hit.float().mean():.3f} of rays hit, a ray enters "
+                  f"{supers / MESH_RAYS:.2f} supertiles and "
+                  f"{tiles / MESH_RAYS:.2f} tiles before its hit), "
+                  f"{100 * bound[0] / ms_s:.1f}% of it; a warp of 32 sorted "
+                  f"rays runs the triangle loop on >= "
+                  f"{32 * warp_tiles / MESH_RAYS:.2f} tiles, a block of 128 "
+                  f"stages >= {128 * block_tiles / MESH_RAYS:.2f} [{card}]")
+            if full:
+                line = ((ms_s, plain_ms), bound)
+            del o_s, d_s, sorted_, t, b1, b2, tri, hit
+        del mesh, tables
+    return err, line
+
+
+def _profile_window(name, fn, card, iters=2):
+    """Where one call of fn spends the card's time: a torch.profiler window
+    of iters calls after a warm-up; prints the wall time, the device's
+    busy share, K14's device time and the 12 largest device-time entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0) / iters
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels) / iters
+    k14_us = sum(e.device_time_total for e in kernels
+                 if "mesh_isect_kernel" in e.name) / iters
+    print(f"profile {name}: wall {wall_us / 1e3:.2f} ms a call, device busy "
+          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), of "
+          f"which K14 {k14_us / 1e3:.3f} ms; {len(kernels) // iters} kernel "
+          f"launches a call [{card}]")
+    rows = sorted(prof.key_averages(), key=device_us, reverse=True)
+    for e in rows[:12]:
+        print(f"profile   {device_us(e) / iters / 1e3:9.3f} ms "
+              f"{e.count // iters:6d}x  {e.key[:80]}")
+
+
+def mesh_frame_phase(dev, card):
+    """Phase 9b: scene_mesh_gi at icosphere(FRAME_SUBDIV) through render()
+    at H x W x SPP, depth MESH_DEPTH, with the launch counts of that run;
+    a band of rows against the plain path on the card, a crop against the
+    CPU's plain render; then the frame's time and a profiler window of it.
+    Returns (K14's launches, the band's max abs error)."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render import mesh as TM
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.sensors import sample_ray
+    film = Film(H, W, 3)
+    params = dict(turbidity=3.0, albedo=0.3, sun_direction=SUN)
+    scene, sensor = _mesh_scene(tt.sunsky_precompute(
+        tt.make_params(**params, device=dev)), FRAME_SUBDIV, dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    img = integrator.render(scene, sensor, film, SEED, spp=SPP,
+                            max_depth=MESH_DEPTH)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    print(f"mesh main path: {main_s:.2f} s, launches {launches}")
+    # per spp chunk of render_rows (2 of 2^20 lanes at 512x512x8), 3
+    # closest-hit queries and 2 shadow queries
+    chunks = SPP // min(SPP, (1 << 20) // (H * W))
+    want = chunks * (MESH_DEPTH + (MESH_DEPTH - 1))
+    if launches["mesh_intersect"] != want:
+        raise AssertionError(f"K14 launched {launches['mesh_intersect']} "
+                             f"times, not {want}")
+    for name in ("sunsky_hit_rgb", "sunsky_nee_rgb"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the mesh frame never launched {name}")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError("the mesh frame went through K4")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError("mesh render: image not finite, shaped or lit")
+    with torch.no_grad():
+        px = torch.arange(H * W, device=dev)
+        uv = torch.stack([(px % W + 0.5) / W, (px // W + 0.5) / H], -1)
+        cam_hit = float(TM.mesh_intersect(scene.mesh, *sample_ray(sensor, uv))
+                        [6].float().mean())
+    print(f"mesh image: mean {float(img.mean()):.5f} max "
+          f"{float(img.max()):.3f}; {cam_hit:.4f} of camera rays hit the "
+          f"mesh")
+    if not cam_hit >= 0.1:
+        raise AssertionError("too few camera rays hit the mesh")
+
+    row0, n_rows = MESH_BAND
+    lanes_k = integrator._lane_radiance(scene, sensor, film, SEED, SPP, 0,
+                                        SPP, MESH_DEPTH, 1000, "rgb", row0,
+                                        n_rows)
+    lanes_p = integrator._lane_radiance(scene, sensor, film, SEED, SPP, 0,
+                                        SPP, MESH_DEPTH, 1000, "rgb", row0,
+                                        n_rows, plain=True)
+    rel = (lanes_k - lanes_p).abs().amax(-1) / \
+        lanes_p.abs().clamp(min=1e-3).amax(-1)
+    share = float((rel > 1e-3).float().mean())
+    print(f"check mesh frame rows {row0}-{row0 + n_rows}: {share:.2e} of "
+          f"{rel.shape[0]} lanes outside 1e-3 (bar 1e-3), max "
+          f"{float(rel.max()):.3e}")
+    if not share <= 1e-3:
+        raise AssertionError("the mesh frame disagrees with the plain path")
+    err = float((lanes_k - lanes_p).abs().max())
+    del lanes_k, lanes_p, rel
+
+    x0, y0, cw, ch = MESH_CROP
+    crop = Film(H, W, 3, crop_offset=(x0, y0), crop_size=(cw, ch))
+    scene_c, sensor_c = _mesh_scene(tt.sunsky_precompute(
+        tt.make_params(**params, device="cpu")), FRAME_SUBDIV, "cpu")
+    img_k = integrator.render(scene, sensor, crop, SEED, spp=MESH_CROP_SPP,
+                              max_depth=MESH_DEPTH).cpu()
+    t0 = time.perf_counter()
+    img_c = integrator.render(scene_c, sensor_c, crop, SEED,
+                              spp=MESH_CROP_SPP, max_depth=MESH_DEPTH)
+    cpu_s = time.perf_counter() - t0
+    err_c = float((img_k - img_c).abs().max())
+    print(f"check mesh frame vs CPU plain, crop {MESH_CROP} at "
+          f"{MESH_CROP_SPP} spp: max {err_c:.3e} (image max there "
+          f"{float(img_c.max()):.3f}; the CPU took {cpu_s:.1f} s)")
+    if not (err_c < 1e-3 * max(float(img_c.max()), 1.0)
+            and float(img_c.max()) > 0):
+        raise AssertionError("the mesh frame disagrees with the CPU")
+
+    def frame_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrator.render(scene, sensor, film, SEED, spp=SPP,
+                          max_depth=MESH_DEPTH)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    frame_s()
+    frame_ms = 1e3 * float(np.median([frame_s() for _ in range(5)]))
+    _profile_window("scene_mesh_gi frame", lambda: integrator.render(
+        scene, sensor, film, SEED, spp=SPP, max_depth=MESH_DEPTH), card)
+    rays = H * W * SPP * (2 * MESH_DEPTH - 1)
+    print(f"time scene_mesh_gi frame ({W}x{H}x{SPP}, depth {MESH_DEPTH}, "
+          f"{int(scene.mesh.valid.sum())} "
+          f"triangles, {rays} rays): render() {frame_ms:.3f} ms "
+          f"({rays / frame_ms / 1e3:.2f} M rays/s) [{card}]")
+    return launches["mesh_intersect"], err
+
+
 START = time.perf_counter()
 
 
@@ -1414,8 +1791,12 @@ def main():
     spec_grad_launches = spectral_grad_phase(dev, dirs, rng, film, card)
     # ---- 8. path 2, the attached pdf ----
     attached = attached_pdf_phase(dev, dirs, u2, rng, card)
+    # ---- 9. meshes ----
+    mesh_err, (mesh_times, mesh_bound) = mesh_kernel_phase(dev, card)
+    mesh_launches, frame_err = mesh_frame_phase(dev, card)
+    print(f"mesh frame band: max |kernels - plain| {frame_err:.3e}")
 
-    # ---- 9. times ----
+    # ---- 10. times ----
     tables = K.pack_tables(state, dev)
     mega = MK.pack(scene, sensor, state)
     st_l = state._replace(**{
@@ -1497,7 +1878,7 @@ def main():
           f"steps 2-{TRAIN_STEPS} {step_ms:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB [{card}]")
 
-    # ---- 10. bounds and results ----
+    # ---- 11. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -1551,6 +1932,8 @@ def main():
             results[key] = err
         else:
             results[key] = max(results[key], err)
+    times["K14"], bounds["K14"] = mesh_times, mesh_bound
+    counts["K14"], results["K14"] = mesh_launches, mesh_err
     for key, (ms, by) in bounds.items():
         print(f"bound {key}: {ms:.4f} ms ({by}); measured "
               f"{times[key][0]:.4f} ms, {100 * ms / times[key][0]:.1f}% of "

@@ -38,6 +38,10 @@ from tpusky_torch.render import scene as TSC
 from tpusky_torch.render import sensors as TS
 from tpusky_torch.render import shapes as TSH
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 SUN = [0.3, 0.2, 0.93]
 _PARAM_FIELDS = ("turbidity", "albedo", "sun_direction", "sky_scale",
                  "sun_scale", "sun_half_aperture", "disc_softness")

@@ -28,6 +28,10 @@ from tpusky_torch.models.sunsky import model as TM
 from tpusky_torch.ops.cuda import build
 from tpusky_torch.ops.cuda import sunsky_kernel as TK
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 SUN = [0.3, 0.2, 0.93]
 _FIELDS = ("sky_params", "sky_radiance", "sun_radiance", "sun_frame_n",
            "params.sky_scale", "params.sun_scale",

@@ -35,6 +35,10 @@ from tpusky_torch.render import sampler as TSM
 from tpusky_torch.render import sensors as TS
 from tpusky_torch.render import shapes as TSH
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 H = W = 32
 SPP = 4
 KEY = jax.random.PRNGKey(7)
@@ -89,16 +93,16 @@ def _jax_lanes(sc, sensor, key):
 
 @pytest.fixture(scope="module")
 def jax_wavefront(scenes):
-    """(per-lane radiance, developed image) of JAX's wavefront path."""
+    """(per-lane radiance, developed image) of JAX's wavefront path. The
+    image is render_rows' own box splat of these lanes (one spp chunk,
+    integrator.py:878-881), so the path is traced and compiled once."""
     sc, sensor = scenes[0]
     film = JF.Film(H, W, 3)
 
     @jax.jit
     def run(sc, sensor, key):
-        img = JF.develop(JI.render_rows(sc, sensor, film, key, SPP, 2, 1000,
-                                        "rgb", 0, H,
-                                        kinds=table_kinds(sc.bsdfs)))
-        return _jax_lanes(sc, sensor, key), img
+        lanes = _jax_lanes(sc, sensor, key)
+        return lanes, JF.develop(JF.splat_ordered(film, lanes, SPP))
     return tuple(np.asarray(x) for x in run(sc, sensor, KEY))
 
 

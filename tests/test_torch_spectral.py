@@ -28,6 +28,10 @@ from tpusky_torch.ops import spectrum as TS
 from tpusky_torch.ops.cuda import build
 from tpusky_torch.ops.cuda import sunsky_kernel as TK
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 SUN = [0.3, 0.2, 0.93]
 N = 2048
 _STATE_FIELDS = ("sun_angles", "sun_frame_s", "sun_frame_t", "sun_frame_n",

@@ -33,6 +33,10 @@ from tpusky_torch.render import film as TF
 from tpusky_torch.render import integrator as TI
 from tpusky_torch.render import scene as TSC
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 SUN = [0.3, 0.2, 0.93]
 # the state fields the spectral radiance reads, and those the pdf adds
 _RAD = ("sky_params", "sky_radiance", "sun_radiance", "sun_ld",

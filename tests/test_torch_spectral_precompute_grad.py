@@ -17,6 +17,10 @@ from tpusky.models.sunsky import tables as JT
 from tpusky_torch.models.sunsky import model as TM
 from tpusky_torch.models.sunsky import tables as TT
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 SUN = [0.3, 0.2, 0.93]
 
 

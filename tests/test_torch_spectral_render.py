@@ -30,6 +30,10 @@ from tpusky_torch.render import bsdf as TB
 from tpusky_torch.render import film as TF
 from tpusky_torch.render import integrator as TI
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 H = W = 16
 SPP = 2
 KEY = jax.random.PRNGKey(11)

@@ -25,6 +25,10 @@ from tpusky_torch.models.sunsky import tables as TT
 from tpusky_torch.ops.cuda import build
 from tpusky_torch.ops.cuda import sunsky_kernel as TK
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 SUN = [0.3, 0.2, 0.93]
 N = 4096
 

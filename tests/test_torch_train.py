@@ -24,6 +24,10 @@ from tpusky_torch.render import film as TF
 
 import torch_train_case as case
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 # ---------------------------------------------------------------------------
 # optimizers
 # ---------------------------------------------------------------------------

@@ -27,6 +27,10 @@ from tpusky_torch.models.sunsky import tables as TT
 from tpusky_torch.parallel import render as TP
 from tpusky_torch.render import film as TF
 
+# pytest's workers already share the cores: one torch thread each keeps
+# the many small CPU ops from contending with the other workers
+torch.set_num_threads(1)
+
 H = W = 16
 SPP = 2
 KEY = jax.random.PRNGKey(5)

@@ -5,8 +5,8 @@ turned into numpy arrays (for example `jax.tree.map(np.asarray, state)`)
 and returns the port's counterpart as float32/int64 tensors on `device`
 (the card unless the caller names another device).
 Nothing here imports jax or tpusky: the objects are read by field name.
-Parts the port does not have yet (area/delta lights, meshes, material
-kinds other than diffuse and rough conductor) raise NotImplementedError.
+Parts the port does not have yet (area/delta lights, material kinds
+other than diffuse and rough conductor) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from .models.sunsky.tables import SunskyTables
 from .ops.distr import ContinuousDistribution, DiscreteDistribution
 from .render.bsdf import KINDS as BSDF_KINDS
 from .render.bsdf import MaterialTable
+from .render.mesh import MeshTable
 from .render.scene import Scene
 from .render.sensors import Perspective
 from .render.shapes import KINDS, ShapeTable
@@ -101,14 +102,24 @@ def material_table(t, device="cuda") -> MaterialTable:
                            for f in ("albedo_spec", "alpha", "eta", "k")))
 
 
+def mesh_table(m, device="cuda") -> MeshTable:
+    """A `tpusky` MeshTable -> MeshTable (material indices as int64)."""
+    return MeshTable(*(_f32(getattr(m, f), device)
+                       for f in ("v0", "e1", "e2", "n0", "n1", "n2")),
+                     _i64(m.bsdf_idx, device),
+                     torch.tensor(np.asarray(m.valid, bool), device=device),
+                     _f32(m.uv, device),
+                     None if m.col is None else _f32(m.col, device))
+
+
 def scene(sc, device="cuda") -> Scene:
-    """A `tpusky` Scene of analytic shapes, diffuse and rough-conductor
-    materials and a sunsky (or no) environment -> Scene."""
+    """A `tpusky` Scene of analytic shapes, triangle meshes, diffuse and
+    rough-conductor materials and a sunsky (or no) environment -> Scene."""
     for field in ("area_emitter_shapes", "point_lights",
                   "directional_lights"):
         if not _none_or_empty(getattr(sc, field)):
             raise NotImplementedError(f"scene.{field}")
-    for field in ("mesh", "textures", "medium", "sdf", "curve"):
+    for field in ("textures", "medium", "sdf", "curve"):
         if getattr(sc, field) is not None:
             raise NotImplementedError(f"scene.{field}")
     if sc.spot_lights:
@@ -120,7 +131,8 @@ def scene(sc, device="cuda") -> Scene:
         env = sunsky_state(env, device)
     return Scene(shape_table(sc.shapes, device),
                  material_table(sc.bsdfs, device), env,
-                 _f32(sc.env_to_world, device))
+                 _f32(sc.env_to_world, device),
+                 None if sc.mesh is None else mesh_table(sc.mesh, device))
 
 
 def perspective(s, device="cuda") -> Perspective:

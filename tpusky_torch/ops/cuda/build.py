@@ -26,7 +26,8 @@ _CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "build", "tpusky_torch")
 _SOURCES = ("sunsky_kernels.cu", "megakernel.cu", "sunsky_adjoint.cu",
-            "sunsky_spectral.cu", "sunsky_spectral_adjoint.cu")
+            "sunsky_spectral.cu", "sunsky_spectral_adjoint.cu",
+            "mesh_kernel.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,7 +36,8 @@ launches = {"sunsky_eval_rgb": 0, "sunsky_hit_rgb": 0, "sunsky_nee_rgb": 0,
             "sunsky_nee_rgb_bwd": 0, "sunsky_hit_rgb_bwd": 0,
             "sunsky_nee_rgb_pdf_bwd": 0, "sunsky_eval_spec": 0,
             "sunsky_hit_spec": 0, "sunsky_nee_spec": 0,
-            "sunsky_hit_spec_bwd": 0, "sunsky_nee_spec_bwd": 0}
+            "sunsky_hit_spec_bwd": 0, "sunsky_nee_spec_bwd": 0,
+            "mesh_intersect": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +80,8 @@ _SIGNATURES = {
     # dwl (or null), partial, out, stream
     "tsk_sunsky_nee_spec_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P),
+    # o, d, n, tv, boxes, super_boxes, n_super, t, b1, b2, tri, stream
+    "tsk_mesh_intersect": (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P),
 }
 
 

@@ -1,8 +1,9 @@
 """Integrator: the wavefront path tracer and the megakernel gate.
 
 The PyTorch counterpart of `tpusky/render/integrator.py`, restricted to
-what the headline RGB and spectral renders need: analytic shapes,
-diffuse and rough-conductor materials, the sunsky environment, NEE + MIS
+what the headline RGB, spectral and mesh renders need: analytic shapes,
+triangle meshes (kernel K14 on the card), diffuse and rough-conductor
+materials, the sunsky environment, NEE + MIS
 (power heuristic, beta = 2, reference `path.cpp:321`), no Russian
 roulette, no delta or area lights. Spectral mode is hero-wavelength
 transport: 4 wavelengths per path from `sample_rgb_spectrum`, developed
@@ -17,9 +18,9 @@ does not depend on spp chunking.
 `_render_impl` runs an eligible scene on the card through the fused
 megakernel K4 (`ops/cuda/megakernel.py`), and every other scene through
 the wavefront path, whose sky lookups are kernels K2 and K3 (K10 and K11
-in spectral mode) for CUDA tensors. `plain=True` runs the wavefront path
-with the plain sunsky functions on any device: the reference K4 is held
-against.
+in spectral mode) and whose mesh queries are kernel K14 for CUDA tensors.
+`plain=True` runs the wavefront path with the plain sunsky and mesh
+functions on any device: the reference the kernels are held against.
 
 Gradients: the wavefront path is plain tensor code, so torch autograd
 differentiates it; on the card its sky lookups, whose pdfs the estimator
@@ -43,6 +44,7 @@ from . import bsdf as bsdf_mod
 from . import emitters as em
 from . import film as film_mod
 from . import sensors as sensors_mod
+from .mesh import mesh_intersect
 from .sampler import lane_samples
 from .scene import Scene, scene_occluded
 from .shapes import KINDS, ray_intersect
@@ -93,6 +95,25 @@ def _check_slice(scene: Scene, max_depth, rr_depth, mode, kinds):
         raise NotImplementedError(f"material kinds {kinds}")
 
 
+def _scene_intersect(scene: Scene, o, d, plain: bool):
+    """Closest hit over the analytic shapes and the mesh -> (t, p, ng,
+    material index, hit). A mesh hit closer than the shapes' takes the
+    hit point o + t d, the interpolated shading normal as ng and the
+    triangle's material (`tpusky/render/integrator.py:274-289, 410-411`)."""
+    t, p, ng, shape_idx, hit = ray_intersect(scene.shapes, o, d)
+    mat_idx = scene.shapes.bsdf_idx[shape_idx.clamp(min=0)]
+    if scene.mesh is not None:
+        tm, nm, matm, _, _, _, hitm = mesh_intersect(scene.mesh, o, d,
+                                                     plain=plain)
+        use_mesh = hitm & (tm < t)
+        t = torch.where(use_mesh, tm, t)
+        p = torch.where(use_mesh[..., None], o + tm[..., None] * d, p)
+        ng = torch.where(use_mesh[..., None], nm, ng)
+        mat_idx = torch.where(use_mesh, matm, mat_idx)
+        hit = hit | hitm
+    return t, p, ng, mat_idx, hit
+
+
 def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
                  rr_depth: int, mode: str, kinds=None, plain=False,
                  wavelengths=None):
@@ -117,7 +138,7 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
 
     def env_hit(active, o, d, throughput, prev_bsdf_pdf, prev_bsdf_delta):
         """(hit geometry, radiance of escaped lanes weighted by MIS)."""
-        geo = ray_intersect(scene.shapes, o, d)
+        geo = _scene_intersect(scene, o, d, plain)
         env_l, em_pdf = em.env_eval_pdf(env, d, env_to_world, mode,
                                         pdf_detached=True, plain=plain,
                                         wavelengths=wavelengths)
@@ -133,11 +154,10 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
             _SHADOW_EPS * norm(p, keepdim=True).clamp(min=1.0))
 
     for depth in range(max_depth - 1):
-        (t, p, ng, shape_idx, hit), contrib = env_hit(
+        (t, p, ng, mat_idx, hit), contrib = env_hit(
             active, o, d, throughput, prev_bsdf_pdf, prev_bsdf_delta)
         result = result + contrib
         active = active & hit
-        mat_idx = scene.shapes.bsdf_idx[shape_idx.clamp(min=0)]
         frame = Frame(ng)
         wi_local = frame.to_local(-d)
 
@@ -150,7 +170,8 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
         f_val, pdf_b = bsdf_mod.eval_pdf(
             scene.bsdfs, mat_idx, wi_local, frame.to_local(d_e), wavelengths,
             kinds=kinds)
-        occluded = scene_occluded(scene, offset(p, ng, d_e), d_e, torch.inf)
+        occluded = scene_occluded(scene, offset(p, ng, d_e), d_e, torch.inf,
+                                  plain=plain)
         mis_nee = _mis_weight(pdf_e, pdf_b.detach())          # :480
         contrib = (throughput * f_val * l_e
                    * (mis_nee / pdf_e.clamp(min=1e-20))[..., None])
@@ -274,6 +295,9 @@ def _megakernel_rules(scene, sensor, film_cfg, spp, max_depth, mode,
     if rr_depth <= max_depth - 1:
         return False
     if not isinstance(scene.env, SunskyState):
+        return False
+    # K4 intersects analytic shapes only
+    if scene.mesh is not None:
         return False
     if kinds != _DIFFUSE_ONLY:
         return False

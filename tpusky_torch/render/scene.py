@@ -1,19 +1,20 @@
-"""Scene: analytic shapes, a material table (diffuse and rough-conductor
-kinds) and the sunsky sky.
+"""Scene: analytic shapes, triangle meshes, a material table (diffuse and
+rough-conductor kinds) and the sunsky sky.
 
-The slice of `tpusky/render/scene.py` the main path uses. Area, point,
-directional and spot emitters, meshes, media, SDFs, curves and textures
-are not ported yet, so a Scene here cannot hold them.
+The slice of `tpusky/render/scene.py` the ported paths use. Area, point,
+directional and spot emitters, media, SDFs, curves and textures are not
+ported yet, so a Scene here cannot hold them.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .bsdf import MaterialTable, make_material_table
+from .mesh import MeshTable, make_mesh_table, mesh_test
 from .shapes import ShapeTable, make_shape_table, ray_test
 
 
@@ -22,20 +23,28 @@ class Scene(NamedTuple):
     bsdfs: MaterialTable
     env: Any                         # SunskyState | None
     env_to_world: torch.Tensor       # (3, 3) env local -> world rotation
+    mesh: Optional[MeshTable] = None  # every mesh's triangles, or None
 
 
-def scene_occluded(scene: Scene, o, d, maxt):
-    """Shadow-ray predicate over the scene's geometry."""
-    return ray_test(scene.shapes, o, d, maxt)
+def scene_occluded(scene: Scene, o, d, maxt, plain: bool = False):
+    """Shadow-ray predicate over the scene's geometry (analytic shapes and
+    triangle meshes); `plain` runs the meshes' plain version on any
+    device."""
+    occ = ray_test(scene.shapes, o, d, maxt)
+    if scene.mesh is not None:
+        occ = occ | mesh_test(scene.mesh, o, d, maxt, plain=plain)
+    return occ
 
 
 def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                env_to_world=None, bsdf_twosided=None, bsdf_kinds=None,
                bsdf_alphas=None, bsdf_etas=None, bsdf_ks=None,
-               bsdf_spectral_albedos=None, device="cuda") -> Scene:
+               bsdf_spectral_albedos=None, meshes=None,
+               device="cuda") -> Scene:
     """Assemble a scene from host-side descriptions: shapes are dicts
     accepted by `make_shape_table`; the bsdf_* lists are the columns of
-    `make_material_table` (the reference package's keyword names)."""
+    `make_material_table` (the reference package's keyword names); meshes
+    are dicts accepted by `make_mesh_table`, all baked into one table."""
     if len(shapes) == 0:
         # a never-hit placeholder keeps the table non-empty
         ph = np.eye(4)
@@ -51,4 +60,5 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                      alphas=bsdf_alphas, etas=bsdf_etas, ks=bsdf_ks,
                      device=device),
                  env, torch.tensor(np.asarray(env_to_world, np.float32),
-                                   device=device))
+                                   device=device),
+                 make_mesh_table(meshes, device=device) if meshes else None)
