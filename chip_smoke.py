@@ -53,11 +53,14 @@ Phases, each of which raises (exit code != 0) on failure:
 9. meshes: K14 against its plain version on icosphere meshes of 5,120 to
    327,680 triangles, on bench_mesh's coherent and incoherent wavefronts
    of 1,048,576 rays, direct and after the wavefront sort (hits, t, b1,
-   b2, triangle ids and mesh_test), with its times and bound; then
-   `tools/gen_scene_goldens.py::scene_mesh_gi` at 81,920 triangles
-   through `render` (512x512, 8 spp, depth 3; K14 ten times, K2 and K3,
-   not K4), a band of rows against the plain path on the card, a crop
-   against the CPU's plain render, and the frame's time;
+   b2, triangle ids and mesh_test), with its times, bound and the tiles
+   and leaves it tests per ray and per warp; two duplicated-tile tie
+   cases, where K14 must equal the plain version on every ray and take
+   the lower index; then `tools/gen_scene_goldens.py::scene_mesh_gi` at
+   81,920 triangles through `render` (512x512, 8 spp, depth 3; K14 ten
+   times, K2 and K3, not K4; K14's tables built once), a band of rows
+   against the plain path on the card, a crop against the CPU's plain
+   render, and the frame's time;
 10. times of each kernel and its plain version (CUDA events; for the
    adjoints, autograd's backward over a graph built once), the fwd+bwd
    rates of bench_grad and bench_spectral_grad, a training step's time
@@ -99,6 +102,27 @@ MESH_DEPTH = 3              # scene_mesh_gi's
 MESH_BAND = (240, 32)       # first row and rows of the band held to plain
 MESH_CROP = (352, 240, 32, 32)    # across the sphere's right limb
 MESH_CROP_SPP = 2
+# the duplicated-tile tie cases: icosphere(TIE_SUBDIV)'s tiles, then a copy
+# of them in a random order, on bench_mesh's wavefronts; and a ground quad
+# whose copy lies in a supertile that rays from above enter first
+TIE_SUBDIV = 4
+# The previous kernels' times (PERF.md's kernel table before K14 and K6
+# were redesigned; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's: every kernel's row (ms), K14 by mesh and wavefront (triangles,
+# wavefront) -> (direct, sorted) ms, K6 by strategy
+PREV_MS = {"K1": 0.0488, "K2": 0.1249, "K3": 0.1827, "K4": 0.2919,
+          "K5": 0.4613, "K6": 6.0468, "K7": 1.9872, "K8": 7.7388,
+          "K9": 0.0931, "K10": 0.1592, "K11": 0.2388, "K12": 1.1715,
+          "K13": 2.1469, "K14": 18.8273}
+PREV_K14_MS = {(5120, "coherent"): (1.478, 1.635),
+              (5120, "incoherent"): (12.308, 3.704),
+              (20480, "coherent"): (1.808, 1.965),
+              (20480, "incoherent"): (25.079, 8.859),
+              (81920, "coherent"): (2.390, 2.695),
+              (81920, "incoherent"): (37.586, 18.827),
+              (327680, "coherent"): (3.635, 4.048),
+              (327680, "incoherent"): (50.649, 33.359)}
+PREV_K6_STRATEGY_MS = {"sky": 0.40, "sun": 9.2}
 # the allowed share of lanes outside a per-lane bar of phase 3
 LANE_CAP = 1e-5
 # the share of lanes whose direction cotangent may miss its bar: a lane
@@ -175,10 +199,13 @@ OPS = {
     # K14 (csrc/mesh_kernel.cu): a ray's set-up (3 reciprocals), one box's
     # slab test (6 subtractions, 6 products; min/max are compares), one
     # triangle's Moller-Trumbore (mt_hit: the cross products, 3 dot
-    # products, the reciprocal, t's vector, 3 scalings and u + v)
+    # products, the reciprocal, t's vector, 3 scalings and u + v), and its
+    # parts up to the determinant and up to b1, where a triangle stops
     "ray_setup": 12,
     "slab": 12,
     "mt": 49,
+    "mt_det": 14,
+    "mt_u": 27,
 }
 TABLE_BYTES = 4 * (27 + 3 + 45 * 72 + 16)
 SPEC_TABLE_BYTES = 4 * (11 * 9 + 11 + 45 * 44 + 11 * 6 + 16)
@@ -1225,13 +1252,15 @@ def _mesh_ops(tables, o, d, t_best):
     """K14's operations for rays o, d (N, 3) whose closest hits are t_best
     (inf on a miss), as these inputs need them (OPS): per ray its set-up
     and every supertile's slab test, 16 tile slab tests in each supertile
-    it enters before t_best, and Moller-Trumbore against the 128
-    triangles of each tile it enters before t_best. Returns (operations,
-    supertiles and tiles the rays enter, and the tiles that at least one
-    ray of a warp of 32 and of a block of 128 consecutive rays enters:
-    K14 runs the triangle loop on a warp's and stages a block's, so
-    these are lower bounds of its work, the kernel testing against its
-    running best in place of t_best)."""
+    it enters before t_best, 4 leaf slab tests in each tile it enters
+    before t_best, and Moller-Trumbore against the 32 triangles of each
+    leaf it enters before t_best, up to the determinant, up to b1 or in
+    full, as far as each triangle goes. Returns (operations, supertiles,
+    tiles and leaves the rays enter, and the tiles that at least one ray
+    of a warp of 32 and of a block of 128 consecutive rays enters: the
+    previous K14, which culled by block and warp votes, ran the triangle
+    loop on a warp's and staged a block's; `_mesh_work` reads what the
+    kernel of one thread a ray does)."""
     import torch
 
     def enters(box, o, inv, t):
@@ -1241,9 +1270,24 @@ def _mesh_ops(tables, o, d, t_best):
         tf = torch.maximum(t0, t1).amin(-1)
         return (tf >= tn.clamp(min=0.0)) & (tn < t[:, None])
 
+    def mt_ops(o, d, recs):
+        """Operations of Moller-Trumbore of rays o, d (P, 3) against the
+        leaves' triangles recs (P, 32, 12), stopping where K14 stops."""
+        v0, e1, e2 = recs[..., 0:3], recs[..., 3:6], recs[..., 6:9]
+        p = torch.cross(d[:, None].expand_as(e2), e2, dim=-1)
+        det = (e1 * p).sum(-1)
+        u = ((o[:, None] - v0) * p).sum(-1) / det
+        ok = det.abs() > 1e-12
+        full = ok & (u >= 0.0) & (u <= 1.0)
+        return (int((~ok).sum()) * OPS["mt_det"]
+                + int((ok & ~full).sum()) * OPS["mt_u"]
+                + int(full.sum()) * OPS["mt"])
+
     n_super, n_tiles = tables.super_boxes.shape[0], tables.boxes.shape[0]
-    step = max(128, (1 << 24) // n_tiles // 128 * 128)
-    supers = tiles = warp_tiles = block_tiles = 0
+    n_leaves = tables.leaves.shape[0]
+    leaf_recs = tables.tris.reshape(n_leaves, -1, 12)
+    step = max(128, (1 << 24) // n_leaves // 128 * 128)
+    supers = tiles = leaves = warp_tiles = block_tiles = tri_ops = 0
     with torch.no_grad():
         for r0 in range(0, o.shape[0], step):
             oc, tc = o[r0:r0 + step], t_best[r0:r0 + step]
@@ -1252,14 +1296,139 @@ def _mesh_ops(tables, o, d, t_best):
             sup = enters(tables.super_boxes, oc, inv, tc)
             tile = enters(tables.boxes, oc, inv, tc) & sup.repeat_interleave(
                 MESH_SUPER, 1)
+            leaf = enters(tables.leaves, oc, inv, tc) & \
+                tile.repeat_interleave(n_leaves // n_tiles, 1)
             supers += int(sup.sum())
             tiles += int(tile.sum())
+            leaves += int(leaf.sum())
             warp_tiles += int(tile.reshape(-1, 32, n_tiles).any(1).sum())
             block_tiles += int(tile.reshape(-1, 128, n_tiles).any(1).sum())
+            ray, lf = leaf.nonzero(as_tuple=True)
+            for p0 in range(0, ray.shape[0], 1 << 16):
+                r_, l_ = ray[p0:p0 + (1 << 16)], lf[p0:p0 + (1 << 16)]
+                tri_ops += mt_ops(oc[r_], dc[r_], leaf_recs[l_])
     o_ = OPS
     ops = (o.shape[0] * (o_["ray_setup"] + n_super * o_["slab"])
-           + supers * MESH_SUPER * o_["slab"] + tiles * 128 * o_["mt"])
-    return ops, supers, tiles, warp_tiles, block_tiles
+           + supers * MESH_SUPER * o_["slab"]
+           + tiles * (n_leaves // n_tiles) * o_["slab"] + tri_ops)
+    return ops, supers, tiles, leaves, warp_tiles, block_tiles
+
+
+def _mesh_work(tables, o, d):
+    """K14's work as the kernel does it, read from the kernel itself (its
+    per-ray counts of the tiles and the leaves it tests, in its
+    nearest-first order against its running best): their means over rays,
+    and the means over warps of 32 consecutive rays of the largest count
+    of their lanes (a warp runs its tile loop on the largest tile count;
+    its leaf loops on at least the largest leaf count)."""
+    from tpusky_torch.ops.cuda import mesh_kernel as MKT
+    tested = MKT.launch(tables, o, d, work=True)[4].float()
+    n = tested.shape[0] // 32 * 32
+    warp = tested[:n].reshape(-1, 32, 2).amax(1).mean(0)
+    mean = tested.mean(0)
+    return (float(mean[0]), float(warp[0]), float(mean[1]),
+            float(warp[1]))
+
+
+def _tie_mesh(mesh, rng):
+    """mesh's tiles, then a copy of them in a random tile order, built
+    directly (make_mesh_table's Morton order would put each copy beside
+    its original): every hit ties with its copy, the original has the
+    lower index, and the copy's supertiles, each of tiles from all over
+    the mesh, are often entered first."""
+    import torch
+    from tpusky_torch.render import mesh as TM
+    n_t = mesh.v0.shape[0] // 128
+    perm = torch.tensor(rng.permutation(n_t), device=mesh.v0.device)
+
+    def dup(x):
+        if x is None:
+            return None
+        xt = x.reshape((n_t, 128) + x.shape[1:])
+        return torch.cat([xt, xt[perm]]).reshape((-1,) + x.shape[1:])
+    return TM.MeshTable(*(dup(x) for x in mesh))
+
+
+def _flat_tie_case(rng, dev, n):
+    """A ground quad (z = 0) in tile 0 and its copy in tile 16: supertile 0
+    holds the quad and 15 tiles of small triangles below it, supertile 1
+    the copy and 15 tiles of small triangles above it, so a ray from above
+    enters supertile 1 first, finds the copy at t, and must still take
+    the quad at the same t from a box whose entry is t itself (the cull
+    is at entry > best, not >=). -> (mesh, o, d) with n rays from above
+    toward the quad."""
+    import torch
+    from tpusky_torch.render import mesh as TM
+
+    def tile(v):                      # (k, 3, 3) corners -> padded tile
+        k = v.shape[0]
+        v0, e1, e2 = (np.zeros((128, 3), np.float32) for _ in range(3))
+        v0[:k], e1[:k], e2[:k] = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+        return v0, e1, e2, np.arange(128) < k
+
+    def small(z0, z1):
+        c = rng.uniform([-2, -2, z0], [2, 2, z1], (128, 1, 3))
+        return (c + rng.normal(scale=0.01, size=(128, 3, 3))).astype(
+            np.float32)
+    quad = np.array([[[-2, -2, 0], [2, -2, 0], [2, 2, 0]],
+                     [[-2, -2, 0], [2, 2, 0], [-2, 2, 0]]], np.float32)
+    tiles = ([tile(quad)] + [tile(small(-3.0, -0.5)) for _ in range(15)]
+             + [tile(quad)] + [tile(small(0.5, 1.0)) for _ in range(15)])
+    v0, e1, e2, valid = (torch.tensor(np.concatenate(x), device=dev)
+                         for x in zip(*tiles))
+    z = torch.zeros_like(v0)
+    mesh = TM.MeshTable(v0, e1, e2, z, z, z,
+                        torch.zeros_like(valid, dtype=torch.int64), valid,
+                        torch.zeros((v0.shape[0], 3, 2), device=dev))
+    o = rng.uniform([-1.5, -1.5, 2.0], [1.5, 1.5, 3.0], (n, 3))
+    d = rng.uniform([-1.9, -1.9, 0.0], [1.9, 1.9, 0.0], (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return mesh, *(torch.tensor(x.astype(np.float32), device=dev)
+                   for x in (o, d))
+
+
+def mesh_tie_phase(dev, waves, rng):
+    """Phase 9a's tie cases: K14 equals its plain version on every ray,
+    direct and after the wavefront sort (hit, t, b1, b2, ids bitwise), and
+    returns the lower index on every tied ray."""
+    import torch
+    from tpusky_torch.ops.cuda import mesh_kernel as MKT
+    from tpusky_torch.render import mesh as TM
+    from tpusky_torch.utils.meshio import icosphere
+    pos, idx = icosphere(TIE_SUBDIV)
+    sphere = _tie_mesh(TM.make_mesh_table(
+        [dict(positions=pos, indices=idx, normals=pos.copy(), bsdf_idx=0)],
+        device=dev), rng)
+    flat, o_f, d_f = _flat_tie_case(rng, dev, MESH_RAYS)
+    cases = [(f"K14 tie, icosphere({TIE_SUBDIV}) + its copy, {kind}",
+              sphere, o, d) for kind, (o, d) in waves.items()]
+    cases.append(("K14 tie, a ground quad and its copy", flat, o_f, d_f))
+    for tag, mesh, o, d in cases:
+        tables = MKT.mesh_tables(mesh)
+        t_p, b1_p, b2_p, tri_p = TM._closest_plain(mesh, o, d)
+        order, inv = TM._ray_sort_order(mesh, o, d,
+                                        (tables.key_lo, tables.key_hi))
+        direct = MKT.mesh_intersect_kernel(mesh, o, d, tables)
+        sorted_ = [x[inv] for x in MKT.mesh_intersect_kernel(
+            mesh, o[order].contiguous(), d[order].contiguous(), tables)]
+        for how, (t, b1, b2, tri, hit) in (("direct", direct),
+                                           ("sorted", sorted_)):
+            same = ((t == t_p) | (torch.isinf(t) & torch.isinf(t_p)))
+            same &= (b1 == b1_p) & (b2 == b2_p) & (tri.long() == tri_p)
+            _count_outside(f"{tag}, {how}: rays differing from plain",
+                           (~same).float(), 0.5, o.shape[0], cap=0.0)
+        # the originals: the quad's triangles 0 and 1 (their copies 2048
+        # and 2049), the sphere's first half
+        n_orig = 2 if mesh is flat else mesh.v0.shape[0] // 2
+        tied = (tri_p >= 0) & ((tri_p % 2048 <= 1) if mesh is flat else True)
+        n_tied = int(tied.sum())
+        lower = min(int((x[3].long() < n_orig)[tied].sum())
+                    for x in (direct, sorted_))
+        print(f"check {tag}: the lower index on {lower} of {n_tied} tied "
+              f"rays")
+        if lower != n_tied or n_tied < o.shape[0] // 10:
+            raise AssertionError(f"{tag}: tie rule")
+        del tables, direct, sorted_, t_p, b1_p, b2_p, tri_p
 
 
 def _mesh_scene(state, n_subdiv, device):
@@ -1290,8 +1459,11 @@ def mesh_kernel_phase(dev, card):
     plain version runs on a strided MESH_SUBSET-ray subset of each
     wavefront (on all of them for the frame's mesh and the incoherent
     wavefront, whose numbers stand in the kernels line); mesh_test on the
-    subset. Prints each case's times and bound. Returns (max abs error, (ms, plain ms), (bound ms, by)) of the
-    frame's mesh and the incoherent wavefront, sorted."""
+    subset. Prints each case's times, bound and work, the previous
+    kernel's times beside;
+    then the tie cases (`mesh_tie_phase`). Returns (max abs error, (ms,
+    plain ms), (bound ms, by)) of the frame's mesh and the incoherent
+    wavefront, sorted."""
     import torch
     from tpusky_torch.ops.cuda import mesh_kernel as MKT
     from tpusky_torch.render import mesh as TM
@@ -1362,30 +1534,45 @@ def mesh_kernel_phase(dev, card):
 
             ms = _median_ms(lambda: MKT.launch(tables, o, d))
             ms_s = _median_ms(lambda: MKT.launch(tables, o_s, d_s))
-            ms_path = _median_ms(lambda: TM._closest(mesh, o, d, False))
-            ops, supers, tiles, warp_tiles, block_tiles = _mesh_ops(
+            ms_path = _median_ms(lambda: TM._closest(mesh, o, d, False,
+                                                     tables))
+            ops, supers, tiles, leaves, warp_tiles, block_tiles = _mesh_ops(
                 tables, o_s, d_s, t[order].contiguous())
+            ray_tiles, warp_tiles_k, ray_leaves, warp_leaves_k = _mesh_work(
+                tables, o_s, d_s)
             nbytes = (40 * MESH_RAYS
-                      + sum(x.numel() * 4 for x in tables))
+                      + sum(x.numel() * 4 for x in tables[:4]))
             bound = _bound(nbytes, ops)
+            prev = PREV_K14_MS[(n_tris, kind)]
             print(f"time {tag}: direct {ms:.3f} ms "
                   f"({MESH_RAYS / ms / 1e3:.1f} M rays/s), sorted "
                   f"{ms_s:.3f} ms ({MESH_RAYS / ms_s / 1e3:.1f} M rays/s), "
                   f"sort + kernel + unsort {ms_path:.3f} ms "
                   f"({MESH_RAYS / ms_path / 1e3:.1f} M rays/s); plain "
-                  f"{plain_ms:.1f} ms at {n_sel} rays [{card}]")
+                  f"{plain_ms:.1f} ms at {n_sel} rays; the previous "
+                  f"kernel: direct {prev[0]:.3f} ms, sorted {prev[1]:.3f} "
+                  f"ms [{card}]")
             print(f"bound {tag}, sorted: {bound[0]:.4f} ms ({bound[1]}; "
                   f"{hit.float().mean():.3f} of rays hit, a ray enters "
-                  f"{supers / MESH_RAYS:.2f} supertiles and "
-                  f"{tiles / MESH_RAYS:.2f} tiles before its hit), "
-                  f"{100 * bound[0] / ms_s:.1f}% of it; a warp of 32 sorted "
-                  f"rays runs the triangle loop on >= "
-                  f"{32 * warp_tiles / MESH_RAYS:.2f} tiles, a block of 128 "
-                  f"stages >= {128 * block_tiles / MESH_RAYS:.2f} [{card}]")
+                  f"{supers / MESH_RAYS:.2f} supertiles, "
+                  f"{tiles / MESH_RAYS:.2f} tiles and "
+                  f"{leaves / MESH_RAYS:.2f} leaves before its hit), "
+                  f"{100 * bound[0] / ms_s:.1f}% of it; the tiles a warp of "
+                  f"32 sorted rays enters: >= "
+                  f"{32 * warp_tiles / MESH_RAYS:.2f} (the previous "
+                  f"kernel's warp ran its "
+                  f"128-triangle loop on these), a block of 128 >= "
+                  f"{128 * block_tiles / MESH_RAYS:.2f}; in K14's own "
+                  f"nearest-first order a ray tests {ray_tiles:.2f} tiles "
+                  f"and {ray_leaves:.2f} leaves of 32 triangles, a warp "
+                  f"runs its tile loop on {warp_tiles_k:.2f} tiles and its "
+                  f"leaf loops on >= {warp_leaves_k:.2f} leaves, the "
+                  f"largest of its lanes' [{card}]")
             if full:
                 line = ((ms_s, plain_ms), bound)
             del o_s, d_s, sorted_, t, b1, b2, tri, hit
         del mesh, tables
+    mesh_tie_phase(dev, waves, rng)
     return err, line
 
 
@@ -1432,9 +1619,11 @@ def mesh_frame_phase(dev, card):
     import torch
     import tpusky_torch as tt
     from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import mesh_kernel as MKT
     from tpusky_torch.render import integrator
     from tpusky_torch.render import mesh as TM
     from tpusky_torch.render.film import Film
+    from tpusky_torch.render.scene import with_mesh_tables
     from tpusky_torch.render.sensors import sample_ray
     film = Film(H, W, 3)
     params = dict(turbidity=3.0, albedo=0.3, sun_direction=SUN)
@@ -1442,13 +1631,18 @@ def mesh_frame_phase(dev, card):
         tt.make_params(**params, device=dev)), FRAME_SUBDIV, dev)
     torch.cuda.synchronize()
     build.reset_launches()
+    MKT.builds = 0
     t0 = time.perf_counter()
     img = integrator.render(scene, sensor, film, SEED, spp=SPP,
                             max_depth=MESH_DEPTH)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = dict(build.launches)
-    print(f"mesh main path: {main_s:.2f} s, launches {launches}")
+    print(f"mesh main path: {main_s:.2f} s, launches {launches}, K14's "
+          f"tables built {MKT.builds} times")
+    if MKT.builds != 1:
+        raise AssertionError(f"render() built K14's tables {MKT.builds} "
+                             "times, not once")
     # per spp chunk of render_rows (2 of 2^20 lanes at 512x512x8), 3
     # closest-hit queries and 2 shadow queries
     chunks = SPP // min(SPP, (1 << 20) // (H * W))
@@ -1476,9 +1670,9 @@ def mesh_frame_phase(dev, card):
         raise AssertionError("too few camera rays hit the mesh")
 
     row0, n_rows = MESH_BAND
-    lanes_k = integrator._lane_radiance(scene, sensor, film, SEED, SPP, 0,
-                                        SPP, MESH_DEPTH, 1000, "rgb", row0,
-                                        n_rows)
+    lanes_k = integrator._lane_radiance(with_mesh_tables(scene), sensor,
+                                        film, SEED, SPP, 0, SPP, MESH_DEPTH,
+                                        1000, "rgb", row0, n_rows)
     lanes_p = integrator._lane_radiance(scene, sensor, film, SEED, SPP, 0,
                                         SPP, MESH_DEPTH, 1000, "rgb", row0,
                                         n_rows, plain=True)
@@ -1833,7 +2027,8 @@ def main():
                        plain_k6, reps=5),
     }
     # K6 split by sampling strategy: every lane a TGMM sky sample, then
-    # every lane a sun-cone sample (those add the sun row's 72 atomics)
+    # every lane a sun-cone sample (those add the sun row's cotangent,
+    # summed over the lanes of a warp that share its row)
     w_sky = float(state.sky_sampling_w)
     u_sky = torch.stack([u2[:, 0] * w_sky, u2[:, 1]], -1)
     u_sun = torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0], u2[:, 1]], -1)
@@ -1859,7 +2054,9 @@ def main():
               f"[{card}]")
     print(f"time K6 by strategy at {n} lanes: all sky samples "
           f"{k6_sky:.4f} ms, all sun-cone samples {k6_sun:.4f} ms (the "
-          f"headline sky weight {w_sky:.4f}) [{card}]")
+          f"headline sky weight {w_sky:.4f}); the previous kernel: all "
+          f"sky {PREV_K6_STRATEGY_MS['sky']} ms, all sun-cone "
+          f"{PREV_K6_STRATEGY_MS['sun']} ms [{card}]")
     k4, p4 = times["K4"]
     print(f"time K4 frame: {k4:.3f} ms ({rays / k4 / 1e3:.1f} M rays/s), "
           f"plain wavefront {p4:.3f} ms ({rays / p4 / 1e3:.1f} M rays/s), "
@@ -1937,7 +2134,8 @@ def main():
     for key, (ms, by) in bounds.items():
         print(f"bound {key}: {ms:.4f} ms ({by}); measured "
               f"{times[key][0]:.4f} ms, {100 * ms / times[key][0]:.1f}% of "
-              f"the bound's rate [{card}]")
+              f"the bound's rate; the previous kernel {PREV_MS[key]:.4f} "
+              f"ms [{card}]")
 
     here = os.path.dirname(os.path.abspath(__file__))
     kernels = []

@@ -200,16 +200,41 @@ def test_plain_matches_pallas_kernel_in_interpret_mode(monkeypatch):
     np.testing.assert_allclose(t[hit], t_p[hit], rtol=1e-4, atol=1e-5)
     assert (tri[hit] == tri_p[hit]).mean() >= 0.999
 
+    # K14's triangle records hold the reference's planes: record k of tile
+    # j is [v0.xyz, e1.xyz, e2.xyz, 0, 0, 0] = planes[:, j, k], then zeros
     tv_p, lo_p, hi_p, slo_p, shi_p = (np.asarray(x)
                                       for x in mesh_tables_pallas(jm))
     tables = TK.mesh_tables(tm)
-    assert tables.tv.shape == (16, 9, 128)    # 6 tiles padded to 16
+    assert tables.tris.shape == (16, 128, 12)   # 6 tiles padded to 16
     np.testing.assert_array_equal(
-        tables.tv.numpy(), tv_p.transpose(1, 0, 2))
+        tables.tris[..., :9].numpy(), tv_p.transpose(1, 2, 0))
+    assert not tables.tris[..., 9:].any()
     for box, lo, hi in ((tables.boxes, lo_p, hi_p),
                         (tables.super_boxes, slo_p, shi_p)):
         np.testing.assert_array_equal(box[:, :3].numpy(), lo[:, :3])
         np.testing.assert_array_equal(box[:, 4:7].numpy(), hi[:, :3])
+        assert not box[:, 3].any() and not box[:, 7].any()
+    # K14's own leaf boxes (32 triangles each) hold their valid triangles'
+    # corners, and those with any make up their tile's box exactly;
+    # all-padding leaves and padding tiles' leaves are never entered
+    # (lo > hi)
+    leaves = tables.leaves.reshape(16, 4, 8)
+    full = (leaves[..., 0] <= leaves[..., 4])[..., None]
+    assert torch.equal(torch.where(full, leaves[..., :3], torch.inf)
+                       .amin(1)[:6], tables.boxes[:6, :3])
+    assert torch.equal(torch.where(full, leaves[..., 4:7], -torch.inf)
+                       .amax(1)[:6], tables.boxes[:6, 4:7])
+    corners = torch.stack([tm.v0, tm.v0 + tm.e1, tm.v0 + tm.e2], 1)
+    n_leaves = tm.v0.shape[0] // 32
+    lo, hi = tables.leaves[:n_leaves, None, None, :3], \
+        tables.leaves[:n_leaves, None, None, 4:7]
+    inside = ((corners.reshape(n_leaves, 32, 3, 3) >= lo)
+              & (corners.reshape(n_leaves, 32, 3, 3) <= hi)).all(-1).all(-1)
+    assert inside[tm.valid.reshape(n_leaves, 32)].all()
+    empty = ~tm.valid.reshape(n_leaves, 32).any(1)
+    assert empty.any() and (tables.leaves[:n_leaves][empty, 0]
+                            > tables.leaves[:n_leaves][empty, 4]).all()
+    assert (tables.leaves[n_leaves:, 0] > tables.leaves[n_leaves:, 4]).all()
 
 
 @pytest.mark.parametrize("kind", ["coherent", "incoherent"])
@@ -230,6 +255,11 @@ def test_ray_sort_order_matches_jax(kind):
     order, inv = TMESH._ray_sort_order(tm, ot, dt)
     np.testing.assert_array_equal(order.numpy(), order_r)
     np.testing.assert_array_equal(inv.numpy(), inv_r)
+    # the key's mesh bounds as K14's tables carry them: the same order
+    tables = TK.mesh_tables(tm)
+    for a, b in zip(TMESH._ray_sort_order(
+            tm, ot, dt, (tables.key_lo, tables.key_hi)), (order, inv)):
+        assert torch.equal(a, b)
     coherent = bool(JMESH._wavefront_coherent(jnp.asarray(d)))
     assert TMESH._wavefront_coherent(dt) == coherent
     assert not coherent
@@ -240,6 +270,62 @@ def test_ray_sort_order_matches_jax(kind):
     sorted_ = TK.mesh_intersect_kernel(tm, ot[order], dt[order])
     for a, b in zip(direct, sorted_):
         assert torch.equal(a, b[inv])
+
+
+@pytest.mark.parametrize("case", ["sphere", "quad"])
+def test_plain_takes_the_lower_index_of_a_duplicated_tile(case):
+    """The tie rule K14 must follow: a MeshTable built directly (so Morton
+    order does not put copies side by side) whose tiles j hold bitwise
+    copies of tiles i < j; on every ray whose hit ties with its copy, the
+    plain closest hit returns the original's id. "sphere": icosphere(3)'s
+    10 tiles, then the 10 again in a random order; "quad": a ground quad
+    in tile 0 and its copy in tile 16, the case in which K14 enters the
+    copy first and must still take the quad at the same t
+    (`chip_smoke.py::mesh_tie_phase` runs both on the card)."""
+    import chip_smoke
+    rng = np.random.default_rng(9)
+    if case == "sphere":
+        mesh = chip_smoke._tie_mesh(TMESH.make_mesh_table(_sphere_mesh(3),
+                                                          device="cpu"), rng)
+        o, d = (torch.tensor(x) for x in _rays("incoherent", 2048, rng))
+        n_orig, copies = mesh.v0.shape[0] // 2, mesh.v0.shape[0] // 2
+    else:
+        mesh, o, d = chip_smoke._flat_tie_case(rng, "cpu", 2048)
+        n_orig, copies = 2, 16 * 128
+    ids = torch.arange(mesh.v0.shape[0])
+    orig = ids < n_orig
+    copy = (ids >= copies) & (ids < copies + n_orig)
+    rec = torch.cat([mesh.v0, mesh.e1, mesh.e2], 1)
+    for a, b in zip(torch.unique(rec[orig], dim=0, return_counts=True),
+                    torch.unique(rec[copy], dim=0, return_counts=True)):
+        assert torch.equal(a, b)            # bitwise the same triangles
+    t, b1, b2, tri = TMESH._closest_plain(mesh, o, d)
+    # the copies alone (the originals made padding) hit at the same t
+    t_c, b1_c, b2_c, tri_c = TMESH._closest_plain(
+        mesh._replace(valid=mesh.valid & ~orig), o, d)
+    tied = (tri >= 0) & orig[tri.clamp(min=0)]
+    assert int(tied.sum()) > 300
+    assert not copy[tri[tri >= 0]].any()
+    assert copy[tri_c[tied]].all()
+    for a, b in ((t, t_c), (b1, b1_c), (b2, b2_c)):
+        assert torch.equal(a[tied], b[tied])
+    # the wrapper's CPU path is the plain version
+    out = TK.mesh_intersect_kernel(mesh, o, d)
+    for a, b in zip(out[:3], (t, b1, b2)):
+        assert torch.equal(a, b)
+    assert torch.equal(out[3].long(), tri)
+
+
+def test_render_builds_no_kernel_tables_on_the_cpu():
+    """render_rows builds K14's tables once for all its queries on the
+    card (`scene.with_mesh_tables`); on the CPU the plain version needs
+    none and the scene passes through unchanged."""
+    from tpusky_torch.render import scene as TS
+    sc = make_scene(meshes=_sphere_mesh(1), device="cpu")
+    before = TK.builds
+    assert TS.with_mesh_tables(sc) is sc and sc.mesh_tables is None
+    assert TS.with_mesh_tables(sc._replace(mesh=None)).mesh_tables is None
+    assert TK.builds == before
 
 
 def test_convert_scene_matches_make_scene():
@@ -277,7 +363,7 @@ def test_wrapper_guards():
         with pytest.raises(ValueError):
             TK.check_inputs(tm, bad, d, tables)
     with pytest.raises(ValueError):
-        TK.check_inputs(tm, o, d, tables._replace(tv=tables.tv[1:]))
+        TK.check_inputs(tm, o, d, tables._replace(tris=tables.tris[1:]))
     with pytest.raises(ValueError):
         TK.mesh_intersect_kernel(tm, o.to("meta"), d.to("meta"))
     build.reset_launches()

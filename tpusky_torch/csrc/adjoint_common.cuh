@@ -66,6 +66,51 @@ __device__ __forceinline__ float gauss_sum_vjp_warp(
   return P.sky ? tg : 0.0f;
 }
 
+// The sun table's cotangent of a warp's lanes (all 32 lanes call it each
+// iteration), added to s_sun (45, 72), the block's copy. A lane's is an
+// outer product on one row (tsk::SunCot), and a warp's lanes mostly share
+// one or two of the 45 rows (sun-cone samples all do), so adding them lane
+// by lane would put up to 32 shared atomics on each address. Instead the
+// lanes are grouped by row (__match_any_sync), stage their 13 floats in
+// s_rec (the warp's 32 x 13 floats), and for each group lane l sums
+// entries l, l + 32 and l + 64 over the group's lanes in lane order and
+// adds each with one shared atomic: only the block's warps contend for an
+// address. A warp whose lanes have no sun cotangent returns at once.
+constexpr int kSunRec = 3 + 4 + tsk::N_LD;
+
+__device__ __forceinline__ void sun_row_warp(const tsk::SunCot& sc,
+                                             float* s_rec, float* s_sun) {
+  bool has = sc.g[0] != 0.0f || sc.g[1] != 0.0f || sc.g[2] != 0.0f;
+  unsigned todo = __ballot_sync(kFull, has);
+  if (todo == 0u) return;
+  int lane = threadIdx.x & 31;
+  unsigned same = __match_any_sync(kFull, has ? sc.pos : -1);
+  float* mine = s_rec + lane * kSunRec;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) mine[c] = sc.g[c];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) mine[3 + k] = sc.xp[k];
+#pragma unroll
+  for (int j = 0; j < tsk::N_LD; ++j) mine[7 + j] = sc.cp[j];
+  __syncwarp();
+  while (todo != 0u) {
+    int leader = __ffs(todo) - 1;
+    unsigned group = __shfl_sync(kFull, same, leader);
+    float* row = s_sun + __shfl_sync(kFull, sc.pos, leader) * tsk::SUN_F;
+    for (int e = lane; e < tsk::SUN_F; e += 32) {
+      int ch = e / 24, k = (e / 6) % 4, j = e % 6;
+      float sum = 0.0f;
+      for (unsigned b = group; b != 0u; b &= b - 1) {
+        const float* rec = s_rec + (__ffs(b) - 1) * kSunRec;
+        sum += rec[ch] * (rec[3 + k] * rec[7 + j]);
+      }
+      atomicAdd(row + e, sum);
+    }
+    todo &= ~group;
+  }
+  __syncwarp();   // the records are read before the next call writes them
+}
+
 // The sum of the warps' copies w of a shared table, entry j, in warp order.
 __device__ __forceinline__ float warps_sum(const float* s, int stride,
                                            int j) {

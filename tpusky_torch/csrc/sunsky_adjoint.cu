@@ -37,16 +37,20 @@
 // adjoint_common.cuh. In pass 1 each thread keeps the 46 small-table
 // cotangents (skyp, skyr, misc) in registers over its lanes, summed over
 // the block at the end; the (45, 72) sun-table cotangent goes to a
-// block-wide copy in shared memory by shared atomics (13 KB), since lanes
-// of a block land in different sun segments; the gaussian table's (K7,
-// K8) to a copy per warp: the pdf's part, which every lane has for all 20
-// gaussians, summed over the warp by shuffles first; the sample
-// placement's part, one gaussian a lane, by atomics. A block writes its
+// block-wide copy in shared memory (13 KB), since lanes of a block land
+// in different sun segments, but not lane by lane: K6/K8's sun-cone
+// samples put a whole warp on one or two rows, and 32 shared atomics on
+// one address cost sun-cone lanes 23x the rest of K6's work. Each lane
+// records its row's cotangent (13 floats of an outer product) and, after
+// the per-lane body, the warp sums the lanes that share a row and adds
+// each entry once (adjoint_common.cuh::sun_row_warp). The gaussian
+// table's (K7, K8) goes to a copy per warp: the pdf's part, which every
+// lane has for all 20 gaussians, summed over the warp by shuffles first;
+// the sample placement's part, one gaussian a lane, by atomics. A block
+// writes its
 // partial row [sun 3240 | skyp 27 | skyr 3 | misc 16 (| gauss 280)]. So
 // only the order of shared-memory atomics varies from run to run. Lanes
-// whose cotangents are all zero skip the per-lane body. The likely slow
-// spot is the sun atomics of K6/K8, whose sun-strategy lanes mostly land
-// in one or two sun segments; it is measured, not tuned, here.
+// whose cotangents are all zero skip the per-lane body.
 
 #include "adjoint_common.cuh"
 
@@ -67,12 +71,14 @@ __device__ __forceinline__ void adjoint_pass(
   __shared__ float s_sun[kSunN];
   __shared__ float s_acc[kWarps * tsk::N_ACC];
   __shared__ float s_gauss[kPdf ? kWarps * kGaussN : 1];
+  __shared__ float s_rec[kWarps * 32 * kSunRec];
   for (int i = threadIdx.x; i < kSunN; i += kThreads) s_sun[i] = 0.0f;
   if (kPdf)
     for (int i = threadIdx.x; i < kWarps * kGaussN; i += kThreads)
       s_gauss[i] = 0.0f;
   __syncthreads();
   float* s_gauss_w = s_gauss + (kPdf ? (threadIdx.x >> 5) * kGaussN : 0);
+  float* s_rec_w = s_rec + (threadIdx.x >> 5) * 32 * kSunRec;
 
   float acc[tsk::N_ACC];
 #pragma unroll
@@ -95,6 +101,9 @@ __device__ __forceinline__ void adjoint_pass(
     float u0 = 0.0f, u1 = 0.0f;
     bool pick_sky = true;
     float dd[3] = {0.0f, 0.0f, 0.0f};
+    tsk::SunCot sc;
+    sc.pos = 0;
+    sc.g[0] = sc.g[1] = sc.g[2] = 0.0f;
     if (live && (rad || gp != 0.0f)) {
       if (kNee) {
         u0 = in[2 * i];
@@ -105,8 +114,9 @@ __device__ __forceinline__ void adjoint_pass(
         d[1] = in[3 * i + 1];
         d[2] = in[3 * i + 2];
       }
-      if (rad) tsk::radiance_vjp(T, d[0], d[1], d[2], gl, dd, acc, s_sun);
+      if (rad) tsk::radiance_vjp(T, d[0], d[1], d[2], gl, dd, acc, sc);
     }
+    sun_row_warp(sc, s_rec_w, s_sun);
     if (kPdf) {
       // an NEE sample's pdf is masked below the horizon
       if (kNee && !(d[2] >= 0.0f)) gp = 0.0f;

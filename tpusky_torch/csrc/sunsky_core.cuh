@@ -431,22 +431,33 @@ __device__ __forceinline__ void geometry_vjp(const float* __restrict__ misc,
   dd[2] += c.ct;
 }
 
+// A lane's cotangent of the sun table: row pos, entry ch * 24 + k * 6 + j
+// is g[ch] * (xp[k] * cp[j]), an outer product of 13 floats; g is all zero
+// on a lane without one.
+struct SunCot {
+  int pos;
+  float g[3], xp[4], cp[N_LD];
+};
+
 // Reverse-mode derivative of radiance() (model.py::_eval_rgb_plain) at one
 // direction, given the cotangent g of its RGB output. Adds the direction's
-// cotangent to dd, the small tables' cotangents to acc (layout ACC_*; only
-// what radiance() reads is touched) and the sun row's to sun_acc (the
-// (45, 72) table in shared memory, by atomics: lanes of a block share
-// rows).
+// cotangent to dd and the small tables' cotangents to acc (layout ACC_*;
+// only what radiance() reads is touched); records the sun row's in sc
+// (set sc.g to zero before the call), which the caller sums over lanes
+// that share the row.
 __device__ __forceinline__ void radiance_vjp(const Tables& T, float dx,
                                              float dy, float dz,
                                              const float g[3], float dd[3],
-                                             float acc[N_ACC],
-                                             float* sun_acc) {
+                                             float acc[N_ACC], SunCot& sc) {
   if (dz < 0.0f) return;                  // below the horizon: radiance 0
   const float* __restrict__ misc = T.misc;
   VjpGeom v = vjp_geometry(misc, dx, dy, dz);
   const float* __restrict__ coefs = T.sun + v.pos * SUN_F;
-  float* __restrict__ sun_row = sun_acc + v.pos * SUN_F;
+  sc.pos = v.pos;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) sc.xp[k] = v.xp[k];
+#pragma unroll
+  for (int j = 0; j < N_LD; ++j) sc.cp[j] = v.cp[j];
   float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
   GeomCot c = {};
 #pragma unroll
@@ -471,13 +482,8 @@ __device__ __forceinline__ void radiance_vjp(const Tables& T, float dx,
     acc[ACC_MISC + M_SUN_SCALE] += G * v.hard * sun;
     c.w += G * sun_scale * sun;
     float g_sun = G * sun_scale * v.hard;
+    sc.g[ch] = g_sun;
     if (g_sun != 0.0f) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int j = 0; j < 6; ++j)
-          atomicAdd(sun_row + ch * 24 + k * 6 + j,
-                    g_sun * (v.xp[k] * v.cp[j]));
       c.x += g_sun * sun_x;
       c.cpsi += g_sun * sun_cp;
     }

@@ -80,8 +80,10 @@ _SIGNATURES = {
     # dwl (or null), partial, out, stream
     "tsk_sunsky_nee_spec_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P),
-    # o, d, n, tv, boxes, super_boxes, n_super, t, b1, b2, tri, stream
-    "tsk_mesh_intersect": (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P),
+    # o, d, n, tris, leaves, boxes, super_boxes, n_super, t, b1, b2, tri,
+    # work (or null), stream
+    "tsk_mesh_intersect": (_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                           _P, _P),
 }
 
 

@@ -243,13 +243,22 @@ def _octant(d):
             | (d[..., 2] < 0).long())
 
 
-def _ray_sort_order(mesh: MeshTable, o, d):
+def _key_bounds(mesh: MeshTable):
+    """(lo, hi) (3,): the mesh bounds the sort key quantises origins over,
+    padding triangles included (`tpusky/render/mesh.py:321-322`)."""
+    with torch.no_grad():
+        lo = mesh.v0.amin(0)
+        hi = (mesh.v0 + torch.maximum(mesh.e1, mesh.e2)).amax(0)
+    return lo, hi
+
+
+def _ray_sort_order(mesh: MeshTable, o, d, bounds=None):
     """(order, inverse) permutations of a wavefront: key = direction octant
     (3 bits, major) then the 27-bit Morton code of the origin quantised
-    over the mesh bounds, sorted stably (`tpusky/render/mesh.py:304-342`:
-    the same float operations on the key, so the same permutation)."""
-    lo = mesh.v0.amin(0)
-    hi = (mesh.v0 + torch.maximum(mesh.e1, mesh.e2)).amax(0)
+    over the mesh bounds (`_key_bounds`, or `bounds` computed by it),
+    sorted stably (`tpusky/render/mesh.py:304-342`: the same float
+    operations on the key, so the same permutation)."""
+    lo, hi = _key_bounds(mesh) if bounds is None else bounds
     ext = (hi - lo).clamp(min=1e-12)
     q = ((o - lo) / ext * 511.0).clamp(0.0, 511.0).long()
 
@@ -277,14 +286,16 @@ def _wavefront_coherent(d) -> bool:
     return int(changes) * 64 < octant.shape[0]
 
 
-def _closest(mesh: MeshTable, o, d, plain: bool):
-    """Closest hit of rays o, d (N, 3) -> (t, b1, b2, tri int64)."""
+def _closest(mesh: MeshTable, o, d, plain: bool, tables=None):
+    """Closest hit of rays o, d (N, 3) -> (t, b1, b2, tri int64); on the
+    card with K14's `tables` of the mesh, built here if not given."""
     if plain or o.device.type == "cpu":
         return _closest_plain(mesh, o, d)
     if o.device.type != "cuda":
         raise ValueError(f"mesh intersection: unsupported device {o.device}")
     from ..ops.cuda.mesh_kernel import mesh_intersect_kernel, mesh_tables
-    tables = mesh_tables(mesh)
+    if tables is None:
+        tables = mesh_tables(mesh)
     # The reference branches with lax.cond on the device; here the branch
     # is Python, on one host read of the coherence test, taken only for
     # small meshes (large ones always sort)
@@ -293,32 +304,39 @@ def _closest(mesh: MeshTable, o, d, plain: bool):
         t, b1, b2, tri, _ = mesh_intersect_kernel(mesh, o.contiguous(),
                                                   d.contiguous(), tables)
         return t, b1, b2, tri.long()
-    order, inv = _ray_sort_order(mesh, o, d)
+    order, inv = _ray_sort_order(mesh, o, d,
+                                 (tables.key_lo, tables.key_hi))
     t, b1, b2, tri, _ = mesh_intersect_kernel(
         mesh, o[order].contiguous(), d[order].contiguous(), tables)
     return t[inv], b1[inv], b2[inv], tri.long()[inv]
 
 
-def mesh_intersect(mesh: MeshTable, o, d, plain: bool = False):
+def mesh_intersect(mesh: MeshTable, o, d, plain: bool = False,
+                   tables=None):
     """Closest hit against all triangles -> (t, n_shading, mat_idx, b1, b2,
-    tri_idx, hit); t = inf and tri_idx = -1 on a miss."""
+    tri_idx, hit); t = inf and tri_idx = -1 on a miss. `tables`: K14's
+    tables of the mesh (`ops/cuda/mesh_kernel.py::mesh_tables`), for a
+    caller that queries the mesh more than once."""
     batch = o.shape[:-1]
-    t, b1, b2, tri = _closest(mesh, o.reshape(-1, 3), d.reshape(-1, 3), plain)
+    t, b1, b2, tri = _closest(mesh, o.reshape(-1, 3), d.reshape(-1, 3), plain,
+                              tables)
     t, b1, b2, tri = (x.reshape(batch) for x in (t, b1, b2, tri))
     hit = torch.isfinite(t) & (tri >= 0)
     return (t,) + _shade_at_hit(mesh, b1, b2, tri) + (b1, b2, tri, hit)
 
 
-def mesh_test(mesh: MeshTable, o, d, maxt, plain: bool = False):
+def mesh_test(mesh: MeshTable, o, d, maxt, plain: bool = False,
+              tables=None):
     """Any hit within (eps, maxt) -> bool (...,); maxt a scalar or (...,).
     On the card the closest hit of K14 against maxt, as the reference's
-    TPU path (`tpusky/render/mesh.py:461-488`)."""
+    TPU path (`tpusky/render/mesh.py:461-488`); `tables` as in
+    `mesh_intersect`."""
     batch = o.shape[:-1]
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     if plain or o.device.type == "cpu":
         maxt = torch.as_tensor(maxt, dtype=o.dtype, device=o.device)
         return _occluded_plain(mesh, o, d,
                                maxt.expand(batch).reshape(-1)).reshape(batch)
-    t, _, _, tri = _closest(mesh, o, d, plain)
+    t, _, _, tri = _closest(mesh, o, d, plain, tables)
     t, tri = t.reshape(batch), tri.reshape(batch)
     return torch.isfinite(t) & (tri >= 0) & (t < maxt)

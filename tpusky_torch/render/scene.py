@@ -24,6 +24,20 @@ class Scene(NamedTuple):
     env: Any                         # SunskyState | None
     env_to_world: torch.Tensor       # (3, 3) env local -> world rotation
     mesh: Optional[MeshTable] = None  # every mesh's triangles, or None
+    # K14's tables of `mesh` (ops/cuda/mesh_kernel.py::MeshTables), built
+    # once per render on the card by `with_mesh_tables`
+    mesh_tables: Any = None
+
+
+def with_mesh_tables(scene: Scene, plain: bool = False) -> Scene:
+    """The scene with K14's tables of its mesh, for a render that queries
+    the mesh many times: built here when the mesh lies on the card and the
+    kernel will run (not `plain`), else the scene as it is."""
+    if (scene.mesh is None or scene.mesh_tables is not None or plain
+            or scene.mesh.v0.device.type != "cuda"):
+        return scene
+    from ..ops.cuda.mesh_kernel import mesh_tables
+    return scene._replace(mesh_tables=mesh_tables(scene.mesh))
 
 
 def scene_occluded(scene: Scene, o, d, maxt, plain: bool = False):
@@ -32,7 +46,8 @@ def scene_occluded(scene: Scene, o, d, maxt, plain: bool = False):
     device."""
     occ = ray_test(scene.shapes, o, d, maxt)
     if scene.mesh is not None:
-        occ = occ | mesh_test(scene.mesh, o, d, maxt, plain=plain)
+        occ = occ | mesh_test(scene.mesh, o, d, maxt, plain=plain,
+                              tables=scene.mesh_tables)
     return occ
 
 
