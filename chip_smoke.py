@@ -7,7 +7,9 @@ Run from the repository root with no arguments:
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the kernels from tpusky_torch/csrc with nvcc;
+2. build: compile the kernels from tpusky_torch/csrc with nvcc; print
+   each kernel's registers and spills (ptxas) and require no spills in
+   K12's and K13's four instantiations;
 3. K1-K3 against their plain PyTorch versions at 2,097,152 lanes, and the
    adjoints K5 and K6 against autograd of the same plain versions: table
    cotangents, K5's per-lane direction cotangent, and the cotangents
@@ -38,7 +40,10 @@ Phases, each of which raises (exit code != 0) on failure:
    then the spectral adjoints without the pdf, K12 (at 4 and at 10
    wavelengths a lane) and K13, against autograd of their plain versions:
    table cotangents (the limb-darkening table's too), per-lane direction
-   and wavelength cotangents, cotangents through precompute;
+   and wavelength cotangents, cotangents through precompute; then K13
+   with every lane a TGMM sky sample and with every lane a sun-cone
+   sample, and K12 with every direction in the sun's disc, each held the
+   same way and timed;
 7. path 1, the spectral gradient: `bench.py::bench_spectral_grad`'s loss
    (512x512, 4 spp, depth 2, a diffuse ground, gradients to turbidity,
    albedo and sun direction through the spectral precompute) through
@@ -106,14 +111,17 @@ MESH_CROP_SPP = 2
 # of them in a random order, on bench_mesh's wavefronts; and a ground quad
 # whose copy lies in a supertile that rays from above enter first
 TIE_SUBDIV = 4
-# The previous kernels' times (PERF.md's kernel table before K14 and K6
-# were redesigned; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
-# run's: every kernel's row (ms), K14 by mesh and wavefront (triangles,
-# wavefront) -> (direct, sorted) ms, K6 by strategy
+# The previous kernels' times (PERF.md's kernel table before K14 and K6,
+# then K12 and K13, were redesigned; NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside this run's: every kernel's row (ms), K12 and K13 with the
+# pdf, K14 by mesh and wavefront (triangles, wavefront) -> (direct,
+# sorted) ms, K6, K12 and K13 by lane mix (K12 and K13's from
+# tools/torch_ab.py spec_bwd on the same card)
 PREV_MS = {"K1": 0.0488, "K2": 0.1249, "K3": 0.1827, "K4": 0.2919,
           "K5": 0.4613, "K6": 6.0468, "K7": 1.9872, "K8": 7.7388,
-          "K9": 0.0931, "K10": 0.1592, "K11": 0.2388, "K12": 1.1715,
-          "K13": 2.1469, "K14": 18.8273}
+          "K9": 0.0931, "K10": 0.1592, "K11": 0.2388, "K12": 1.1880,
+          "K13": 2.1624, "K14": 18.8273}
+PREV_PDF_MS = {"K12": 2.0005, "K13": 3.3893}
 PREV_K14_MS = {(5120, "coherent"): (1.478, 1.635),
               (5120, "incoherent"): (12.308, 3.704),
               (20480, "coherent"): (1.808, 1.965),
@@ -123,6 +131,7 @@ PREV_K14_MS = {(5120, "coherent"): (1.478, 1.635),
               (327680, "coherent"): (3.635, 4.048),
               (327680, "incoherent"): (50.649, 33.359)}
 PREV_K6_STRATEGY_MS = {"sky": 0.40, "sun": 9.2}
+PREV_SPEC_MIX_MS = {"K13 sky": 1.3557, "K13 sun": 2.3884, "K12 disc": 2.4716}
 # the allowed share of lanes outside a per-lane bar of phase 3
 LANE_CAP = 1e-5
 # the share of lanes whose direction cotangent may miss its bar: a lane
@@ -830,6 +839,35 @@ def spectral_phase(dev, dirs, rng, film, card):
     _adjoint_check("K13 (plain sampler, ramp clamps left out)", rad13,
                    rad_ps, g_spec * (~at_clamp)[:, None], st_g, lp)
     del dwl_k, dwl_p, d_ps, rad_ps, rad13, at_clamp
+    # K13 by sampling strategy (every lane a TGMM sky sample; every lane a
+    # sun-cone sample, whose sun rows and limb table a warp sums), and K12
+    # with every direction in the sun's disc (the sun-cone samples'), each
+    # against autograd of the plain radiance at those directions
+    w_sky = float(state.sky_sampling_w)
+    u_mix = {"sky": torch.stack([u2[:, 0] * w_sky, u2[:, 1]],
+                                -1).contiguous(),
+             "sun": torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0],
+                                 u2[:, 1]], -1).contiguous()}
+    for mix, uu in u_mix.items():
+        wm_k, wm_p = wl.clone().requires_grad_(), wl.clone().requires_grad_()
+        d_s, rad_s, _ = K.sunsky_nee_spec(st_g, uu, wm_k, pdf_detached=True)
+        _, (dwl_k,), (dwl_p,) = _adjoint_check(
+            f"K13, all {mix} samples (at its samples)", rad_s,
+            M._eval_spec_plain(st_g, d_s, wm_p), g_spec, st_g, lp, [wm_k],
+            [wm_p])
+        _lane_check(f"K13 dwl, all {mix} samples", dwl_k, dwl_p, n)
+    d_disc = d_s.detach().contiguous()
+    dm_k = d_disc.clone().requires_grad_()
+    dm_p = d_disc.clone().requires_grad_()
+    wm_k, wm_p = wl.clone().requires_grad_(), wl.clone().requires_grad_()
+    _, (dd_k, dwl_k), (dd_p, dwl_p) = _adjoint_check(
+        "K12, every direction in the disc",
+        K.sunsky_eval_spec(st_g, dm_k, wm_k),
+        M._eval_spec_plain(st_g, dm_p, wm_p), g_spec, st_g, lp, [dm_k, wm_k],
+        [dm_p, wm_p])
+    _lane_check("K12 dd, every direction in the disc", dd_k, dd_p, n)
+    _lane_check("K12 dwl, every direction in the disc", dwl_k, dwl_p, n)
+    del d_s, rad_s, dm_k, dm_p, wm_k, wm_p, dd_k, dwl_k, dd_p, dwl_p
 
     # times (CUDA events) and bounds
     tables = K.pack_tables_spec(state, dev)
@@ -857,10 +895,24 @@ def spectral_phase(dev, dirs, rng, film, card):
                                        SPEC_DEPTH, 1000, "spectral", 0, H,
                                        kinds=kinds, plain=True), reps=3)
     rays = H * W * SPP * (1 + 2 * (SPEC_DEPTH - 1))
+    mix_ms = {
+        "K13 sky": _time_ms(lambda: K.launch_nee_spec_bwd(
+            tables, u_mix["sky"], wl, g_spec), 5),
+        "K13 sun": _time_ms(lambda: K.launch_nee_spec_bwd(
+            tables, u_mix["sun"], wl, g_spec), 5),
+        "K12 disc": _time_ms(lambda: K.launch_hit_spec_bwd(
+            tables, d_disc, wl, g_spec), 5)}
     for key in ("K9", "K10", "K11", "K12", "K13"):
         k, p = times[key]
         print(f"time {key}: {k:.4f} ms, plain {p:.4f} ms at {n} lanes x "
               f"{N_HERO} wavelengths [{card}]")
+    print(f"time K13 by strategy at {n} lanes x {N_HERO} wavelengths: all "
+          f"sky samples {mix_ms['K13 sky']:.4f} ms, all sun-cone samples "
+          f"{mix_ms['K13 sun']:.4f} ms (the headline sky weight "
+          f"{w_sky:.4f}); K12 with every direction in the disc "
+          f"{mix_ms['K12 disc']:.4f} ms; the previous kernels: "
+          + ", ".join(f"{k} {v} ms" for k, v in PREV_SPEC_MIX_MS.items())
+          + f" [{card}]")
     print(f"time bench_spectral frame ({W}x{H}x{SPP}, depth {SPEC_DEPTH}, "
           f"{rays} rays): render() {frame_ms:.3f} ms "
           f"({rays / frame_ms / 1e3:.2f} M rays/s), plain wavefront "
@@ -1165,8 +1217,10 @@ def attached_pdf_phase(dev, dirs, u2, rng, card):
         out, lanes, cts = graphs[key]
         leaves = (rgb if key in ("K7", "K8") else spc) + lanes
         times[key] = _pair_ms(run, lambda: _grads(out, leaves, cts), reps=3)
+        prev = (f"; the previous kernel {PREV_PDF_MS[key]:.4f} ms"
+                if key in PREV_PDF_MS else "")
         print(f"time {key} with the pdf: {times[key][0]:.4f} ms, plain "
-              f"{times[key][1]:.4f} ms at {n} lanes [{card}]")
+              f"{times[key][1]:.4f} ms at {n} lanes{prev} [{card}]")
     del graphs
 
     with torch.no_grad():
@@ -1760,10 +1814,13 @@ def main():
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.basename(lib_path)}")
-    with open(lib_path[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "Compiling entry" in line:
-                print("ptxas:", line.strip())
+    for (source, kernel), r in sorted(build.ptxas_report().items()):
+        print(f"ptxas {source} {kernel}: {r.get('registers')} registers, "
+              f"{r.get('stack')} bytes stack, {r.get('spill_stores')} bytes "
+              f"spill stores, {r.get('spill_loads')} bytes spill loads")
+        if (source == "sunsky_spectral_adjoint.cu" and "bwd_kernel" in kernel
+                and (r.get("spill_stores") or r.get("spill_loads"))):
+            raise AssertionError(f"{kernel} spills registers")
 
     # ---- 3. K1-K3 and K5-K6 against their plain versions ----
     params = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,

@@ -74,3 +74,34 @@ def test_package_has_kernel_wrappers():
     csrc = set(os.listdir(os.path.join(_PKG, "csrc")))
     assert {"sunsky_core.cuh", "sunsky_kernels.cu", "megakernel.cu",
             "sunsky_adjoint.cu", "mesh_kernel.cu"} <= csrc
+
+
+def test_ptxas_report_reads_the_build_log(tmp_path, monkeypatch):
+    """`build.ptxas_report` names each kernel of nvcc's `-Xptxas -v` log
+    with its bool template arguments and reads its registers and spills,
+    as chip_smoke.py prints and checks them."""
+    from tpusky_torch.ops.cuda import build
+    sym = ("_ZN59_GLOBAL__N__8fd773c9_26_sunsky_spectral_adjoint_cu_1bf9696f"
+           "19spec_nee_bwd_kernelILb1EEEvPKfS2_S2_S2_iiN3tsk6TablesEPfS5_")
+    red = ("_ZN59_GLOBAL__N__8fd773c9_26_sunsky_spectral_adjoint_cu_1bf9696f"
+           "15reduce_partialsEPKfiiPf")
+    (tmp_path / "lib.log").write_text(
+        "== sunsky_spectral_adjoint.cu\n"
+        f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {sym}\n"
+        "    32 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 127 registers, used 1 barriers, 32 bytes "
+        "cumulative stack size, 23024 bytes smem\n"
+        f"ptxas info    : Compiling entry function '{red}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {red}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 1 barriers, 1024 bytes "
+        "smem\n== link\n")
+    monkeypatch.setattr(build, "build", lambda: str(tmp_path / "lib.so"))
+    assert build.ptxas_report() == {
+        ("sunsky_spectral_adjoint.cu", "spec_nee_bwd_kernel<true>"): {
+            "stack": 32, "spill_stores": 8, "spill_loads": 4,
+            "registers": 127},
+        ("sunsky_spectral_adjoint.cu", "reduce_partials"): {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 32}}

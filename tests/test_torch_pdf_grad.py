@@ -12,7 +12,6 @@ on the card (chip_smoke.py).
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -75,6 +74,25 @@ def case():
     return js, st, d, u2, g_rad, g_pdf
 
 
+@pytest.fixture(scope="module")
+def jax_refs(case):
+    """Every JAX reference of the K7 and K8 cases below, traced and
+    compiled as one program (one compile, not four): {block: (jax.vjp of
+    the jnp path, the Pallas adjoint in interpret mode)}."""
+    js, _st, d, u2, g_rad, g_pdf = case
+
+    def refs(js, d, u2, g_rad, g_pdf):
+        return {
+            "hit": (jax.vjp(JM._hit_rgb_jnp, js, d)[1]((g_rad, g_pdf)),
+                    JK.sunsky_hit_rgb_bwd_pallas(js, d, g_rad, g_pdf,
+                                                 interpret=True)),
+            "nee": (jax.vjp(lambda q: JM._sample_eval_rgb_jnp(q, u2)[1:],
+                            js)[1]((g_rad, g_pdf))[0],
+                    JK.sunsky_nee_rgb_bwd_pallas(js, u2, g_rad, g_pdf,
+                                                 interpret=True))}
+    return jax.jit(refs)(js, d, u2, g_rad, g_pdf)
+
+
 def _leaf_state(state):
     def leaf(t):
         return t.detach().clone().requires_grad_()
@@ -116,14 +134,13 @@ def _nee_torch(st, u2, g_rad, g_pdf):
     return _torch_grads([rad, pdf], leaf, [g_rad, g_pdf])[0]
 
 
-def test_hit_adjoint_plain_matches_jax_vjp(case):
+def test_hit_adjoint_plain_matches_jax_vjp(case, jax_refs):
     """K7's plain version (autograd of `_hit_rgb_plain` with the pdf
     attached) against jax.vjp of `_hit_rgb_jnp`: state-field cotangents
     within 1e-4 of their scale (the ramp-driven ones 1e-3), dd within 1e-4
     of each lane's scale; the gaussians and the mixture weight get one."""
-    js, st, d, _u2, g_rad, g_pdf = case
-    ds_j, dd_j = jax.jit(lambda s, d: jax.vjp(JM._hit_rgb_jnp, s, d)[1](
-        (g_rad, g_pdf)))(js, d)
+    _js, st, d, _u2, g_rad, g_pdf = case
+    ds_j, dd_j = jax_refs["hit"][0]
     named, dd = _hit_torch(st, d, g_rad, g_pdf)
     _check(named, ds_j, 1e-4, 1e-3)
     dd_j = np.asarray(dd_j)
@@ -133,19 +150,17 @@ def test_hit_adjoint_plain_matches_jax_vjp(case):
     assert np.abs(named["sky_sampling_w"]).max() > 0
 
 
-def test_hit_adjoint_plain_matches_pallas_adjoint(case):
+def test_hit_adjoint_plain_matches_pallas_adjoint(case, jax_refs):
     """Against the TPU kernel K7 (`sunsky_hit_rgb_bwd_pallas`) in interpret
     mode, at the 3e-2 bar of the adjoint kernels (tests/test_pallas.py)."""
-    js, st, d, _u2, g_rad, g_pdf = case
-    ds_p, dd_p = JK.sunsky_hit_rgb_bwd_pallas(
-        js, jnp.asarray(d), jnp.asarray(g_rad), jnp.asarray(g_pdf),
-        interpret=True)
+    _js, st, d, _u2, g_rad, g_pdf = case
+    ds_p, dd_p = jax_refs["hit"][1]
     named, dd = _hit_torch(st, d, g_rad, g_pdf)
     _check(named, ds_p, 3e-2, 3e-2)
     assert _rel_max(dd, dd_p) <= 3e-2
 
 
-def test_nee_adjoint_plain_matches_jax_vjp(case):
+def test_nee_adjoint_plain_matches_jax_vjp(case, jax_refs):
     """K8's plain version (autograd of `_sample_eval_rgb_plain`'s radiance
     and of its pdf through the sample's placement, the mixture weight
     detached) against jax.vjp of `_sample_eval_rgb_jnp`: within 1e-4, the
@@ -154,10 +169,8 @@ def test_nee_adjoint_plain_matches_jax_vjp(case):
     phi within 1e-3: at a TGMM sample the pdf reads phi_rel, which is the
     sampled angle whatever the sun's phi, so each sky lane's placement and
     pdf terms cancel up to those ulps and only the cone samples' remain."""
-    js, st, _d, u2, g_rad, g_pdf = case
-    (ds_j,) = jax.jit(lambda s: jax.vjp(
-        lambda q: JM._sample_eval_rgb_jnp(q, u2)[1:], s)[1](
-            (g_rad, g_pdf)))(js)
+    _js, st, _d, u2, g_rad, g_pdf = case
+    ds_j = jax_refs["nee"][0]
     named = _nee_torch(st, u2, g_rad, g_pdf)
     _check(named, ds_j, 1e-4, 1e-3,
            skip=("params.disc_softness", "sun_angles"))
@@ -168,16 +181,14 @@ def test_nee_adjoint_plain_matches_jax_vjp(case):
     assert np.abs(named["sky_sampling_w"]).max() == 0     # detached
 
 
-def test_nee_adjoint_plain_matches_pallas_adjoint(case):
+def test_nee_adjoint_plain_matches_pallas_adjoint(case, jax_refs):
     """Against the TPU kernel K8 (`sunsky_nee_rgb_bwd_pallas`) in interpret
     mode at the 3e-2 bar. The cone samples' frame s and t get cotangents
     that cancel to ~1e-11 of the frame n's, and the sun's phi one that
     cancels on the sky samples, below the noise of the TPU kernel's
     polynomial sampler; the jnp test above holds them."""
-    js, st, _d, u2, g_rad, g_pdf = case
-    ds_p = JK.sunsky_nee_rgb_bwd_pallas(js, jnp.asarray(u2),
-                                        jnp.asarray(g_rad),
-                                        jnp.asarray(g_pdf), interpret=True)
+    _js, st, _d, u2, g_rad, g_pdf = case
+    ds_p = jax_refs["nee"][1]
     named = _nee_torch(st, u2, g_rad, g_pdf)
     _check(named, ds_p, 3e-2, 3e-2,
            skip=("sun_frame_s", "sun_frame_t", "sun_angles"))

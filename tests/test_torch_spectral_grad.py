@@ -145,6 +145,39 @@ def _hit_jax(js, d, wl, g_rad, g_pdf, with_pdf):
     return pull(g_rad)
 
 
+def _nee_jax(js, u2, wl, g_rad, g_pdf, with_pdf):
+    if with_pdf:
+        _, pull = jax.vjp(
+            lambda q, x: JM._sample_eval_spec_jnp(q, u2, x)[1:], js, wl)
+        return pull((g_rad, g_pdf))
+    _, pull = jax.vjp(
+        lambda q, x: JM._sample_eval_spec_jnp_rg(q, u2, x)[1], js, wl)
+    return pull(g_rad)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(case):
+    """Every JAX reference of the K12 and K13 cases below, traced and
+    compiled as one program (one compile, not eight): {(block, with_pdf):
+    (jax.vjp of the jnp path, the Pallas adjoint in interpret mode)}."""
+    js, _st, d, u2, wl, g_rad, g_pdf = case
+
+    def refs(js, d, u2, wl, g_rad, g_pdf):
+        out = {}
+        for p in (False, True):
+            gp = g_pdf if p else None
+            out[f"hit-{p}"] = (
+                _hit_jax(js, d, wl, g_rad, g_pdf, p),
+                JK.sunsky_hit_spec_bwd_pallas(js, d, wl, g_rad, gp,
+                                              with_pdf=p, interpret=True))
+            out[f"nee-{p}"] = (
+                _nee_jax(js, u2, wl, g_rad, g_pdf, p),
+                JK.sunsky_nee_spec_bwd_pallas(js, u2, wl, g_rad, gp,
+                                              with_pdf=p, interpret=True))
+        return out
+    return jax.jit(refs)(js, d, u2, wl, g_rad, g_pdf)
+
+
 def _hit_torch(st, d, wl, g_rad, g_pdf, with_pdf):
     fields = _RAD + (_PDF if with_pdf else ())
     leaf = _leaf_state(st, fields)
@@ -159,16 +192,15 @@ def _hit_torch(st, d, wl, g_rad, g_pdf, with_pdf):
 
 
 @pytest.mark.parametrize("with_pdf", [False, True], ids=["eval", "hit"])
-def test_hit_spec_adjoint_plain_matches_jax_vjp(case, with_pdf):
+def test_hit_spec_adjoint_plain_matches_jax_vjp(case, jax_refs, with_pdf):
     """K12's plain version, without the pdf (autograd of
     `_eval_spec_plain`, what K9 transposes into) and with it (of
     `_hit_spec_plain`), against jax.vjp of `_eval_spec_jnp` /
     `_hit_spec_jnp`: state-field cotangents within 1e-4 of their scale
     (the ramp-driven ones 1e-3), dd and dwl within 1e-4 of each lane's
     scale; dwl exactly 0 below the horizon and at or past 720 nm."""
-    js, st, d, _u2, wl, g_rad, g_pdf = case
-    ds_j, dd_j, dwl_j = jax.jit(_hit_jax, static_argnums=5)(
-        js, d, wl, g_rad, g_pdf, with_pdf)
+    _js, st, d, _u2, wl, g_rad, g_pdf = case
+    ds_j, dd_j, dwl_j = jax_refs[f"hit-{with_pdf}"][0]
     fields, named, dd, dwl = _hit_torch(st, d, wl, g_rad, g_pdf, with_pdf)
     _check(named, ds_j, fields, 1e-4, 1e-3)
     assert _lane_err(dd, dd_j) <= 1e-4
@@ -179,15 +211,13 @@ def test_hit_spec_adjoint_plain_matches_jax_vjp(case, with_pdf):
 
 
 @pytest.mark.parametrize("with_pdf", [False, True], ids=["eval", "hit"])
-def test_hit_spec_adjoint_plain_matches_pallas_adjoint(case, with_pdf):
+def test_hit_spec_adjoint_plain_matches_pallas_adjoint(case, jax_refs,
+                                                       with_pdf):
     """Against the TPU kernel K12 (`sunsky_hit_spec_bwd_pallas`) in
     interpret mode, whose polynomial trigonometry is loose at the disc
     edge: the Pallas adjoints' 3e-2 bar (tests/test_pallas.py:236)."""
-    js, st, d, _u2, wl, g_rad, g_pdf = case
-    ds_p, dd_p, dwl_p = JK.sunsky_hit_spec_bwd_pallas(
-        js, jnp.asarray(d), jnp.asarray(wl), jnp.asarray(g_rad),
-        jnp.asarray(g_pdf) if with_pdf else None, with_pdf=with_pdf,
-        interpret=True)
+    _js, st, d, _u2, wl, g_rad, g_pdf = case
+    ds_p, dd_p, dwl_p = jax_refs[f"hit-{with_pdf}"][1]
     fields, named, dd, dwl = _hit_torch(st, d, wl, g_rad, g_pdf, with_pdf)
     _check(named, ds_p, fields, 3e-2, 3e-2)
     assert _rel_max(dd, dd_p) <= 3e-2 and _rel_max(dwl, dwl_p) <= 3e-2
@@ -205,24 +235,15 @@ def _nee_torch(st, u2, wl, g_rad, g_pdf, with_pdf):
 
 
 @pytest.mark.parametrize("with_pdf", [False, True], ids=["detached", "pdf"])
-def test_nee_spec_adjoint_plain_matches_jax_vjp(case, with_pdf):
+def test_nee_spec_adjoint_plain_matches_jax_vjp(case, jax_refs, with_pdf):
     """K13's plain version (autograd of `_sample_eval_spec_plain`'s
     radiance, and with it its pdf through the sample's placement) against
     jax.vjp of `_sample_eval_spec_jnp_rg` / `_sample_eval_spec_jnp`. The
     two packages' samples differ by ulps, which moves a ramp lane's
     softness cotangent by ~1e-2 (tests/test_torch_grad.py:218-222) and a
     lane's wavelength cotangent by ~1e-4 of its scale: dwl within 1e-3."""
-    js, st, _d, u2, wl, g_rad, g_pdf = case
-
-    def vjp(s, w):
-        if with_pdf:
-            out, pull = jax.vjp(
-                lambda q, x: JM._sample_eval_spec_jnp(q, u2, x)[1:], s, w)
-            return pull((g_rad, g_pdf))
-        out, pull = jax.vjp(
-            lambda q, x: JM._sample_eval_spec_jnp_rg(q, u2, x)[1], s, w)
-        return pull(g_rad)
-    ds_j, dwl_j = jax.jit(vjp)(js, wl)
+    _js, st, _d, u2, wl, g_rad, g_pdf = case
+    ds_j, dwl_j = jax_refs[f"nee-{with_pdf}"][0]
     fields, named, dwl = _nee_torch(st, u2, wl, g_rad, g_pdf, with_pdf)
     _check(named, ds_j, fields, 1e-4, 1e-3, soft_tol=1e-2)
     assert _lane_err(dwl, dwl_j) <= 1e-3
@@ -232,17 +253,15 @@ def test_nee_spec_adjoint_plain_matches_jax_vjp(case, with_pdf):
 
 
 @pytest.mark.parametrize("with_pdf", [False, True], ids=["detached", "pdf"])
-def test_nee_spec_adjoint_plain_matches_pallas_adjoint(case, with_pdf):
+def test_nee_spec_adjoint_plain_matches_pallas_adjoint(case, jax_refs,
+                                                       with_pdf):
     """Against the TPU kernel K13 (`sunsky_nee_spec_bwd_pallas`) in
     interpret mode, at the 3e-2 bar of the adjoint kernels. The cone
     samples' frame s and t get cotangents that cancel to ~1e-11 of the
     frame n's, below the noise of the TPU kernel's polynomial sampler; the
     jnp test above holds them at 1e-4."""
-    js, st, _d, u2, wl, g_rad, g_pdf = case
-    ds_p, dwl_p = JK.sunsky_nee_spec_bwd_pallas(
-        js, jnp.asarray(u2), jnp.asarray(wl), jnp.asarray(g_rad),
-        jnp.asarray(g_pdf) if with_pdf else None, with_pdf=with_pdf,
-        interpret=True)
+    _js, st, _d, u2, wl, g_rad, g_pdf = case
+    ds_p, dwl_p = jax_refs[f"nee-{with_pdf}"][1]
     fields, named, dwl = _nee_torch(st, u2, wl, g_rad, g_pdf, with_pdf)
     _check(named, ds_p, [f for f in fields
                          if f not in ("sun_frame_s", "sun_frame_t")],

@@ -46,8 +46,48 @@ _STATE = ("sky_params", "sky_radiance", "sun_radiance", "sun_ld",
           "sun_frame_t", "sun_frame_n")
 
 
-@pytest.mark.parametrize("turbidity", [3.0, 3.5])
-def test_spectral_precompute_vjp_matches_jax(jax_tables, torch_tables,
+_TURBIDITIES = (3.0, 3.5)
+_ALBEDO = np.linspace(0.1, 0.6, 11).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_vjps(jax_tables):
+    """{turbidity: (the random cotangents of the state fields, their
+    pullback to the parameters by jax.vjp)}. The pullback is one jitted
+    program for both turbidities, but the sun's half aperture: its one
+    path is the sky/sun weight's 64 x 64 quadrature, whose float32 sums
+    jit reassociates (moving that cotangent by 3e-3 against op by op), so
+    its cotangent is taken op by op, as the port does, through
+    `_estimate_sky_sun_ratio` alone at the jitted state."""
+    def fields(p):
+        st = JM.precompute(jax_tables, p, "spectral")
+        return tuple(getattr(st, f) for f in _STATE)
+
+    @jax.jit
+    def pull(p, cts):
+        return (JM.precompute(jax_tables, p, "spectral"),
+                jax.vjp(fields, p)[1](cts)[0])
+    out = {}
+    for turbidity in _TURBIDITIES:
+        jp = ts.make_params(turbidity=turbidity, albedo=_ALBEDO,
+                            sun_direction=SUN, mode="spectral")
+        rng = np.random.default_rng(int(10 * turbidity))
+        cts = tuple(rng.normal(size=np.shape(x)).astype(np.float32)
+                    for x in jax.eval_shape(fields, jp))
+        js, g_j = pull(jp, cts)
+
+        def ratio(a, js=js):
+            p = js.params._replace(sun_half_aperture=a)
+            return JM._estimate_sky_sun_ratio(js._replace(params=p),
+                                              "spectral")[0]
+        (g_ap,) = jax.vjp(ratio, jp.sun_half_aperture)[1](
+            jnp.asarray(cts[_STATE.index("sky_sampling_w")]))
+        out[turbidity] = cts, g_j._replace(sun_half_aperture=g_ap)
+    return out
+
+
+@pytest.mark.parametrize("turbidity", _TURBIDITIES)
+def test_spectral_precompute_vjp_matches_jax(jax_vjps, torch_tables,
                                              turbidity):
     """A random cotangent on every state field the spectral kernels read,
     pulled back to the parameters: within 1e-4 of jax.vjp, relative to
@@ -55,22 +95,12 @@ def test_spectral_precompute_vjp_matches_jax(jax_tables, torch_tables,
     Its one path is the sky/sun weight's 64 x 64 quadrature, whose float32
     sums the two packages take in different orders: that moves this
     cotangent by 1.8e-4 to 4.6e-4 (under jit, which reassociates them
-    further, by 3e-3; the JAX side therefore runs op by op, as the port
-    does). Turbidity 3.0 sits on the lerp's kink. The disc softness enters
-    no field: its cotangent is 0 on both sides."""
-    albedo = np.linspace(0.1, 0.6, 11).astype(np.float32)
-    jp = ts.make_params(turbidity=turbidity, albedo=albedo, sun_direction=SUN,
-                        mode="spectral")
-    def state(p):
-        return tuple(getattr(JM.precompute(jax_tables, p, "spectral"), f)
-                     for f in _STATE)
-    rng = np.random.default_rng(int(10 * turbidity))
-    cts = [rng.normal(size=np.shape(x)).astype(np.float32)
-           for x in jax.eval_shape(state, jp)]
-    (g_j,) = jax.vjp(state, jp)[1](tuple(jnp.asarray(c) for c in cts))
-
-    p = TM.make_params(turbidity=turbidity, albedo=albedo, sun_direction=SUN,
-                       mode="spectral", device="cpu")
+    further, by 3e-3; the JAX side therefore takes it op by op, as the
+    port does). Turbidity 3.0 sits on the lerp's kink. The disc softness
+    enters no field: its cotangent is 0 on both sides."""
+    cts, g_j = jax_vjps[turbidity]
+    p = TM.make_params(turbidity=turbidity, albedo=_ALBEDO,
+                       sun_direction=SUN, mode="spectral", device="cpu")
     p = p._replace(**{f: getattr(p, f).clone().requires_grad_()
                       for f in _PARAMS})
     st = TM.precompute(torch_tables, p, "spectral")

@@ -1,18 +1,27 @@
 """Time one checkout of the port on the card, for A/B comparisons of two
 checkouts in one call (run each in turns: A, B, B, A).
 
-    python3 tools/torch_ab.py k14 <checkout>    # K14 alone
-    python3 tools/torch_ab.py host <checkout>   # host-bound frames
+    python3 tools/torch_ab.py k14 <checkout>       # K14 alone
+    python3 tools/torch_ab.py spec_bwd <checkout>  # K12 and K13 alone
+    python3 tools/torch_ab.py host <checkout>      # host-bound frames
 
 `k14`: K14 alone on bench_mesh's two wavefronts (1,048,576 rays) at
 icosphere(4-7), direct and sorted (the sort not timed), median of 7 CUDA
 event times, with a checksum of the hits (equal checksums, equal hits).
+`spec_bwd`: K12 and K13 alone at 2,097,152 lanes, without and with the
+pdf, by lane mix (K12: chip_smoke's phase 6 directions at 4 and 10
+wavelengths, and every lane in the sun's disc; K13: the headline sky
+weight, every lane a TGMM sky sample, every lane a sun-cone sample),
+median of 7 CUDA-event times with a checksum of the cotangent row (sums
+taken by shared atomics in no fixed order agree to ~1e-6), then each
+case's device time split between pass 1 and `reduce_partials` by
+torch.profiler, and the ptxas report of the spectral adjoint's kernels.
 `host`: medians and quartiles of 7 host-clock times, each ending in a
-synchronise, of the bench_spectral frame, bench_grad's fwd+bwd through
-render_rows and the mesh frame. Each imports the checkout's own
-`tpusky_torch` and `chip_smoke.py`, so the two sides build and run their
-own kernels. Prints one line per case with the card's name and power
-limit.
+synchronise, of the bench_spectral frame, bench_grad's and
+bench_spectral_grad's fwd+bwd through render_rows and the mesh frame.
+Each imports the checkout's own `tpusky_torch` and `chip_smoke.py`, so
+the two sides build and run their own kernels. Prints one line per case
+with the card's name and power limit.
 """
 
 import os
@@ -48,6 +57,89 @@ def k14(C, card):
     return out
 
 
+def spec_bwd(C, card):
+    import torch
+    import tpusky_torch as tt
+    from torch.profiler import ProfilerActivity, profile
+    from tpusky_torch.ops import spectrum
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import sunsky_kernel as K
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(12)
+    n = C.N_LANES
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=C.SUN, mode="spectral",
+        device=dev), mode="spectral")
+    tables = K.pack_tables_spec(state, dev)
+
+    def tensor(x):
+        return torch.tensor(x.astype(np.float32), device=dev)
+    u = rng.random((n, 2), dtype=np.float32)
+    st = np.sqrt(1.0 - u[:, 0] ** 2)
+    phi = 2.0 * np.pi * u[:, 1]
+    d = tensor(np.stack([st * np.cos(phi), st * np.sin(phi), u[:, 0]], -1))
+    d[: n // 8, 2] = -d[: n // 8, 2]
+    d = C._with_disc_edge(d, state, rng)
+    wl = spectrum.sample_rgb_spectrum(spectrum.sample_shifted(
+        tensor(rng.random(n)), C.N_HERO))[0].contiguous()
+    m = 1 << 16
+    wl10 = tensor(rng.uniform(300.0, 760.0, (m, 10)))
+    u2 = tensor(rng.random((n, 2)))
+    w_sky = float(state.sky_sampling_w)
+    u_sky = torch.stack([u2[:, 0] * w_sky, u2[:, 1]], -1).contiguous()
+    u_sun = torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0], u2[:, 1]],
+                        -1).contiguous()
+    # every lane in the disc: the sun-cone samples' directions
+    d_disc = K.launch_nee_spec(tables, u_sun, wl)[0].contiguous()
+    g, g10 = tensor(rng.normal(size=(n, C.N_HERO))), tensor(
+        rng.normal(size=(m, 10)))
+    g_pdf = tensor(rng.normal(size=n))
+    cases = {}
+    for pdf in (None, g_pdf):
+        tag = "" if pdf is None else " with the pdf"
+        cases[f"K12{tag} headline"] = lambda p=pdf: K.launch_hit_spec_bwd(
+            tables, d, wl, g, p)
+        cases[f"K12{tag} 64K lanes x 10 wavelengths"] = (
+            lambda p=pdf: K.launch_hit_spec_bwd(
+                tables, d[n - m:], wl10, g10, None if p is None else p[:m]))
+        cases[f"K12{tag} all disc"] = lambda p=pdf: K.launch_hit_spec_bwd(
+            tables, d_disc, wl, g, p)
+        for mix, uu in (("headline", u2), ("all sky", u_sky),
+                        ("all sun-cone", u_sun)):
+            cases[f"K13{tag} {mix}"] = (
+                lambda p=pdf, uu=uu: K.launch_nee_spec_bwd(
+                    tables, uu, wl, g, p))
+    out = []
+    for name, fn in cases.items():
+        row = torch.cat([x.reshape(-1) for x in fn()
+                         if x is not None][-6:]).double()
+        ms = C._median_ms(fn, reps=7)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        split = {"pass 1": 0.0, "reduce_partials": 0.0}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = ("reduce_partials" if "reduce_partials" in e.name
+                       else "pass 1" if "bwd_kernel" in e.name else None)
+                if key is not None:
+                    split[key] += e.device_time_total / 3e3
+        out.append(f"{name}: {ms:.4f} ms (profiled: pass 1 "
+                   f"{split['pass 1']:.4f} ms, reduce_partials "
+                   f"{split['reduce_partials']:.4f} ms) checksum "
+                   f"{float(row.sum()):.6e} {float(row.abs().sum()):.6e}")
+    # the log itself, so that a checkout without build.ptxas_report
+    # prints it too
+    with open(build.build()[:-3] + ".log") as f:
+        log = f.read().split("== sunsky_spectral_adjoint.cu")[1].split(
+            "\n== ")[0]
+    out += [" ".join(line.split()) for line in log.splitlines()
+            if "spill" in line or "registers" in line
+            or "Compiling entry" in line]
+    return out
+
+
 def host(C, card):
     import torch
     import tpusky_torch as tt
@@ -76,12 +168,16 @@ def host(C, card):
     sc_h, se_h = C._headline_scene(rgb, dev)
     tables = tt.load_tables("rgb", device=dev)
     sc_m, se_m = C._mesh_scene(rgb, C.FRAME_SUBDIV, dev)
+    sc_g, se_g = C._spectral_grad_scene(spec, dev)
+    tables_s = tt.load_tables("spectral", device=dev)
     out = {
         "spectral frame": med(lambda: integrator.render(
             sc_s, se_s, film, C.SEED, spp=C.SPP, max_depth=C.SPEC_DEPTH,
             mode="spectral")),
         "bench_grad rows": med(lambda: C.grad_case(
             "rows", sc_h, se_h, film, tables, dev)),
+        "bench_spectral_grad rows": med(lambda: C.spectral_grad_case(
+            "rows", sc_g, se_g, film, tables_s, dev)),
         "mesh frame": med(lambda: integrator.render(
             sc_m, se_m, film, C.SEED, spp=C.SPP, max_depth=C.MESH_DEPTH)),
     }
@@ -96,7 +192,8 @@ def main():
     from tpusky_torch.ops.cuda import build
     card = C._card_line()
     build.library()
-    for line in {"k14": k14, "host": host}[mode](C, card):
+    modes = {"k14": k14, "spec_bwd": spec_bwd, "host": host}
+    for line in modes[mode](C, card):
         print(f"{mode.upper()} {os.path.relpath(tree)} {line} [{card}]")
 
 

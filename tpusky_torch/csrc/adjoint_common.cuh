@@ -66,49 +66,94 @@ __device__ __forceinline__ float gauss_sum_vjp_warp(
   return P.sky ? tg : 0.0f;
 }
 
-// The sun table's cotangent of a warp's lanes (all 32 lanes call it each
-// iteration), added to s_sun (45, 72), the block's copy. A lane's is an
-// outer product on one row (tsk::SunCot), and a warp's lanes mostly share
-// one or two of the 45 rows (sun-cone samples all do), so adding them lane
-// by lane would put up to 32 shared atomics on each address. Instead the
-// lanes are grouped by row (__match_any_sync), stage their 13 floats in
-// s_rec (the warp's 32 x 13 floats), and for each group lane l sums
-// entries l, l + 32 and l + 64 over the group's lanes in lane order and
-// adds each with one shared atomic: only the block's warps contend for an
-// address. A warp whose lanes have no sun cotangent returns at once.
+// A cotangent of a warp's lanes that is, on each lane, an outer product
+// g[c] * (a[k] * b[j]) on one row `key` of a table in shared memory
+// (entry (c * kNK + k) * kNJ + j; kK or kJ 0 for an absent factor, whose
+// count kNK or kNJ is then 1), added to that row (all 32 lanes call it;
+// has false on a lane without one). A warp's lanes often share a row
+// (K6's and K13's sun-cone samples all do), so adding them lane by lane
+// would put up to 32 shared atomics on each address. Instead the lanes are
+// grouped by row (__match_any_sync) and stage their kC + kK + kJ floats
+// in s_rec (the warp's 32 records); for each group lane l sums entries l,
+// l + 32, ... (or, where a row of g has at most 8 entries, lane c those
+// of g[c]) over the group's lanes in lane order and adds each with one
+// shared atomic: only the block's warps contend for an address. A warp
+// whose lanes have none returns at once.
+template <int kC, int kK, int kJ>
+__device__ __forceinline__ void outer_rows_warp(bool has, int key,
+                                                const float* g,
+                                                const float* a,
+                                                const float* b, float* s_rec,
+                                                float* rows, int row_len) {
+  constexpr int kRec = kC + kK + kJ;
+  constexpr int kNK = kK > 0 ? kK : 1, kNJ = kJ > 0 ? kJ : 1;
+  unsigned todo = __ballot_sync(kFull, has);
+  if (todo == 0u) return;
+  int lane = threadIdx.x & 31;
+  unsigned same = __match_any_sync(kFull, has ? key : -1);
+  float* mine = s_rec + lane * kRec;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) mine[c] = g[c];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) mine[kC + k] = a[k];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) mine[kC + kK + j] = b[j];
+  __syncwarp();
+  while (todo != 0u) {
+    int leader = __ffs(todo) - 1;
+    unsigned group = __shfl_sync(kFull, same, leader);
+    float* row = rows + __shfl_sync(kFull, key, leader) * row_len;
+    if constexpr (kC <= 32 && kNK * kNJ <= 8) {
+      // few entries a row of g: lane c sums all of them, reading each
+      // record's g[c] once
+      if (lane < kC) {
+        float sum[kNK * kNJ];
+#pragma unroll
+        for (int q = 0; q < kNK * kNJ; ++q) sum[q] = 0.0f;
+        for (unsigned m = group; m != 0u; m &= m - 1) {
+          const float* rec = s_rec + (__ffs(m) - 1) * kRec;
+          float gc = rec[lane];
+#pragma unroll
+          for (int k = 0; k < kNK; ++k)
+#pragma unroll
+            for (int j = 0; j < kNJ; ++j) {
+              float ak = kK > 0 ? rec[kC + k] : 1.0f;
+              float bj = kJ > 0 ? rec[kC + kK + j] : 1.0f;
+              sum[k * kNJ + j] += gc * (ak * bj);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < kNK * kNJ; ++q)
+          atomicAdd(row + lane * kNK * kNJ + q, sum[q]);
+      }
+    } else {
+      for (int e = lane; e < kC * kNK * kNJ; e += 32) {
+        int c = e / (kNK * kNJ), k = (e / kNJ) % kNK, j = e % kNJ;
+        float sum = 0.0f;
+        for (unsigned m = group; m != 0u; m &= m - 1) {
+          const float* rec = s_rec + (__ffs(m) - 1) * kRec;
+          float ak = kK > 0 ? rec[kC + k] : 1.0f;
+          float bj = kJ > 0 ? rec[kC + kK + j] : 1.0f;
+          sum += rec[c] * (ak * bj);
+        }
+        atomicAdd(row + e, sum);
+      }
+    }
+    todo &= ~group;
+  }
+  __syncwarp();   // the records are read before the next call writes them
+}
+
+// The RGB sun table's cotangent of a warp's lanes, added to s_sun (45, 72),
+// the block's copy: a lane's is g[ch] * (xp[k] * cp[j]) on its row
+// (tsk::SunCot), staged in s_rec (the warp's 32 x kSunRec floats).
 constexpr int kSunRec = 3 + 4 + tsk::N_LD;
 
 __device__ __forceinline__ void sun_row_warp(const tsk::SunCot& sc,
                                              float* s_rec, float* s_sun) {
   bool has = sc.g[0] != 0.0f || sc.g[1] != 0.0f || sc.g[2] != 0.0f;
-  unsigned todo = __ballot_sync(kFull, has);
-  if (todo == 0u) return;
-  int lane = threadIdx.x & 31;
-  unsigned same = __match_any_sync(kFull, has ? sc.pos : -1);
-  float* mine = s_rec + lane * kSunRec;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) mine[c] = sc.g[c];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) mine[3 + k] = sc.xp[k];
-#pragma unroll
-  for (int j = 0; j < tsk::N_LD; ++j) mine[7 + j] = sc.cp[j];
-  __syncwarp();
-  while (todo != 0u) {
-    int leader = __ffs(todo) - 1;
-    unsigned group = __shfl_sync(kFull, same, leader);
-    float* row = s_sun + __shfl_sync(kFull, sc.pos, leader) * tsk::SUN_F;
-    for (int e = lane; e < tsk::SUN_F; e += 32) {
-      int ch = e / 24, k = (e / 6) % 4, j = e % 6;
-      float sum = 0.0f;
-      for (unsigned b = group; b != 0u; b &= b - 1) {
-        const float* rec = s_rec + (__ffs(b) - 1) * kSunRec;
-        sum += rec[ch] * (rec[3 + k] * rec[7 + j]);
-      }
-      atomicAdd(row + e, sum);
-    }
-    todo &= ~group;
-  }
-  __syncwarp();   // the records are read before the next call writes them
+  outer_rows_warp<3, 4, tsk::N_LD>(has, sc.pos, sc.g, sc.xp, sc.cp, s_rec,
+                                   s_sun, tsk::SUN_F);
 }
 
 // The sum of the warps' copies w of a shared table, entry j, in warp order.

@@ -243,7 +243,7 @@ constexpr int ACC_SKYP = 0;
 constexpr int ACC_SKYR = 27;
 constexpr int ACC_MISC = 30;
 constexpr int N_ACC = 46;
-// The spectral small tables' cotangents (radiance_spec_vjp's `small`):
+// The spectral small tables' cotangents (K12/K13's per-warp copy):
 // skyp (11, 9), then skyr (11,), then ld (11, 6).
 constexpr int SPEC_SKYP = 0;
 constexpr int SPEC_SKYR = 99;
@@ -516,88 +516,122 @@ __device__ __forceinline__ SpecSun spec_sun_channel(const Tables& T,
   return s;
 }
 
-// The reverse of spec_sun_channel for its values' cotangents gs (sun) and
-// gl (limb darkening): the sun row's cotangent to sun_acc, the limb table's
-// to small, both shared (atomics), the geometry's to c.
-__device__ __forceinline__ void spec_sun_vjp(const VjpGeom& v, int ch,
-                                             const SpecSun& s, float gs,
-                                             float gl, float* small,
-                                             float* sun_acc, GeomCot& c) {
-  float* __restrict__ row = sun_acc + v.pos * SUN_SPEC_F + 4 * ch;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) atomicAdd(row + k, gs * v.xp[k]);
-  c.x += gs * s.sun_x;
-  float* __restrict__ lrow = small + SPEC_LD + N_LD * ch;
-#pragma unroll
-  for (int j = 0; j < N_LD; ++j) atomicAdd(lrow + j, gl * v.cp[j]);
-  c.cpsi += gl * s.ld_cp;
+// Wavelength wl's two dataset channels and its lerp weight between them;
+// false outside [320, 720] nm (both channels are channel 10 at 720 nm).
+__device__ __forceinline__ bool spec_lerp(float wl, int* lo, int* hi,
+                                          float* f) {
+  float nwl = (wl - 320.0f) / 40.0f;
+  if (!(nwl >= 0.0f && nwl <= (float)(N_CH - 1))) return false;
+  *lo = min(max((int)floorf(nwl), 0), N_CH - 1);
+  *hi = min(*lo + 1, N_CH - 1);
+  *f = nwl - (float)*lo;
+  return true;
 }
 
-// Reverse-mode derivative of radiance_spec() (model.py::_eval_spec_plain)
-// at one direction and its nw wavelengths wl, given the cotangents g (nw)
-// of its outputs. Adds the direction's cotangent to dd; writes each
-// wavelength's cotangent to dwl (unless null): through the lerp weight f
-// of each of the sky, sun and limb-darkening lerps, 0 outside [320, 720]
-// nm and, since both channels are channel 10 there, at 720 nm exactly.
-// The misc row's cotangent goes to am (registers); skyp, skyr and ld's to
-// small (layout SPEC_*) and the (45, 44) sun table's to sun_acc, both in
-// shared memory, by atomics.
-__device__ __forceinline__ void radiance_spec_vjp(
-    const Tables& T, float dx, float dy, float dz,
-    const float* __restrict__ wl, const float* __restrict__ g, int nw,
-    float dd[3], float* __restrict__ dwl, float am[16], float* small,
-    float* sun_acc) {
-  if (dz < 0.0f) {                        // below the horizon: radiance 0
-    if (dwl != nullptr)
-      for (int w = 0; w < nw; ++w) dwl[w] = 0.0f;
-    return;
+// a[lo] += (1 - f) x and a[hi] += f x, lo and hi known only at run time,
+// by selection over the channels (a stays in registers)
+__device__ __forceinline__ void lerp_add(float a[N_CH], int lo, int hi,
+                                         float f, float x) {
+#pragma unroll
+  for (int ch = 0; ch < N_CH; ++ch) {
+    if (ch == lo) a[ch] += (1.0f - f) * x;
+    if (ch == hi) a[ch] += f * x;
   }
-  const float* __restrict__ misc = T.misc;
-  VjpGeom v = vjp_geometry(misc, dx, dy, dz);
+}
+
+// a[i], i known only at run time, by selection
+__device__ __forceinline__ float pick(const float a[N_CH], int i) {
+  float v = a[0];
+#pragma unroll
+  for (int ch = 1; ch < N_CH; ++ch) v = ch == i ? a[ch] : v;
+  return v;
+}
+
+// A lane's cotangents of radiance_spec()'s per-channel values, folded from
+// its wavelengths onto the 11 dataset channels. Everything after a
+// wavelength's lerp between its two channels is linear in the cotangents,
+// so channel ch's is the sum over the lane's wavelengths of the lerp
+// weight times the wavelength's cotangent; the tables' cotangents then
+// take one reverse a channel, not one a (wavelength, channel) pair.
+struct SpecFold {
+  unsigned need;        // bit ch: a wavelength with a cotangent reads ch
+  bool sun;             // in the disc: sun and ld carry cotangents
+  float sky[N_CH];      // of the sky formula's value (sky_scale not in)
+  float sun_c[N_CH];    // of the sun polynomial's value
+  float ld[N_CH];       // of the limb darkening's value
+};
+
+// The reverse of radiance_spec() (model.py::_eval_spec_plain) at one
+// above-horizon lane, first pass: over its nw wavelengths wl with
+// cotangents g, folds them onto the channels (F, zeroed by the caller)
+// and takes what the sun polynomial and the limb darkening's values give
+// at each wavelength: the misc row's sun scale (am), the disc weight's
+// and the geometry's cotangents (c). The sky formula's reverse follows
+// once a channel (sky_channel_vjp with F.sky), its table cotangents summed
+// over a warp; then spec_dwl and geometry_vjp.
+__device__ __forceinline__ void spec_fold(const Tables& T, const VjpGeom& v,
+                                          const float* __restrict__ wl,
+                                          const float* __restrict__ g,
+                                          int nw, SpecFold& F, float am[16],
+                                          GeomCot& c) {
   // the sun and limb darkening's values reach the cotangents in the disc
   // and, through the disc weight, on its ramp
   bool sun_value = v.hard != 0.0f || (v.ramp >= 0.0f && v.ramp <= 1.0f);
-  float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
-  GeomCot c = {};
+  float sun_scale = T.misc[M_SUN_SCALE];
   for (int w = 0; w < nw; ++w) {
     float G = g[w];
-    float nwl = (wl[w] - 320.0f) / 40.0f;
-    float g_f = 0.0f;
-    if (G != 0.0f && nwl >= 0.0f && nwl <= (float)(N_CH - 1)) {
-      int lo = min(max((int)floorf(nwl), 0), N_CH - 1);
-      int hi = min(lo + 1, N_CH - 1);
-      float f = nwl - (float)lo;
-      // r = sky_scale lerp(sky) + w sun_scale lerp(sun) lerp(ld)
-      float g_sky = G * sky_scale;
-      float sky0 = sky_channel_vjp(T.skyp + 9 * lo, T.skyr[lo], v,
-                                   (1.0f - f) * g_sky,
-                                   small + SPEC_SKYP + 9 * lo,
-                                   small + SPEC_SKYR + lo, c, AtomicAdd());
-      float sky1 = sky_channel_vjp(T.skyp + 9 * hi, T.skyr[hi], v,
-                                   f * g_sky, small + SPEC_SKYP + 9 * hi,
-                                   small + SPEC_SKYR + hi, c, AtomicAdd());
-      am[M_SKY_SCALE] += G * ((1.0f - f) * sky0 + f * sky1);
-      g_f = g_sky * (sky1 - sky0);
-      if (sun_value) {
+    int lo, hi;
+    float f;
+    if (G == 0.0f || !spec_lerp(wl[w], &lo, &hi, &f)) continue;
+    F.need |= (1u << lo) | (1u << hi);
+    lerp_add(F.sky, lo, hi, f, G);
+    if (sun_value) {
+      SpecSun s0 = spec_sun_channel(T, v, lo);
+      SpecSun s1 = spec_sun_channel(T, v, hi);
+      float sun = (1.0f - f) * s0.sun + f * s1.sun;
+      float ld = (1.0f - f) * s0.ld + f * s1.ld;
+      am[M_SUN_SCALE] += G * v.hard * sun * ld;
+      c.w += G * sun_scale * sun * ld;
+      if (v.hard != 0.0f) {
+        float g_sun = G * sun_scale * ld;
+        float g_ld = G * sun_scale * sun;
+        F.sun = true;
+        lerp_add(F.sun_c, lo, hi, f, g_sun);
+        lerp_add(F.ld, lo, hi, f, g_ld);
+        c.x += ((1.0f - f) * g_sun) * s0.sun_x + (f * g_sun) * s1.sun_x;
+        c.cpsi += ((1.0f - f) * g_ld) * s0.ld_cp + (f * g_ld) * s1.ld_cp;
+      }
+    }
+  }
+}
+
+// Each wavelength's cotangent (dwl, nw floats) after the sky's channel
+// values sky (those F.need names) are known: through the lerp weight f of
+// each of the sky, sun and limb-darkening lerps, 0 outside [320, 720] nm
+// and, since both channels are channel 10 there, at 720 nm exactly.
+__device__ __forceinline__ void spec_dwl(const Tables& T, const VjpGeom& v,
+                                         const float* __restrict__ wl,
+                                         const float* __restrict__ g,
+                                         int nw, const float sky[N_CH],
+                                         float* __restrict__ dwl) {
+  float sky_scale = T.misc[M_SKY_SCALE], sun_scale = T.misc[M_SUN_SCALE];
+  for (int w = 0; w < nw; ++w) {
+    float G = g[w];
+    int lo, hi;
+    float f, g_f = 0.0f;
+    if (G != 0.0f && spec_lerp(wl[w], &lo, &hi, &f)) {
+      g_f = G * sky_scale * (pick(sky, hi) - pick(sky, lo));
+      if (v.hard != 0.0f) {
         SpecSun s0 = spec_sun_channel(T, v, lo);
         SpecSun s1 = spec_sun_channel(T, v, hi);
         float sun = (1.0f - f) * s0.sun + f * s1.sun;
         float ld = (1.0f - f) * s0.ld + f * s1.ld;
-        am[M_SUN_SCALE] += G * v.hard * sun * ld;
-        c.w += G * sun_scale * sun * ld;
-        if (v.hard != 0.0f) {
-          float g_sun = G * sun_scale * ld;
-          float g_ld = G * sun_scale * sun;
-          g_f += g_sun * (s1.sun - s0.sun) + g_ld * (s1.ld - s0.ld);
-          spec_sun_vjp(v, lo, s0, (1.0f - f) * g_sun, (1.0f - f) * g_ld,
-                       small, sun_acc, c);
-          spec_sun_vjp(v, hi, s1, f * g_sun, f * g_ld, small, sun_acc, c);
-        }
+        g_f += G * sun_scale * ld * (s1.sun - s0.sun)
+               + G * sun_scale * sun * (s1.ld - s0.ld);
       }
     }
-    if (dwl != nullptr) dwl[w] = g_f / 40.0f;
+    dwl[w] = g_f / 40.0f;
   }
-  geometry_vjp(misc, v, c, dd, am);
 }
 
 // mixture_pdf()'s forward state at one direction (model.py::compute_pdfs):

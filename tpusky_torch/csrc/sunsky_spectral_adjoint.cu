@@ -19,24 +19,33 @@
 //                          it the placement is fully detached, as in K6.
 //
 // with_pdf is a template flag, chosen at launch by whether g_pdf is given.
-// The reverse sweeps are sunsky_core.cuh's: radiance_spec_vjp (sharing
-// radiance_vjp's geometry, sky formula, disc surrogate and gamma chain),
-// pdf_lane_vjp/gauss_term_vjp/pdf_vjp_tail and nee_sample_vjp. The TPU kernels
-// traced a jax.vjp over (11, B) channel tiles and one-hot products
-// (sunsky_kernel.py:1203-1280); here a lane reverses only the two channels
-// around each of its wavelengths.
+// The reverse sweeps are sunsky_core.cuh's: the radiance's in pieces
+// (vjp_geometry, spec_fold, sky_channel_vjp, spec_dwl, geometry_vjp,
+// sharing radiance_vjp's geometry, sky formula, disc surrogate and gamma
+// chain), pdf_lane_vjp/gauss_term_vjp/pdf_vjp_tail and nee_sample_vjp. The
+// TPU kernels traced a jax.vjp over (11, B) channel tiles and one-hot
+// products (sunsky_kernel.py:1203-1280).
 //
 // What bounds them on an H100: arithmetic, as K5-K8 (the forward plus its
-// reverse, ~3x K9's work a lane). The reduction over lanes takes
-// adjoint_common.cuh's two passes. The spectral small tables' cotangents
-// (skyp (11, 9), skyr, ld (11, 6): 176 floats) are too many for per-thread
-// registers, and a lane touches only two channels a wavelength, so they go
-// to a copy per warp in shared memory by atomics; the misc row's (16),
-// which every lane touches, stay in registers and are summed at the end;
-// the (45, 44) sun table takes K5's block-wide copy and atomics; the
-// gaussian table (with_pdf) K7's per-warp copy. A block's partial row is
-// [sun 1980 | skyp 99 | skyr 11 | ld 66 | misc 16 | gauss 280] (gauss zero
-// without the pdf).
+// reverse, ~3x K9's work a lane), and how the table cotangents are summed
+// over lanes. A lane's wavelengths are first folded onto the 11 dataset
+// channels (spec_fold), one cotangent a channel for each of the sky
+// formula, the sun polynomial and the limb darkening. The sky tables'
+// cotangents (skyp (11, 9), skyr) are then taken channel by channel,
+// warp-uniformly: a channel no lane of the warp reads is skipped
+// (__any_sync), the others reversed in registers (sky_channel_vjp with
+// PlainAdd), staged per warp and summed over its lanes, one lane an
+// entry, into the warp's copy (against shuffle sums added by lane 0, on
+// an H100 at 2M lanes x 4 wavelengths: K12 0.495 ms against 0.538). The
+// sun row's ((45, 44), the block's copy) and the limb table's ((11, 6),
+// the warp's copy) take K6's epilogue
+// (adjoint_common.cuh::outer_rows_warp): records staged per warp, the sun
+// row summed over the lanes that share it, the limb table over the warp,
+// one shared atomic per entry per group. No two lanes of a warp add to
+// one address of these tables. The misc row's (16), which every lane touches, stays in
+// registers and is summed at the end; the gaussian table (with_pdf) takes
+// K7's per-warp copy. A block's partial row is [sun 1980 | skyp 99 |
+// skyr 11 | ld 66 | misc 16 | gauss 280] (gauss zero without the pdf).
 
 #include "adjoint_common.cuh"
 
@@ -46,10 +55,56 @@ constexpr int kSunN = tsk::N_SEG * tsk::SUN_SPEC_F;            // 1980
 constexpr int kMiscCol = kSunN + tsk::N_SPEC_SMALL;            // 2156
 constexpr int kGaussCol = kMiscCol + 16;                        // 2172
 constexpr int kRow = kGaussCol + kGaussN;                       // 2452
+// a lane's staged record: the limb table's (11 + 6 floats), the largest of
+// the sun row's (11 + 4), the limb table's and a sky channel's (10)
+constexpr int kSpecRec = tsk::N_CH + tsk::N_LD;
+
+// The sky formula's reverse of a warp's lanes, channel by channel (all 32
+// lanes call it): lane by lane in registers for the channels it reads
+// (F.need), writing their values to sky and the geometry's cotangents to
+// c, the sky scale's to am. A channel's 10 table cotangents are staged in
+// s_rec (the warp's 32 x 10 floats), lane k < 10 sums entry k over the 32
+// lanes in lane order and adds it to small (the warp's copy, layout
+// SPEC_*): no atomics.
+__device__ __forceinline__ void spec_sky_warp(const tsk::Tables& T,
+                                              const tsk::VjpGeom& v,
+                                              const tsk::SpecFold& F,
+                                              float sky[tsk::N_CH],
+                                              tsk::GeomCot& c, float am[16],
+                                              float* small, float* s_rec) {
+  float sky_scale = T.misc[tsk::M_SKY_SCALE];
+  int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ch = 0; ch < tsk::N_CH; ++ch) {
+    bool has = (F.need >> ch) & 1u;
+    sky[ch] = 0.0f;
+    if (!__any_sync(kFull, has)) continue;
+    float ak[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) ak[k] = 0.0f;
+    if (has) {
+      sky[ch] = tsk::sky_channel_vjp(T.skyp + 9 * ch, T.skyr[ch], v,
+                                     F.sky[ch] * sky_scale, ak, ak + 9, c,
+                                     tsk::PlainAdd());
+      am[tsk::M_SKY_SCALE] += F.sky[ch] * sky[ch];
+    }
+#pragma unroll
+    for (int k = 0; k < 10; ++k) s_rec[lane * 10 + k] = ak[k];
+    __syncwarp();
+    if (lane < 10) {
+      float sum = 0.0f;
+      for (int l = 0; l < 32; ++l) sum += s_rec[l * 10 + lane];
+      small[lane < 9 ? tsk::SPEC_SKYP + 9 * ch + lane
+                     : tsk::SPEC_SKYR + ch] += sum;
+    }
+    __syncwarp();   // read before the next channel writes
+  }
+}
 
 // Pass 1. kNee false (K12) reads directions (n, 3) and writes dd (unless
 // null); kNee true (K13) reads uniforms (n, 2) and redraws each sample.
-// Both write dwl (n, nw) unless it is null.
+// Both write dwl (n, nw) unless it is null. Every thread of a block runs
+// the same iterations and calls the warp-level parts on each.
 template <bool kNee, bool kPdf>
 __device__ __forceinline__ void spec_adjoint_pass(
     const float* __restrict__ in, const float* __restrict__ wl,
@@ -60,6 +115,7 @@ __device__ __forceinline__ void spec_adjoint_pass(
   __shared__ float s_small[kWarps * tsk::N_SPEC_SMALL];
   __shared__ float s_misc[kWarps * 16];
   __shared__ float s_gauss[kPdf ? kWarps * kGaussN : 1];
+  __shared__ float s_rec[kWarps * 32 * kSpecRec];
   for (int i = threadIdx.x; i < kSunN; i += kThreads) s_sun[i] = 0.0f;
   for (int i = threadIdx.x; i < kWarps * tsk::N_SPEC_SMALL; i += kThreads)
     s_small[i] = 0.0f;
@@ -70,6 +126,7 @@ __device__ __forceinline__ void spec_adjoint_pass(
   int warp = threadIdx.x >> 5;
   float* s_small_w = s_small + warp * tsk::N_SPEC_SMALL;
   float* s_gauss_w = s_gauss + (kPdf ? warp * kGaussN : 0);
+  float* s_rec_w = s_rec + warp * 32 * kSpecRec;
 
   float am[16];
 #pragma unroll
@@ -100,9 +157,27 @@ __device__ __forceinline__ void spec_adjoint_pass(
         d[2] = in[3 * i + 2];
       }
     }
-    if (live && rad) {
-      tsk::radiance_spec_vjp(T, d[0], d[1], d[2], wl + row, g + row, nw, dd,
-                             dwl, am, s_small_w, s_sun);
+    // the radiance's reverse (0 below the horizon)
+    bool act = live && rad && d[2] >= 0.0f;
+    tsk::VjpGeom v = {};
+    tsk::GeomCot c = {};
+    tsk::SpecFold F = {};
+    float sky[tsk::N_CH];
+    if (act) {
+      v = tsk::vjp_geometry(T.misc, d[0], d[1], d[2]);
+      tsk::spec_fold(T, v, wl + row, g + row, nw, F, am, c);
+    }
+    // the sun row's and the limb table's cotangents first, so that their
+    // folded channels are not held through the sky's reverse
+    outer_rows_warp<tsk::N_CH, 4, 0>(F.sun, v.pos, F.sun_c, v.xp, nullptr,
+                                     s_rec_w, s_sun, tsk::SUN_SPEC_F);
+    outer_rows_warp<tsk::N_CH, 0, tsk::N_LD>(F.sun, 0, F.ld, nullptr, v.cp,
+                                             s_rec_w,
+                                             s_small_w + tsk::SPEC_LD, 0);
+    spec_sky_warp(T, v, F, sky, c, am, s_small_w, s_rec_w);
+    if (act) {
+      if (dwl != nullptr) tsk::spec_dwl(T, v, wl + row, g + row, nw, sky, dwl);
+      tsk::geometry_vjp(T.misc, v, c, dd, am);
     } else if (dwl != nullptr) {
       for (int w = 0; w < nw; ++w) dwl[w] = 0.0f;
     }

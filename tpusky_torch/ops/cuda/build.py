@@ -6,7 +6,8 @@ with ctypes: one nvcc per source, all started together, then one link.
 The library lives in `build/tpusky_torch/` at the repository root under a
 name keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once. nvcc's `-Xptxas -v` report
-(registers, spills per kernel) is kept beside it as `<name>.log`.
+(registers, spills per kernel) is kept beside it as `<name>.log`;
+`ptxas_report()` reads it.
 
 Every kernel wrapper counts its launches in `launches`, a plain dict of
 ints, so a run can show which kernels its main path went through.
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -169,3 +171,46 @@ def check(err: int, name: str):
     """Raise if a launcher returned a CUDA error (cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _kernel_label(symbol: str) -> str:
+    """A kernel's name from its mangled symbol, with its bool template
+    arguments: `_ZN<ns>19spec_hit_bwd_kernelILb0EEEv...` ->
+    `spec_hit_bwd_kernel<false>`."""
+    i = 3 if symbol.startswith("_ZN") else 2
+    names = []
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        names.append(symbol[j:j + int(symbol[i:j])])
+        i = j + int(symbol[i:j])
+    if not names:
+        return symbol
+    args = re.match(r"I((?:Lb[01]E)+)E", symbol[i:])
+    if args is None:
+        return names[-1]
+    flags = [("false", "true")[int(f)]
+             for f in re.findall(r"Lb([01])E", args.group(1))]
+    return f"{names[-1]}<{', '.join(flags)}>"
+
+
+def ptxas_report() -> dict:
+    """{(source, kernel): {"registers", "stack", "spill_stores",
+    "spill_loads"}} from the build log of the current library."""
+    with open(build()[:-3] + ".log") as f:
+        log = f.read()
+    out, source, kernel = {}, None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif "Compiling entry function" in line:
+            kernel = _kernel_label(line.split("'")[1])
+        elif "spill stores" in line and kernel is not None:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[(source, kernel)] = {"stack": n[0], "spill_stores": n[1],
+                                     "spill_loads": n[2]}
+        elif "Used" in line and "registers" in line and kernel is not None:
+            out.setdefault((source, kernel), {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
