@@ -111,23 +111,63 @@ def torch_tables():
 # precompute
 # ---------------------------------------------------------------------------
 
+_PRECOMPUTE_CASES = [(t, sun) for t in (3.0, 3.8)
+                     for sun in (SUN, [0.8, -0.3, 0.2])]
+
+
+@pytest.fixture(scope="module")
+def jax_precompute_vjps(jax_tables):
+    """{(turbidity, sun): (the random cotangents of the state's leaves,
+    their pullback to the parameters by jax.vjp)}. The pullback is one
+    jitted program for all four cases, but the sun's half aperture's path
+    through the sky/sun weight: that is the weight's 64 x 64 quadrature,
+    whose float32 sums jit reassociates (moving the aperture's cotangent
+    by up to 3e-4), so it is taken op by op, as the port does, through
+    `_estimate_sky_sun_ratio` alone at the jitted state, and added to the
+    aperture's own cotangent (the state carries the parameters)."""
+    def leaves(p):
+        return tuple(jax.tree.leaves(JM.precompute(jax_tables, p, "rgb")))
+
+    @jax.jit
+    def pull(p, cts):
+        return (JM.precompute(jax_tables, p, "rgb"),
+                jax.vjp(leaves, p)[1](cts)[0])
+    out = {}
+    for turbidity, sun in _PRECOMPUTE_CASES:
+        jp = ts.make_params(turbidity=turbidity, albedo=0.3,
+                            sun_direction=sun)
+        rng = np.random.default_rng(int(10 * turbidity) + len(sun))
+        shapes = jax.eval_shape(leaves, jp)
+        cts = tuple(rng.normal(size=x.shape).astype(np.float32)
+                    for x in shapes)
+        js, g_j = pull(jp, cts)
+
+        def ratio(a, js=js):
+            p = js.params._replace(sun_half_aperture=a)
+            return JM._estimate_sky_sun_ratio(js._replace(params=p),
+                                              "rgb")[0]
+        flat = jax.tree.leaves(js)
+        w_at = next(i for i, x in enumerate(flat)
+                    if x is js.sky_sampling_w)
+        ap_at = next(i for i, x in enumerate(flat)
+                     if x is js.params.sun_half_aperture)
+        (g_ap,) = jax.vjp(ratio, jp.sun_half_aperture)[1](
+            jnp.asarray(cts[w_at]))
+        out[turbidity, tuple(sun)] = cts, g_j._replace(
+            sun_half_aperture=g_ap + cts[ap_at])
+    return out
+
+
 @pytest.mark.parametrize("sun", [SUN, [0.8, -0.3, 0.2]])
 @pytest.mark.parametrize("turbidity", [3.0, 3.8])
-def test_precompute_vjp_matches_jax(jax_tables, torch_tables, turbidity,
-                                    sun):
+def test_precompute_vjp_matches_jax(jax_precompute_vjps, torch_tables,
+                                    turbidity, sun):
     """A random cotangent on every state field, pulled back to the
     parameters: within 1e-4 of jax.vjp, relative to each parameter's
     cotangent scale. Integer turbidity sits on the floor/lerp kink. The
-    JAX side runs op by op, as the port does: under jit XLA reassociates
-    the 64 x 64 quadrature of the sky/sun ratio, which moves the aperture
-    cotangent by up to 3e-4."""
-    jp = ts.make_params(turbidity=turbidity, albedo=0.3, sun_direction=sun)
-    js, pull = jax.vjp(lambda p: JM.precompute(jax_tables, p, "rgb"), jp)
-    rng = np.random.default_rng(int(10 * turbidity) + len(sun))
-    leaves, treedef = jax.tree.flatten(js)
-    cts = [rng.normal(size=np.shape(x)).astype(np.float32) for x in leaves]
-    (g_j,) = pull(jax.tree.unflatten(treedef, [jnp.asarray(c) for c in cts]))
-
+    JAX side takes the sun's half aperture through the sky/sun weight op
+    by op, as the port does (`jax_precompute_vjps`)."""
+    cts, g_j = jax_precompute_vjps[turbidity, tuple(sun)]
     params = _cpu_params(turbidity=turbidity, albedo=0.3, sun_direction=sun)
     state = TM.precompute(torch_tables, params)
     leaves_t = [x for x in (state.params, *state[1:]) if x is not None]

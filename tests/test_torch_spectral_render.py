@@ -8,6 +8,8 @@ wavefront path; the port runs its plain PyTorch path, which is what it
 runs for CPU tensors.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,14 +155,28 @@ def test_material_table_kinds_and_defaults():
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _spectral_state():
+    """The spectral sunsky both scenes share (compiled once a module)."""
+    return jax.jit(lambda p: JM.precompute(jax_load_tables("spectral"), p,
+                                           "spectral"))(
+        ts.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
+                       mode="spectral"))
+
+
+@functools.lru_cache(maxsize=None)
+def _rgb_state():
+    """An RGB sunsky state, for the mismatched-state refusals."""
+    return convert.sunsky_state(jax.tree.map(np.asarray, jax.jit(
+        lambda p: JM.precompute(jax_load_tables("rgb"), p, "rgb"))(
+            ts.make_params(sun_direction=SUN))), device="cpu")
+
+
 def _spectral_scene(kind):
     """bench.py::bench_spectral's scene (kind 1: a rough-conductor ground,
     alpha 0.2) or bench_spectral_grad's (kind 0: a diffuse ground), under
     the spectral sunsky; camera at [4,-4,2] looking at [0,0,0.5]."""
-    state = jax.jit(lambda p: JM.precompute(jax_load_tables("spectral"), p,
-                                            "spectral"))(
-        ts.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
-                       mode="spectral"))
+    state = _spectral_state()
     ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
     kw = dict(bsdf_kinds=[1], bsdf_alphas=[0.2]) if kind == 1 else {}
     sc = jax_make_scene(shapes=[dict(kind=1, to_world=ground, bsdf_idx=0)],
@@ -261,9 +277,7 @@ def test_spectral_render_refuses_a_mismatched_state(renders):
     film = TF.Film(4, 4, 3)
     with pytest.raises(ValueError, match="precomputed in rgb"):
         TI.render(sc, sensor, film, SEED, spp=1, mode="rgb")
-    rgb = convert.sunsky_state(jax.tree.map(np.asarray, jax.jit(
-        lambda p: JM.precompute(jax_load_tables("rgb"), p, "rgb"))(
-            ts.make_params(sun_direction=SUN))), device="cpu")
+    rgb = _rgb_state()
     with pytest.raises(ValueError, match="precomputed in spectral"):
         TI.render(sc._replace(env=rgb), sensor, film, SEED, spp=1,
                   mode="spectral")

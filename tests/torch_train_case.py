@@ -15,9 +15,7 @@ from tpusky.models.sunsky import model as JM
 from tpusky.models.sunsky import tables as JT
 from tpusky.parallel.render import make_train_step_single as jax_train_step
 from tpusky.render import film as JF
-from tpusky.render import integrator as JI
 from tpusky.render import sensors as JS
-from tpusky.render.bsdf import table_kinds
 from tpusky.render.scene import make_scene as jax_make_scene
 
 from tpusky_torch import convert
@@ -26,6 +24,7 @@ from tpusky_torch.models.sunsky import model as TM
 from tpusky_torch.models.sunsky import tables as TT
 from tpusky_torch.parallel import render as TP
 from tpusky_torch.render import film as TF
+from tpusky_torch.render import integrator as TI
 
 # pytest's workers already share the cores: one torch thread each keeps
 # the many small CPU ops from contending with the other workers
@@ -49,9 +48,10 @@ def _shapes():
 
 def make_setup():
     """JAX and port scene builders (bench.py:353-358: clip and normalise),
-    the sensor, the target image rendered at turbidity 6.5 with the same
-    sun, albedo and seed, and an Adam state two steps in (so the step's
-    update depends on the gradient's size, not only its sign)."""
+    the sensor, the target image rendered by the port at turbidity 6.5
+    with the same sun, albedo and seed, and an Adam state two steps in
+    (so the step's update depends on the gradient's size, not only its
+    sign)."""
     jt = JT.load_tables("rgb")
     tt_ = TT.load_tables("rgb", device="cpu")
     base_j = jax_make_scene(shapes=_shapes(),
@@ -76,12 +76,15 @@ def make_setup():
             device="cpu")
         return base_t._replace(env=TM.precompute(tt_, full))
 
-    kinds = table_kinds(base_j.bsdfs)
-    target = np.asarray(jax.jit(lambda sc: JF.develop(JI.render_rows(
-        sc, sensor_j, JF.Film(H, W, 3), KEY, SPP, 2, 1000, "rgb", 0, H,
-        kinds=kinds)))(build_j({"t": jnp.float32(6.5),
-                                "alb": jnp.full((3,), 0.3, jnp.float32),
-                                "sun": jnp.asarray(SUN_INIT)})))
+    # the target is an input both steps take as it is: the port renders it
+    # (its render_rows equals JAX's within 1e-3: test_torch_render.py),
+    # which spares each file a JAX compile of the render
+    with torch.no_grad():
+        target = TF.develop(TI.render_rows(
+            build_t({"t": torch.tensor(6.5), "alb": torch.full((3,), 0.3),
+                     "sun": torch.tensor(SUN_INIT)}),
+            sensor_t, TF.Film(H, W, 3), SEED, SPP, 2, 1000, "rgb", 0,
+            H)).numpy()
     params = {"t": np.float32(3.0), "alb": np.full((3,), 0.3, np.float32),
               "sun": SUN_INIT}
     opt = JO.Adam(0.05)

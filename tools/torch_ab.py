@@ -3,6 +3,7 @@ checkouts in one call (run each in turns: A, B, B, A).
 
     python3 tools/torch_ab.py k14 <checkout>       # K14 alone
     python3 tools/torch_ab.py spec_bwd <checkout>  # K12 and K13 alone
+    python3 tools/torch_ab.py spec_fwd <checkout>  # K9, K10 and K11 alone
     python3 tools/torch_ab.py host <checkout>      # host-bound frames
 
 `k14`: K14 alone on bench_mesh's two wavefronts (1,048,576 rays) at
@@ -16,6 +17,14 @@ median of 7 CUDA-event times with a checksum of the cotangent row (sums
 taken by shared atomics in no fixed order agree to ~1e-6), then each
 case's device time split between pass 1 and `reduce_partials` by
 torch.profiler, and the ptxas report of the spectral adjoint's kernels.
+`spec_fwd`: K9, K10 and K11 alone at 2,097,152 lanes x 4 hero
+wavelengths (phase 6's lane mix) and at 64K lanes x 10 wavelengths, K10
+with every direction in the sun's disc, K11 with every lane a TGMM sky
+sample and with every lane a sun-cone sample, the median of 9 CUDA-event
+times of 10 launches each (a launch's own time, as chip_smoke.py takes
+it; one launch between two events reads ~0.03 ms more), with checksums
+of the outputs (equal checksums: equal sums of radiance, pdf and
+direction), and the ptxas report of the spectral forward kernels.
 `host`: medians and quartiles of 7 host-clock times, each ending in a
 synchronise, of the bench_spectral frame, bench_grad's and
 bench_spectral_grad's fwd+bwd through render_rows and the mesh frame.
@@ -140,6 +149,70 @@ def spec_bwd(C, card):
     return out
 
 
+def spec_fwd(C, card):
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.ops import spectrum
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import sunsky_kernel as K
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(10)
+    n = C.N_LANES
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=C.SUN, mode="spectral",
+        device=dev), mode="spectral")
+    tables = K.pack_tables_spec(state, dev)
+
+    def tensor(x):
+        return torch.tensor(x.astype(np.float32), device=dev)
+    # phase 6's lanes: uniform directions, the first eighth below the
+    # horizon, hero wavelengths as the render draws them
+    u = rng.random((n, 2), dtype=np.float32)
+    st = np.sqrt(1.0 - u[:, 0] ** 2)
+    phi = 2.0 * np.pi * u[:, 1]
+    d = tensor(np.stack([st * np.cos(phi), st * np.sin(phi), u[:, 0]], -1))
+    d[: n // 8, 2] = -d[: n // 8, 2]
+    wl = spectrum.sample_rgb_spectrum(spectrum.sample_shifted(
+        tensor(rng.random(n)), C.N_HERO))[0].contiguous()
+    m = 1 << 16
+    wl10 = tensor(rng.uniform(300.0, 760.0, (m, 10)))
+    u2 = tensor(rng.random((n, 2)))
+    w_sky = float(state.sky_sampling_w)
+    u_sky = torch.stack([u2[:, 0] * w_sky, u2[:, 1]], -1).contiguous()
+    u_sun = torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0], u2[:, 1]],
+                        -1).contiguous()
+    # every lane in the disc: the sun-cone samples' directions
+    d_disc = K.launch_nee_spec(tables, u_sun, wl)[0].contiguous()
+    cases = {
+        "K9 headline": lambda: K.launch_eval_spec(tables, d, wl),
+        "K9 64K lanes x 10 wavelengths": lambda: K.launch_eval_spec(
+            tables, d[n - m:], wl10),
+        "K10 headline": lambda: K.launch_hit_spec(tables, d, wl),
+        "K10 all disc": lambda: K.launch_hit_spec(tables, d_disc, wl),
+        "K10 64K lanes x 10 wavelengths": lambda: K.launch_hit_spec(
+            tables, d[n - m:], wl10),
+        "K11 headline": lambda: K.launch_nee_spec(tables, u2, wl),
+        "K11 all sky": lambda: K.launch_nee_spec(tables, u_sky, wl),
+        "K11 all sun-cone": lambda: K.launch_nee_spec(tables, u_sun, wl),
+        "K11 64K lanes x 10 wavelengths": lambda: K.launch_nee_spec(
+            tables, u2[n - m:], wl10),
+    }
+    out = []
+    for name, fn in cases.items():
+        res = fn()
+        res = res if isinstance(res, tuple) else (res,)
+        sums = " ".join(f"{float(x.double().sum()):.9e}" for x in res)
+        ms = float(np.median([C._time_ms(fn, reps=10, warmup=1)
+                              for _ in range(9)]))
+        out.append(f"{name}: {ms:.4f} ms checksum {sums}")
+    with open(build.build()[:-3] + ".log") as f:
+        log = f.read().split("== sunsky_spectral.cu")[1].split("\n== ")[0]
+    out += [" ".join(line.split()) for line in log.splitlines()
+            if "spill" in line or "registers" in line
+            or "Compiling entry" in line]
+    return out
+
+
 def host(C, card):
     import torch
     import tpusky_torch as tt
@@ -192,7 +265,8 @@ def main():
     from tpusky_torch.ops.cuda import build
     card = C._card_line()
     build.library()
-    modes = {"k14": k14, "spec_bwd": spec_bwd, "host": host}
+    modes = {"k14": k14, "spec_bwd": spec_bwd, "spec_fwd": spec_fwd,
+             "host": host}
     for line in modes[mode](C, card):
         print(f"{mode.upper()} {os.path.relpath(tree)} {line} [{card}]")
 

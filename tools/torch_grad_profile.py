@@ -11,10 +11,10 @@ bench_spectral`'s frame (512x512, 8 spp, depth 4, `render(mode=
 (512x512, 4 spp, depth 2, a diffuse ground, gradients through the
 spectral precompute; K10/K11 forward, K12/K13 backward). For each it
 prints the wall time per iteration, the device's busy share of it, the
-device time of the hand-written kernels against all the rest, and the 15
-largest device-time entries. Run from the repository root on a machine
-with a card, for all cases or the named ones (grad, train, spectral,
-spectral_grad):
+device time of the hand-written kernels against all the rest, the 15
+largest device-time entries and each hand-written kernel's device time a
+launch. Run from the repository root on a machine with a card, for all
+cases or the named ones (grad, train, spectral, spectral_grad):
 
     python3 tools/torch_grad_profile.py [case ...]
 """
@@ -62,6 +62,12 @@ def _profile(name, fn, iters=3):
     for e in rows[:15]:
         print(f"  {_device_us(e) / iters / 1e3:9.3f} ms  {e.count // iters:6d}x"
               f"  {e.key[:90]}")
+    for e in rows:
+        if e.count and any(k in e.key for k in _OWN):
+            ms = _device_us(e) / 1e3
+            print(f"  hand-written {e.key[:60]}: {ms / iters:.3f} ms in "
+                  f"{e.count // iters} launches, {ms / e.count:.4f} ms a "
+                  "launch")
 
 
 def main():

@@ -1,8 +1,8 @@
-// Device functions shared by the sunsky kernels (K1-K3, spectral K9-K11),
-// their adjoints (K5-K8, K12, K13) and the direct-illumination megakernel
-// (K4): sky/sun radiance, the mixture pdf, the NEE direction sample, the
-// reverse sweeps of all three, the counter-hash RNG and analytic shape
-// intersection.
+// Device functions shared by the sunsky kernels (K1-K3; spectral K9-K11
+// through sunsky_staged.cuh), their adjoints (K5-K8, K12, K13) and the
+// direct-illumination megakernel (K4): sky/sun radiance, the mixture
+// pdf, the NEE direction sample, the reverse sweeps of all three, the
+// counter-hash RNG and analytic shape intersection.
 //
 // Each function computes what the plain PyTorch versions in
 // tpusky_torch/models/sunsky/model.py, render/sampler.py and
@@ -100,10 +100,10 @@ __device__ __forceinline__ float sun_gamma(const float* __restrict__ misc,
   return dot >= 0.0f ? temp : PI_F - temp;
 }
 
-// What radiance() and radiance_spec() share about an above-horizon
-// direction: the angle to the sun, the sun's elevation segment and the
-// coordinate in it (as powers), the limb coordinate (as powers) and the
-// disc test.
+// What radiance() reads about an above-horizon direction (the spectral
+// radiance's SpecGeom, sunsky_staged.cuh, is its counterpart): the angle
+// to the sun, the sun's elevation segment and the coordinate in it (as
+// powers), the limb coordinate (as powers) and the disc test.
 struct SkyGeom {
   float ct;             // cos(theta) = dz >= 0
   float gamma, cos_gamma, cg2;
@@ -180,63 +180,6 @@ __device__ inline void radiance(const Tables& T, float dx, float dy,
   }
 }
 
-// One spectral dataset channel c at geometry g: the sky, and in the disc
-// the sun polynomial and the limb darkening (0 outside it)
-__device__ __forceinline__ void spec_channel(const Tables& T,
-                                             const SkyGeom& g, int c,
-                                             float* sky, float* sun,
-                                             float* ld) {
-  *sky = sky_channel(T.skyp + 9 * c, T.skyr[c], g);
-  float s = 0.0f, l = 0.0f;
-  if (g.hit_sun) {
-    const float* __restrict__ co = T.sun + g.pos * SUN_SPEC_F + 4 * c;
-    const float* __restrict__ lc = T.ld + N_LD * c;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s += co[k] * g.xp[k];
-#pragma unroll
-    for (int j = 0; j < N_LD; ++j) l += lc[j] * g.cp[j];
-  }
-  *sun = s;
-  *ld = l;
-}
-
-// Spectral radiance toward local direction d at the lane's nw wavelengths
-// wl (nm) -> out (model.py::_eval_spec_plain). Per wavelength only its two
-// neighbouring dataset channels are evaluated; sky, sun and limb
-// darkening are each lerped between them, then combined. Wavelengths
-// outside [320, 720] nm and directions below the horizon give 0.
-__device__ inline void radiance_spec(const Tables& T, float dx, float dy,
-                                     float dz, const float* __restrict__ wl,
-                                     int nw, float* __restrict__ out) {
-  const float* __restrict__ misc = T.misc;
-  if (dz < 0.0f) {
-    for (int w = 0; w < nw; ++w) out[w] = 0.0f;
-    return;
-  }
-  SkyGeom g = sky_geometry(misc, dx, dy, dz);
-  float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
-  for (int w = 0; w < nw; ++w) {
-    float nwl = (wl[w] - 320.0f) / 40.0f;
-    if (!(nwl >= 0.0f && nwl <= (float)(N_CH - 1))) {
-      out[w] = 0.0f;
-      continue;
-    }
-    int lo = min(max((int)floorf(nwl), 0), N_CH - 1);
-    int hi = min(lo + 1, N_CH - 1);
-    float f = nwl - (float)lo;
-    float sky0, sun0, ld0, sky1, sun1, ld1;
-    spec_channel(T, g, lo, &sky0, &sun0, &ld0);
-    spec_channel(T, g, hi, &sky1, &sun1, &ld1);
-    float r = sky_scale * ((1.0f - f) * sky0 + f * sky1);
-    if (g.hit_sun) {
-      float sun = (1.0f - f) * sun0 + f * sun1;
-      float ld = (1.0f - f) * ld0 + f * ld1;
-      r += sun_scale * sun * ld;
-    }
-    out[w] = r;
-  }
-}
-
 // Cotangent accumulator layout of the small tables (radiance_vjp's acc):
 // skyp (3, 9), then skyr (3,), then misc (16,).
 constexpr int ACC_SKYP = 0;
@@ -268,7 +211,7 @@ struct AtomicAdd {
 // versions are: zero through sqrt at 0 and through asin/acos at |x| >= 1;
 // clamps pass the derivative at their bounds, as torch's do.
 
-// The forward intermediates of radiance() and radiance_spec() at an
+// The forward intermediates of radiance() and the spectral radiance at an
 // above-horizon direction that their reverse sweeps read.
 struct VjpGeom {
   float ct;                     // cos(theta) = dz
@@ -547,8 +490,8 @@ __device__ __forceinline__ float pick(const float a[N_CH], int i) {
   return v;
 }
 
-// A lane's cotangents of radiance_spec()'s per-channel values, folded from
-// its wavelengths onto the 11 dataset channels. Everything after a
+// A lane's cotangents of the spectral radiance's per-channel values,
+// folded from its wavelengths onto the 11 dataset channels. Everything after a
 // wavelength's lerp between its two channels is linear in the cotangents,
 // so channel ch's is the sum over the lane's wavelengths of the lerp
 // weight times the wavelength's cotangent; the tables' cotangents then
@@ -561,7 +504,7 @@ struct SpecFold {
   float ld[N_CH];       // of the limb darkening's value
 };
 
-// The reverse of radiance_spec() (model.py::_eval_spec_plain) at one
+// The reverse of the spectral radiance (model.py::_eval_spec_plain) at one
 // above-horizon lane, first pass: over its nw wavelengths wl with
 // cotangents g, folds them onto the channels (F, zeroed by the caller)
 // and takes what the sun polynomial and the limb darkening's values give
