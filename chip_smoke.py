@@ -9,9 +9,13 @@ Phases, each of which raises (exit code != 0) on failure:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the kernels from tpusky_torch/csrc with nvcc; print
    each kernel's registers and spills (ptxas) and require no spills in
-   K9-K11's six instantiations (W = 4 and runtime W) and K12's and K13's
-   four;
-3. K1-K3 against their plain PyTorch versions at 2,097,152 lanes, and the
+   K1-K3's three kernels, K9-K11's six instantiations (W = 4 and runtime
+   W) and K12's and K13's four;
+3. K1-K3 against their plain PyTorch versions at 2,097,152 lanes, then
+   the RGB lane classes: K2 with every direction in the sun's disc (1% of
+   them moved to the disc's edge, the pdf's cone-edge flips counted and
+   capped), K3 with every lane a TGMM sky sample and with every lane a
+   sun-cone sample, each timed in phase 10; and the
    adjoints K5 and K6 against autograd of the same plain versions: table
    cotangents, K5's per-lane direction cotangent, and the cotangents
    pulled back through precompute to (turbidity, albedo, sun direction);
@@ -117,12 +121,13 @@ MESH_CROP_SPP = 2
 # whose copy lies in a supertile that rays from above enter first
 TIE_SUBDIV = 4
 # The previous kernels' times (PERF.md's kernel table before K14 and K6,
-# then K12 and K13, were redesigned; NVIDIA H100 80GB HBM3, 700.00 W),
+# then K12 and K13, were redesigned, and K1-K3's from chip_smoke.py on
+# the tree before they were; NVIDIA H100 80GB HBM3, 700.00 W),
 # printed beside this run's: every kernel's row (ms), K12 and K13 with the
 # pdf, K14 by mesh and wavefront (triangles, wavefront) -> (direct,
 # sorted) ms, K6, K12 and K13 by lane mix (K12 and K13's from
 # tools/torch_ab.py spec_bwd on the same card)
-PREV_MS = {"K1": 0.0488, "K2": 0.1249, "K3": 0.1827, "K4": 0.2919,
+PREV_MS = {"K1": 0.0478, "K2": 0.1242, "K3": 0.1833, "K4": 0.2919,
           "K5": 0.4613, "K6": 6.0468, "K7": 1.9872, "K8": 7.7388,
           "K9": 0.0931, "K10": 0.1592, "K11": 0.2388, "K12": 1.1880,
           "K13": 2.1624, "K14": 18.8273}
@@ -142,6 +147,10 @@ PREV_SPEC_MIX_MS = {"K13 sky": 1.3557, "K13 sun": 2.3884, "K12 disc": 2.4716}
 # (tools/torch_ab.py spec_fwd on the parent checkout, the same card)
 PREV_SPEC_FWD_MIX_MS = {"K10 disc": 0.1995, "K11 sky": 0.2076,
                         "K11 sun": 0.2089}
+# K2 with every direction in the disc, K3 with every lane a sky sample and
+# every lane a sun-cone sample, before K1-K3 were redesigned
+# (tools/torch_ab.py rgb_fwd on the parent checkout, the same card)
+PREV_RGB_MIX_MS = {"K2 disc": 0.1402, "K3 sky": 0.1542, "K3 sun": 0.1526}
 # the allowed share of lanes outside a per-lane bar of phase 3
 LANE_CAP = 1e-5
 # the share of lanes whose direction cotangent may miss its bar: a lane
@@ -165,6 +174,9 @@ ZENITH_CAP = 1e-3
 # the plain version's cone tests may differ (see _cone_edge): 2% of a
 # uniform cone's samples, of which ~1 in 76 flips (one H100 run)
 CONE_BAND = 2.4e-7
+# the share of all lanes whose pdf may flip within that band (K10's
+# all-disc check: 552 of 2,097,152 lanes, one H100 run)
+CONE_CAP = 1e-3
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, FP32 operations/s
 PEAK_BYTES = 3.35e12
@@ -686,49 +698,63 @@ def _cone_edge(d, state):
         return (cos_g - cos_cut).abs() < CONE_BAND
 
 
-def _check_hit_spec(name, state, d, wl, cone_edge=False):
-    """K10 against its plain version at directions d, wavelengths wl:
-    radiance within 1e-4 and the pdf within 1e-3 (relative, floor 1e-3) on
-    all but LANE_CAP of the lanes; with cone_edge, the pdf's bar leaves
-    out the lanes on the cone's edge (_cone_edge), counted over all lanes
-    first. Returns the radiance's max abs error."""
+def _check_hit(name, state, d, wl=None, cone_edge=False):
+    """K10 (K2 where wl is None) against its plain version at directions
+    d, wavelengths wl: radiance within 1e-4 and the pdf within 1e-3
+    (relative, floor 1e-3) on all but LANE_CAP of the lanes; with
+    cone_edge, the pdf's bar leaves out the lanes on the cone's edge
+    (_cone_edge), counted over all lanes first, of which at most CONE_CAP
+    of the lanes may flip. Returns the radiance's max abs error."""
     import torch
     from tpusky_torch.models.sunsky import model as M
     from tpusky_torch.ops.cuda import sunsky_kernel as K
     n = d.shape[0]
-    rad, pdf = K.sunsky_hit_spec(state, d, wl)
-    ref, ref_pdf = M._hit_spec_plain(state, d, wl)
+    if wl is None:
+        rad, pdf = K.sunsky_hit_rgb(state, d)
+        ref, ref_pdf = M._hit_rgb_plain(state, d)
+    else:
+        rad, pdf = K.sunsky_hit_spec(state, d, wl)
+        ref, ref_pdf = M._hit_spec_plain(state, d, wl)
     torch.cuda.synchronize()
     _count_outside(f"{name} radiance", _rel(rad, ref, 1e-3).amax(-1), 1e-4,
                    n)
     err_pdf = _rel(pdf, ref_pdf, 1e-3)
     if cone_edge:
         edge = _cone_edge(d, state)
-        print(f"read {name} pdf: {int((err_pdf > 1e-3).sum())} of {n} lanes "
-              f"outside 1e-3, {int((err_pdf[edge] > 1e-3).sum())} of them "
-              f"among the {int(edge.sum())} lanes within {CONE_BAND:g} of "
-              "the cone's edge, which are left out")
+        flips = int((err_pdf[edge] > 1e-3).sum())
+        print(f"check {name} pdf: {int((err_pdf > 1e-3).sum())} of {n} "
+              f"lanes outside 1e-3, {flips} of them among the "
+              f"{int(edge.sum())} lanes within {CONE_BAND:g} of the cone's "
+              f"edge, which are left out (cap {int(CONE_CAP * n)})")
+        if flips > CONE_CAP * n:
+            raise AssertionError(f"{name}: {flips} cone-edge pdfs flipped")
         err_pdf = err_pdf[~edge]
     _count_outside(f"{name} pdf", err_pdf, 1e-3, n)
     return float((rad - ref).abs().max())
 
 
-def _check_nee_spec(name, state, u2, wl):
-    """K11 against its plain version at uniforms u2, wavelengths wl: the
-    direction within 1e-5, the pdf within 1e-3 where the directions agree,
-    the radiance (against the plain radiance at the kernel's directions)
-    at a median of 1e-4 and within 1e-2 on all but LANE_CAP of the lanes.
-    Returns the direction's max abs error."""
+def _check_nee(name, state, u2, wl=None):
+    """K11 (K3 where wl is None) against its plain version at uniforms u2,
+    wavelengths wl: the direction within 1e-5, the pdf within 1e-3 where
+    the directions agree, the radiance (against the plain radiance at the
+    kernel's directions) at a median of 1e-4 and within 1e-2 on all but
+    LANE_CAP of the lanes. Returns the direction's max abs error."""
     from tpusky_torch.models.sunsky import model as M
     from tpusky_torch.ops.cuda import sunsky_kernel as K
     n = u2.shape[0]
-    d, rad, pdf = K.sunsky_nee_spec(state, u2, wl)
-    ref_d, _, ref_pdf = M._sample_eval_spec_plain(state, u2, wl)
+    if wl is None:
+        d, rad, pdf = K.sunsky_nee_rgb(state, u2)
+        ref_d, _, ref_pdf = M._sample_eval_rgb_plain(state, u2)
+        ref_rad = M._eval_rgb_plain(state, d)
+    else:
+        d, rad, pdf = K.sunsky_nee_spec(state, u2, wl)
+        ref_d, _, ref_pdf = M._sample_eval_spec_plain(state, u2, wl)
+        ref_rad = M._eval_spec_plain(state, d, wl)
     far = (d - ref_d).abs().amax(-1)
     _count_outside(f"{name} direction", far, 1e-5, n)
     near = far <= 1e-5
     _count_outside(f"{name} pdf", _rel(pdf, ref_pdf, 1e-3)[near], 1e-3, n)
-    rel = _rel(rad, M._eval_spec_plain(state, d, wl), 1e-3).amax(-1)
+    rel = _rel(rad, ref_rad, 1e-3).amax(-1)
     med = float(rel.median())
     print(f"check {name} radiance: median {med:.3e} (bar 1e-4)")
     if not med <= 1e-4:
@@ -797,18 +823,18 @@ def spectral_phase(dev, dirs, rng, film, card):
                    _rel(K.sunsky_eval_spec(state, d[n - m:], wl10),
                         M._eval_spec_plain(state, d[n - m:], wl10),
                         1e-3).amax(-1), 1e-4, m)
-    err["K10"] = _check_hit_spec("K10", state, d, wl)
-    err["K11"] = _check_nee_spec("K11", state, u2, wl)
+    err["K10"] = _check_hit("K10", state, d, wl)
+    err["K11"] = _check_nee("K11", state, u2, wl)
     # the runtime-W kernels at the goldens' 10 wavelengths (every lane, so
     # that the bars are the headline's; drawn from a generator of their
     # own), and at 4 whose rows are not on 16-byte boundaries (the W = 4
     # kernels need them)
     wl10_all = torch.tensor(np.random.default_rng(10).uniform(
         300.0, 760.0, (n, 10)).astype(np.float32), device=dev)
-    _check_hit_spec("K10, 10 wavelengths", state, d, wl10_all)
-    _check_nee_spec("K11, 10 wavelengths", state, u2, wl10_all)
+    _check_hit("K10, 10 wavelengths", state, d, wl10_all)
+    _check_nee("K11, 10 wavelengths", state, u2, wl10_all)
     del wl10_all
-    _check_hit_spec("K10, 4 unaligned wavelengths", state, d,
+    _check_hit("K10, 4 unaligned wavelengths", state, d,
                     _unaligned(wl))
     # the lane classes: every lane a TGMM sky sample, every lane a
     # sun-cone sample (K11); every direction in the sun's disc (K10: the
@@ -819,10 +845,10 @@ def spectral_phase(dev, dirs, rng, film, card):
              "sun": torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0],
                                  u2[:, 1]], -1).contiguous()}
     for mix, uu in u_mix.items():
-        _check_nee_spec(f"K11, all {mix} samples", state, uu, wl)
+        _check_nee(f"K11, all {mix} samples", state, uu, wl)
     d_disc10 = M._sample_eval_spec_plain(state, u_mix["sun"],
                                          wl)[0].contiguous()
-    _check_hit_spec("K10, every direction in the disc", state, d_disc10, wl,
+    _check_hit("K10, every direction in the disc", state, d_disc10, wl,
                     cone_edge=True)
     del rad9, ref9, out
 
@@ -1923,8 +1949,10 @@ def main():
         print(f"ptxas {source} {kernel}: {r.get('registers')} registers, "
               f"{r.get('stack')} bytes stack, {r.get('spill_stores')} bytes "
               f"spill stores, {r.get('spill_loads')} bytes spill loads")
-        if (source in ("sunsky_spectral.cu", "sunsky_spectral_adjoint.cu")
-                and "spec" in kernel
+        if ((source == "sunsky_kernels.cu"
+             or (source in ("sunsky_spectral.cu",
+                            "sunsky_spectral_adjoint.cu")
+                 and "spec" in kernel))
                 and (r.get("spill_stores") or r.get("spill_loads"))):
             raise AssertionError(f"{kernel} spills registers")
 
@@ -1956,26 +1984,24 @@ def main():
     _count_outside("K1 radiance", _rel(rad1, ref1, 1e-3).amax(-1), 1e-4, n)
     results["K1"] = float((rad1 - ref1).abs().max())
 
-    rad2, pdf2 = K.sunsky_hit_rgb(state, dirs)
-    ref2, refp2 = M._hit_rgb_plain(state, dirs)
-    _count_outside("K2 radiance", _rel(rad2, ref2, 1e-3).amax(-1), 1e-4, n)
-    _count_outside("K2 pdf", _rel(pdf2, refp2, 1e-3), 1e-3, n)
-    results["K2"] = float((rad2 - ref2).abs().max())
-
-    d3, rad3, pdf3 = K.sunsky_nee_rgb(state, u2)
-    refd3, _refr3, refp3 = M._sample_eval_rgb_plain(state, u2)
-    far = (d3 - refd3).abs().amax(-1)
-    _count_outside("K3 direction", far, 1e-5, n)
-    near = far <= 1e-5
-    _count_outside("K3 pdf", _rel(pdf3, refp3, 1e-3)[near], 1e-3, n)
-    rel3 = _rel(rad3, M._eval_rgb_plain(state, d3), 1e-3).amax(-1)
-    med3 = float(rel3.median())
-    print(f"check K3 radiance: median {med3:.3e} (bar 1e-4)")
-    if not med3 <= 1e-4:
-        raise AssertionError("K3 radiance median")
-    _count_outside("K3 radiance", rel3, 1e-2, n)
-    results["K3"] = float(far.max())
-    del rad1, ref1, rad2, ref2, pdf2, refp2, d3, rad3, pdf3, refd3, refp3
+    results["K2"] = _check_hit("K2", state, dirs)
+    results["K3"] = _check_nee("K3", state, u2)
+    # the lane classes: every lane a TGMM sky sample, every lane a
+    # sun-cone sample (K3); every direction in the sun's disc (K2: the
+    # sun-cone samples' directions), 1% of them at the disc's edge
+    w_sky = float(state.sky_sampling_w)
+    u_rgb = {"sky": torch.stack([u2[:, 0] * w_sky, u2[:, 1]],
+                                -1).contiguous(),
+             "sun": torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0],
+                                 u2[:, 1]], -1).contiguous()}
+    for mix, uu in u_rgb.items():
+        _check_nee(f"K3, all {mix} samples", state, uu)
+    d_disc = _with_disc_edge(M._sample_eval_rgb_plain(
+        state, u_rgb["sun"])[0].contiguous(), state,
+        np.random.default_rng(2))
+    _check_hit("K2, every direction in the disc", state, d_disc,
+               cone_edge=True)
+    del rad1, ref1
 
     # K5, K6: 1% of the lanes at the disc edge (tests/test_pallas.py:215),
     # a cotangent drawn from a numpy seed, gradients through precompute
@@ -2197,6 +2223,11 @@ def main():
     u_sun = torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0], u2[:, 1]], -1)
     k6_sky = _time_ms(lambda: K.launch_nee_bwd(tables, u_sky, g_rad), 5)
     k6_sun = _time_ms(lambda: K.launch_nee_bwd(tables, u_sun, g_rad), 5)
+    # phase 3's RGB lane classes
+    rgb_mix_ms = {
+        "K2 disc": _time_ms(lambda: K.launch_hit(tables, d_disc)),
+        "K3 sky": _time_ms(lambda: K.launch_nee(tables, u_rgb["sky"])),
+        "K3 sun": _time_ms(lambda: K.launch_nee(tables, u_rgb["sun"]))}
     wave_ms = _time_ms(lambda: integrator.render_rows(
         scene, sensor, film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0, H), 5)
     wrap_ms = _time_ms(lambda: K.sunsky_eval_rgb(state, dirs))
@@ -2220,6 +2251,13 @@ def main():
           f"headline sky weight {w_sky:.4f}); the previous kernel: all "
           f"sky {PREV_K6_STRATEGY_MS['sky']} ms, all sun-cone "
           f"{PREV_K6_STRATEGY_MS['sun']} ms [{card}]")
+    print(f"time K2 with every direction in the disc "
+          f"{rgb_mix_ms['K2 disc']:.4f} ms; K3 by strategy: all sky samples "
+          f"{rgb_mix_ms['K3 sky']:.4f} ms, all sun-cone samples "
+          f"{rgb_mix_ms['K3 sun']:.4f} ms, at {n} lanes; the previous "
+          "kernels: "
+          + ", ".join(f"{k} {v} ms" for k, v in PREV_RGB_MIX_MS.items())
+          + f" [{card}]")
     k4, p4 = times["K4"]
     print(f"time K4 frame: {k4:.3f} ms ({rays / k4 / 1e3:.1f} M rays/s), "
           f"plain wavefront {p4:.3f} ms ({rays / p4 / 1e3:.1f} M rays/s), "

@@ -4,6 +4,7 @@ checkouts in one call (run each in turns: A, B, B, A).
     python3 tools/torch_ab.py k14 <checkout>       # K14 alone
     python3 tools/torch_ab.py spec_bwd <checkout>  # K12 and K13 alone
     python3 tools/torch_ab.py spec_fwd <checkout>  # K9, K10 and K11 alone
+    python3 tools/torch_ab.py rgb_fwd <checkout>   # K1, K2 and K3 alone
     python3 tools/torch_ab.py host <checkout>      # host-bound frames
 
 `k14`: K14 alone on bench_mesh's two wavefronts (1,048,576 rays) at
@@ -23,11 +24,25 @@ with every direction in the sun's disc, K11 with every lane a TGMM sky
 sample and with every lane a sun-cone sample, the median of 9 CUDA-event
 times of 10 launches each (a launch's own time, as chip_smoke.py takes
 it; one launch between two events reads ~0.03 ms more), with checksums
-of the outputs (equal checksums: equal sums of radiance, pdf and
-direction), and the ptxas report of the spectral forward kernels.
+of the outputs (radiance, pdf, direction, in the wrapper's order; each
+the float64 sum of its values and the integer sum of its float32 bit
+patterns, so bitwise equal outputs print equal pairs), and the ptxas
+report of the spectral forward kernels.
+`rgb_fwd`: K1, K2 and K3 alone at 2,097,152 lanes, the median of 9
+CUDA-event times of 10 launches each, on chip_smoke.py phase 3's lanes
+(directions over the upper hemisphere, uniform in cos theta, and the
+uniforms u2, both from default_rng(0)), K1 and K2 with every direction in
+the sun's disc (the plain sampler's sun-cone samples), K3 with every lane
+a TGMM sky sample (u0 < w) and with every lane a sun-cone sample. Each
+case prints, for each output (radiance, pdf, direction), the checksums
+of `spec_fwd`: a pdf that moved by an ulp changes the second number
+(the staged pdf multiplies by 1/sigma where the global-memory one
+divides by sigma, within ~1e-6: compare its float sums).
+Then the ptxas report of the RGB forward kernels.
 `host`: medians and quartiles of 7 host-clock times, each ending in a
-synchronise, of the bench_spectral frame, bench_grad's and
-bench_spectral_grad's fwd+bwd through render_rows and the mesh frame.
+synchronise, of the headline frame through render_rows (K2, K3), the
+bench_spectral frame, bench_grad's and bench_spectral_grad's fwd+bwd
+through render_rows and the mesh frame.
 Each imports the checkout's own `tpusky_torch` and `chip_smoke.py`, so
 the two sides build and run their own kernels. Prints one line per case
 with the card's name and power limit.
@@ -38,6 +53,16 @@ import sys
 import time
 
 import numpy as np
+
+
+def _checksums(outputs):
+    """Each output's float64 sum and the integer sum of its float32 bit
+    patterns: bitwise equal outputs print equal pairs."""
+    import torch
+    return " | ".join(
+        f"{float(x.double().sum()):.9e} "
+        f"{int(x.contiguous().view(torch.int32).long().sum())}"
+        for x in outputs)
 
 
 def k14(C, card):
@@ -201,12 +226,64 @@ def spec_fwd(C, card):
     for name, fn in cases.items():
         res = fn()
         res = res if isinstance(res, tuple) else (res,)
-        sums = " ".join(f"{float(x.double().sum()):.9e}" for x in res)
         ms = float(np.median([C._time_ms(fn, reps=10, warmup=1)
                               for _ in range(9)]))
-        out.append(f"{name}: {ms:.4f} ms checksum {sums}")
+        out.append(f"{name}: {ms:.4f} ms checksum {_checksums(res)}")
     with open(build.build()[:-3] + ".log") as f:
         log = f.read().split("== sunsky_spectral.cu")[1].split("\n== ")[0]
+    out += [" ".join(line.split()) for line in log.splitlines()
+            if "spill" in line or "registers" in line
+            or "Compiling entry" in line]
+    return out
+
+
+def rgb_fwd(C, card):
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky import model as M
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import sunsky_kernel as K
+    dev = torch.device("cuda", 0)
+    n = C.N_LANES
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=C.SUN, device=dev))
+    tables = K.pack_tables(state, dev)
+    # chip_smoke.py phase 3's lanes
+    rng = np.random.default_rng(0)
+    u = rng.random((n, 2), dtype=np.float32)
+    ct = u[:, 0]
+    st = np.sqrt(1.0 - ct * ct)
+    phi = 2.0 * np.pi * u[:, 1]
+    d = torch.tensor(np.stack([st * np.cos(phi), st * np.sin(phi), ct],
+                              -1).astype(np.float32), device=dev)
+    u2 = torch.tensor(rng.random((n, 2), dtype=np.float32), device=dev)
+    w_sky = float(state.sky_sampling_w)
+    u_sky = torch.stack([u2[:, 0] * w_sky, u2[:, 1]], -1).contiguous()
+    u_sun = torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0], u2[:, 1]],
+                        -1).contiguous()
+    # every direction in the disc: the plain sampler's sun-cone samples
+    with torch.no_grad():
+        d_disc = M._sample_eval_rgb_plain(state, u_sun)[0].contiguous()
+    cases = {
+        "K1 headline": lambda: K.launch_eval(tables, d),
+        "K1 all disc": lambda: K.launch_eval(tables, d_disc),
+        "K2 headline": lambda: K.launch_hit(tables, d),
+        "K2 all disc": lambda: K.launch_hit(tables, d_disc),
+        "K3 headline": lambda: K.launch_nee(tables, u2),
+        "K3 all sky": lambda: K.launch_nee(tables, u_sky),
+        "K3 all sun-cone": lambda: K.launch_nee(tables, u_sun),
+    }
+    out = []
+    for name, fn in cases.items():
+        res = fn()
+        res = res if isinstance(res, tuple) else (res,)
+        # K3 returns (d, rad, pdf): print radiance, pdf, direction
+        res = (res[1], res[2], res[0]) if len(res) == 3 else res
+        ms = float(np.median([C._time_ms(fn, reps=10, warmup=1)
+                              for _ in range(9)]))
+        out.append(f"{name}: {ms:.4f} ms checksum {_checksums(res)}")
+    with open(build.build()[:-3] + ".log") as f:
+        log = f.read().split("== sunsky_kernels.cu")[1].split("\n== ")[0]
     out += [" ".join(line.split()) for line in log.splitlines()
             if "spill" in line or "registers" in line
             or "Compiling entry" in line]
@@ -244,6 +321,9 @@ def host(C, card):
     sc_g, se_g = C._spectral_grad_scene(spec, dev)
     tables_s = tt.load_tables("spectral", device=dev)
     out = {
+        "headline rows": med(lambda: integrator.render_rows(
+            sc_h, se_h, film, C.SEED, C.SPP, C.MAX_DEPTH, 1000, "rgb", 0,
+            C.H)),
         "spectral frame": med(lambda: integrator.render(
             sc_s, se_s, film, C.SEED, spp=C.SPP, max_depth=C.SPEC_DEPTH,
             mode="spectral")),
@@ -266,7 +346,7 @@ def main():
     card = C._card_line()
     build.library()
     modes = {"k14": k14, "spec_bwd": spec_bwd, "spec_fwd": spec_fwd,
-             "host": host}
+             "rgb_fwd": rgb_fwd, "host": host}
     for line in modes[mode](C, card):
         print(f"{mode.upper()} {os.path.relpath(tree)} {line} [{card}]")
 

@@ -85,11 +85,12 @@ __device__ __forceinline__ void spec_lane(const tsk::StagedSpec& S,
   }
   constexpr bool kRolled = !kW4;
   if (kKind == 1)
-    pdf_out[i] = tsk::spec_pdf<kRolled>(S, d[0], d[1], d[2], true);
+    pdf_out[i] = tsk::staged_pdf<kRolled>(S, d[0], d[1], d[2], true);
   if (kKind == 2) {
-    pdf_out[i] = d[2] >= 0.0f
-                     ? tsk::spec_pdf<kRolled>(S, d[0], d[1], d[2], check_sun)
-                     : 0.0f;
+    pdf_out[i] =
+        d[2] >= 0.0f
+            ? tsk::staged_pdf<kRolled>(S, d[0], d[1], d[2], check_sun)
+            : 0.0f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) d_out[3 * i + c] = d[c];
   }
@@ -114,10 +115,8 @@ __device__ __forceinline__ void spec_lanes(tsk::StagedSpec& S,
 // K11 at W = 4, by chunks of kChunk lanes a warp: each chunk's TGMM sky
 // samples run in passes of their own, apart from its sun-cone samples, so
 // that a warp pays one strategy's sample and, unless it holds cone samples
-// (which lie in the sun's disc), no disc radiance; of a chunk's kChunk / 32
-// passes at most one holds both. The warp ranks its lanes by strategy
-// (ballots; sky first) and the thread at place q of that order computes
-// lane order[q]. Each lane's inputs and outputs pass through the warp's
+// (which lie in the sun's disc), no disc radiance (tsk::rank_by_strategy,
+// which K3 shares). Each lane's inputs and outputs pass through the warp's
 // slots in shared memory (io), so global memory is read and written in
 // lane order; no block-wide barrier couples the warps. The wavelengths
 // and the pdf's gaussians are rolled (kRolled): unrolled, the chunk's
@@ -140,40 +139,25 @@ __device__ __forceinline__ void nee_chunks4(tsk::StagedSpec& S,
   const tsk::Tables V = tsk::staged_view(T, S);
   const float w_sky = S.misc[tsk::M_WMIX];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
   float4 (*slot)[2] = io[warp];
   int* ord = order[warp];
   for (int base = (blockIdx.x * kWarps + warp) * kChunk; base < n;
        base += gridDim.x * kWarps * kChunk) {
-    unsigned b_sky[kPasses], b_cone[kPasses];
-    int n_sky = 0;
+    bool sky[kPasses], valid[kPasses];
 #pragma unroll
     for (int k = 0; k < kPasses; ++k) {
       int i = base + 32 * k + lane;
-      bool valid = i < n, sky = false;
-      if (valid) {
+      valid[k] = i < n;
+      sky[k] = false;
+      if (valid[k]) {
         float u0 = u[2 * i], u1 = u[2 * i + 1];
         slot[32 * k + lane][0] = make_float4(u0, u1, 0.0f, 0.0f);
         slot[32 * k + lane][1] =
             __ldg(reinterpret_cast<const float4*>(wl) + i);
-        sky = u0 < w_sky;
+        sky[k] = u0 < w_sky;
       }
-      b_sky[k] = __ballot_sync(~0u, sky);
-      b_cone[k] = __ballot_sync(~0u, valid && !sky);
-      n_sky += __popc(b_sky[k]);
     }
-    int sky_before = 0, cone_before = 0;
-#pragma unroll
-    for (int k = 0; k < kPasses; ++k) {
-      if (b_sky[k] >> lane & 1u)
-        ord[sky_before + __popc(b_sky[k] & below)] = 32 * k + lane;
-      else if (b_cone[k] >> lane & 1u)
-        ord[n_sky + cone_before + __popc(b_cone[k] & below)] = 32 * k + lane;
-      sky_before += __popc(b_sky[k]);
-      cone_before += __popc(b_cone[k]);
-    }
-    const int count = sky_before + cone_before;
-    __syncwarp();
+    const int count = tsk::rank_by_strategy(sky, valid, ord);
     // the lanes at places lane, lane + 32, ...: sample, radiance, pdf
     for (int q = lane; q < count; q += 32) {
       int j = ord[q];
@@ -183,7 +167,7 @@ __device__ __forceinline__ void nee_chunks4(tsk::StagedSpec& S,
       float4 rad =
           tsk::spec_radiance4<true>(S, d[0], d[1], d[2], slot[j][1]);
       float pdf = d[2] >= 0.0f
-                      ? tsk::spec_pdf<true>(S, d[0], d[1], d[2], pick_sky)
+                      ? tsk::staged_pdf<true>(S, d[0], d[1], d[2], pick_sky)
                       : 0.0f;
       slot[j][0] = make_float4(d[0], d[1], d[2], pdf);
       slot[j][1] = rad;
@@ -245,23 +229,6 @@ bool w4(int nw, const float* wl, const float* rad) {
   return nw == 4 && (uintptr_t)wl % 16 == 0 && (uintptr_t)rad % 16 == 0;
 }
 
-// As many blocks as the SMs hold at once, at most one a 256 lanes.
-template <class Kernel>
-int blocks(Kernel kernel, int n) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                0);
-  int need = (n + kThreads - 1) / kThreads;
-  return need < sms * per_sm ? need : (sms * per_sm > 0 ? sms * per_sm : 1);
-}
-
-template <class Kernel, class... Args>
-void launch(Kernel kernel, int n, void* stream, Args... args) {
-  kernel<<<blocks(kernel, n), kThreads, 0, (cudaStream_t)stream>>>(args...);
-}
-
 }  // namespace
 
 extern "C" {
@@ -273,9 +240,11 @@ int tsk_sunsky_eval_spec(const float* d, const float* wl, int n, int nw,
   if (n > 0) {
     tsk::Tables T = tables(skyp, skyr, sun, ld, misc, nullptr);
     if (w4(nw, wl, out))
-      launch(eval_spec_kernel<true>, n, stream, d, wl, n, nw, T, out);
+      tsk::staged_launch<kThreads>(eval_spec_kernel<true>, n, stream, d, wl,
+                                   n, nw, T, out);
     else
-      launch(eval_spec_kernel<false>, n, stream, d, wl, n, nw, T, out);
+      tsk::staged_launch<kThreads>(eval_spec_kernel<false>, n, stream, d, wl,
+                                   n, nw, T, out);
   }
   return (int)cudaGetLastError();
 }
@@ -288,9 +257,11 @@ int tsk_sunsky_hit_spec(const float* d, const float* wl, int n, int nw,
   if (n > 0) {
     tsk::Tables T = tables(skyp, skyr, sun, ld, misc, gauss);
     if (w4(nw, wl, rad))
-      launch(hit_spec_kernel<true>, n, stream, d, wl, n, nw, T, rad, pdf);
+      tsk::staged_launch<kThreads>(hit_spec_kernel<true>, n, stream, d, wl,
+                                   n, nw, T, rad, pdf);
     else
-      launch(hit_spec_kernel<false>, n, stream, d, wl, n, nw, T, rad, pdf);
+      tsk::staged_launch<kThreads>(hit_spec_kernel<false>, n, stream, d, wl,
+                                   n, nw, T, rad, pdf);
   }
   return (int)cudaGetLastError();
 }
@@ -303,10 +274,11 @@ int tsk_sunsky_nee_spec(const float* u, const float* wl, int n, int nw,
   if (n > 0) {
     tsk::Tables T = tables(skyp, skyr, sun, ld, misc, gauss);
     if (w4(nw, wl, rad))
-      launch(nee_spec_kernel<true>, n, stream, u, wl, n, nw, T, d, rad, pdf);
+      tsk::staged_launch<kThreads>(nee_spec_kernel<true>, n, stream, u, wl,
+                                   n, nw, T, d, rad, pdf);
     else
-      launch(nee_spec_kernel<false>, n, stream, u, wl, n, nw, T, d, rad,
-             pdf);
+      tsk::staged_launch<kThreads>(nee_spec_kernel<false>, n, stream, u, wl,
+                                   n, nw, T, d, rad, pdf);
   }
   return (int)cudaGetLastError();
 }
