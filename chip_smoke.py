@@ -9,8 +9,8 @@ Phases, each of which raises (exit code != 0) on failure:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the kernels from tpusky_torch/csrc with nvcc; print
    each kernel's registers and spills (ptxas) and require no spills in
-   K1-K3's three kernels, K9-K11's six instantiations (W = 4 and runtime
-   W) and K12's and K13's four;
+   K1-K3's three kernels, K5-K8's four, K9-K11's six instantiations (W =
+   4 and runtime W) and K12's and K13's four;
 3. K1-K3 against their plain PyTorch versions at 2,097,152 lanes, then
    the RGB lane classes: K2 with every direction in the sun's disc (1% of
    them moved to the disc's edge, the pdf's cone-edge flips counted and
@@ -19,6 +19,8 @@ Phases, each of which raises (exit code != 0) on failure:
    adjoints K5 and K6 against autograd of the same plain versions: table
    cotangents, K5's per-lane direction cotangent, and the cotangents
    pulled back through precompute to (turbidity, albedo, sun direction);
+   then K5 with every direction in the sun's disc (K2's lanes above), held
+   the same way and timed in phase 10;
 4. the forward main path: precompute the headline sunsky, evaluate the sky
    dome (K1), render the headline scene (512x512, 8 spp, depth 2) through
    `render` (K4), and render it again through the wavefront `render_rows`
@@ -63,7 +65,9 @@ Phases, each of which raises (exit code != 0) on failure:
    with the pdf attached and a cotangent on it, at 2,097,152 lanes, in RGB
    (K2 then K7, K3 then K8) and spectral mode (K10 then K12, K11 then K13,
    both with the pdf), against autograd of the plain versions, the
-   gaussian table's cotangent included;
+   gaussian table's cotangent included; then K8 with every lane a TGMM
+   sky sample and with every lane a sun-cone sample, held the same way,
+   and K7 with every direction in the disc, each timed;
 9. meshes: K14 against its plain version on icosphere meshes of 5,120 to
    327,680 triangles, on bench_mesh's coherent and incoherent wavefronts
    of 1,048,576 rays, direct and after the wavefront sort (hits, t, b1,
@@ -121,17 +125,17 @@ MESH_CROP_SPP = 2
 # whose copy lies in a supertile that rays from above enter first
 TIE_SUBDIV = 4
 # The previous kernels' times (PERF.md's kernel table before K14 and K6,
-# then K12 and K13, were redesigned, and K1-K3's from chip_smoke.py on
-# the tree before they were; NVIDIA H100 80GB HBM3, 700.00 W),
-# printed beside this run's: every kernel's row (ms), K12 and K13 with the
-# pdf, K14 by mesh and wavefront (triangles, wavefront) -> (direct,
-# sorted) ms, K6, K12 and K13 by lane mix (K12 and K13's from
+# then K12 and K13, were redesigned, and K1-K3's and K5-K8's from
+# chip_smoke.py on the tree before they were; NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's: every kernel's row (ms), K12 and
+# K13 with the pdf, K14 by mesh and wavefront (triangles, wavefront) ->
+# (direct, sorted) ms, K6, K12 and K13 by lane mix (K12 and K13's from
 # tools/torch_ab.py spec_bwd on the same card)
 PREV_MS = {"K1": 0.0478, "K2": 0.1242, "K3": 0.1833, "K4": 0.2919,
-          "K5": 0.4613, "K6": 6.0468, "K7": 1.9872, "K8": 7.7388,
+          "K5": 0.3570, "K6": 0.6136, "K7": 1.8245, "K8": 2.4844,
           "K9": 0.0931, "K10": 0.1592, "K11": 0.2388, "K12": 1.1880,
           "K13": 2.1624, "K14": 18.8273}
-PREV_PDF_MS = {"K12": 2.0005, "K13": 3.3893}
+PREV_PDF_MS = {"K12": 1.3753, "K13": 2.0089}
 PREV_K14_MS = {(5120, "coherent"): (1.478, 1.635),
               (5120, "incoherent"): (12.308, 3.704),
               (20480, "coherent"): (1.808, 1.965),
@@ -140,7 +144,7 @@ PREV_K14_MS = {(5120, "coherent"): (1.478, 1.635),
               (81920, "incoherent"): (37.586, 18.827),
               (327680, "coherent"): (3.635, 4.048),
               (327680, "incoherent"): (50.649, 33.359)}
-PREV_K6_STRATEGY_MS = {"sky": 0.40, "sun": 9.2}
+PREV_K6_STRATEGY_MS = {"sky": 0.3954, "sun": 0.5996}
 PREV_SPEC_MIX_MS = {"K13 sky": 1.3557, "K13 sun": 2.3884, "K12 disc": 2.4716}
 # K10 with every direction in the disc, K11 with every lane a sky sample
 # and every lane a sun-cone sample, before K9-K11 were redesigned
@@ -151,6 +155,11 @@ PREV_SPEC_FWD_MIX_MS = {"K10 disc": 0.1995, "K11 sky": 0.2076,
 # every lane a sun-cone sample, before K1-K3 were redesigned
 # (tools/torch_ab.py rgb_fwd on the parent checkout, the same card)
 PREV_RGB_MIX_MS = {"K2 disc": 0.1402, "K3 sky": 0.1542, "K3 sun": 0.1526}
+# K5 and K7 with every direction in the disc, K8 with every lane a sky
+# sample and every lane a sun-cone sample, before K5-K8 were redesigned
+# (tools/torch_ab.py rgb_bwd on the parent checkout, the same card)
+PREV_RGB_BWD_MIX_MS = {"K5 disc": 0.6305, "K7 disc": 2.1786,
+                       "K8 sky": 2.4295, "K8 sun": 2.1726}
 # the allowed share of lanes outside a per-lane bar of phase 3
 LANE_CAP = 1e-5
 # the share of lanes whose direction cotangent may miss its bar: a lane
@@ -1325,6 +1334,41 @@ def attached_pdf_phase(dev, dirs, u2, rng, card):
                                  f"{KERNELS[key][0]}")
     del dd_k, dwl_k, dd_p, dwl_p, dwl_q
 
+    # K8's lane classes: every lane a TGMM sky sample, every lane a
+    # sun-cone sample. The cotangent is held in its two parts, each with
+    # the headline's bars: the radiance's at K8's own samples (as phase 3
+    # holds K6), the pdf's against the plain NEE block with its own
+    # sampler, without the lanes near the zenith or whose cone test
+    # flipped. (The disc weight's ramp enters the radiance's part alone.
+    # Held together against the plain sampler, all sun-cone samples leave
+    # 3.2% of the lanes at the ramp's clamps where the two samplers'
+    # directions differ, past RAMP_CAP, sized for the headline's 66%
+    # sun-cone samples: one H100 run.)
+    w_sky = float(st.sky_sampling_w.detach())
+    u_cls = {"sky": torch.stack([u2[:, 0] * w_sky, u2[:, 1]],
+                                -1).contiguous(),
+             "sun": torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0],
+                                 u2[:, 1]], -1).contiguous()}
+    for mix, uu in u_cls.items():
+        name = f"K8, all {mix} samples"
+        d8, rad8, pdf8 = M.sample_eval(st, uu)
+        e_rad, _, _ = _adjoint_check(
+            f"{name}, the radiance's cotangent (at its samples)", rad8,
+            M._eval_rgb_plain(st, d8), g_rad, st, lp)
+        d_ps, _, pdf_ps = M._sample_eval_rgb_plain(st, uu)
+        keep = (~(_zenith_lanes(name, d8, d_ps)
+                  | _pdf_flips(name, pdf8, pdf_ps, n))).float()
+        e_pdf, _, _ = _adjoint_check(
+            f"{name}, the pdf's cotangent (those lanes left out)", pdf8,
+            pdf_ps, g_pdf * keep, st, lp, pdf=True)
+        err["K8"] = max(err["K8"], e_rad, e_pdf)
+    del d8, rad8, pdf8, d_ps, pdf_ps
+    # every direction in the disc (the plain sampler's sun-cone samples,
+    # 1% of them at the disc's edge), for K7's time
+    with torch.no_grad():
+        d_disc = _with_disc_edge(M._sample_eval_rgb_plain(
+            st, u_cls["sun"])[0].contiguous(), st, np.random.default_rng(2))
+
     # times: each kernel against autograd's backward alone over the plain
     # graphs built above
     state = tt.sunsky_precompute(tt.make_params(
@@ -1348,11 +1392,24 @@ def attached_pdf_phase(dev, dirs, u2, rng, card):
         out, lanes, cts = graphs[key]
         leaves = (rgb if key in ("K7", "K8") else spc) + lanes
         times[key] = _pair_ms(run, lambda: _grads(out, leaves, cts), reps=3)
-        prev = (f"; the previous kernel {PREV_PDF_MS[key]:.4f} ms"
-                if key in PREV_PDF_MS else "")
+        prev = (f"; the previous kernel "
+                f"{(PREV_PDF_MS.get(key) or PREV_MS[key]):.4f} ms")
         print(f"time {key} with the pdf: {times[key][0]:.4f} ms, plain "
               f"{times[key][1]:.4f} ms at {n} lanes{prev} [{card}]")
     del graphs
+    mix_ms = {
+        "K7 disc": _time_ms(lambda: K.launch_hit_bwd(tab, d_disc, g_rad,
+                                                     g_pdf), 3),
+        "K8 sky": _time_ms(lambda: K.launch_nee_pdf_bwd(
+            tab, u_cls["sky"], g_rad, g_pdf), 3),
+        "K8 sun": _time_ms(lambda: K.launch_nee_pdf_bwd(
+            tab, u_cls["sun"], g_rad, g_pdf), 3)}
+    print(f"time K7 with the pdf, every direction in the disc "
+          f"{mix_ms['K7 disc']:.4f} ms; K8 by strategy: all sky samples "
+          f"{mix_ms['K8 sky']:.4f} ms, all sun-cone samples "
+          f"{mix_ms['K8 sun']:.4f} ms, at {n} lanes; the previous kernels: "
+          + ", ".join(f"{k} {v} ms" for k, v in PREV_RGB_BWD_MIX_MS.items()
+                      if k != "K5 disc") + f" [{card}]")
 
     with torch.no_grad():
         o = OPS
@@ -1950,6 +2007,7 @@ def main():
               f"{r.get('stack')} bytes stack, {r.get('spill_stores')} bytes "
               f"spill stores, {r.get('spill_loads')} bytes spill loads")
         if ((source == "sunsky_kernels.cu"
+             or (source == "sunsky_adjoint.cu" and "bwd_kernel" in kernel)
              or (source in ("sunsky_spectral.cu",
                             "sunsky_spectral_adjoint.cu")
                  and "spec" in kernel))
@@ -2024,6 +2082,16 @@ def main():
               / (dd_p.abs().amax(-1) + 1e-3))
     _count_outside("K5 dd", dd_err, 1e-3, n, DD_CAP)
     results["K5"] = max(results["K5"], float((dd_k - dd_p).abs().max()))
+    # K5 with every direction in the disc (K2's lanes above, 1% of them at
+    # the disc's edge): the sun polynomial, its partials and the ramp on
+    # every lane
+    d_k = d_disc.clone().requires_grad_()
+    d_p = d_disc.clone().requires_grad_()
+    err, (dd_k,), (dd_p,) = _adjoint_check(
+        "K5, every direction in the disc", K.sunsky_eval_rgb(st_g, d_k),
+        M._eval_rgb_plain(st_g, d_p), g_rad, st_g, lp, [d_k], [d_p])
+    results["K5"] = max(results["K5"], err, _lane_check(
+        "K5 dd, every direction in the disc", dd_k, dd_p, n))
     # K6 redraws K3's samples bitwise, so it is held against the plain
     # radiance's autograd at those samples, and against the plain NEE
     # block with its own sampler. The two samplers' directions differ by
@@ -2225,6 +2293,8 @@ def main():
     k6_sun = _time_ms(lambda: K.launch_nee_bwd(tables, u_sun, g_rad), 5)
     # phase 3's RGB lane classes
     rgb_mix_ms = {
+        "K5 disc": _time_ms(lambda: K.launch_eval_bwd(tables, d_disc, g_rad),
+                            5),
         "K2 disc": _time_ms(lambda: K.launch_hit(tables, d_disc)),
         "K3 sky": _time_ms(lambda: K.launch_nee(tables, u_rgb["sky"])),
         "K3 sun": _time_ms(lambda: K.launch_nee(tables, u_rgb["sun"]))}
@@ -2251,6 +2321,9 @@ def main():
           f"headline sky weight {w_sky:.4f}); the previous kernel: all "
           f"sky {PREV_K6_STRATEGY_MS['sky']} ms, all sun-cone "
           f"{PREV_K6_STRATEGY_MS['sun']} ms [{card}]")
+    print(f"time K5 with every direction in the disc "
+          f"{rgb_mix_ms['K5 disc']:.4f} ms at {n} lanes; the previous "
+          f"kernel {PREV_RGB_BWD_MIX_MS['K5 disc']} ms [{card}]")
     print(f"time K2 with every direction in the disc "
           f"{rgb_mix_ms['K2 disc']:.4f} ms; K3 by strategy: all sky samples "
           f"{rgb_mix_ms['K3 sky']:.4f} ms, all sun-cone samples "

@@ -5,6 +5,7 @@ checkouts in one call (run each in turns: A, B, B, A).
     python3 tools/torch_ab.py spec_bwd <checkout>  # K12 and K13 alone
     python3 tools/torch_ab.py spec_fwd <checkout>  # K9, K10 and K11 alone
     python3 tools/torch_ab.py rgb_fwd <checkout>   # K1, K2 and K3 alone
+    python3 tools/torch_ab.py rgb_bwd <checkout>   # K5, K6, K7 and K8 alone
     python3 tools/torch_ab.py host <checkout>      # host-bound frames
 
 `k14`: K14 alone on bench_mesh's two wavefronts (1,048,576 rays) at
@@ -39,6 +40,24 @@ of `spec_fwd`: a pdf that moved by an ulp changes the second number
 (the staged pdf multiplies by 1/sigma where the global-memory one
 divides by sigma, within ~1e-6: compare its float sums).
 Then the ptxas report of the RGB forward kernels.
+`rgb_bwd`: the RGB adjoints K5, K6, K7 and K8 alone at 2,097,152 lanes,
+as `spec_bwd` times K12 and K13: K5 and K7 on rgb_fwd's directions with
+1% of them moved to the sun disc's edge, and with every direction in
+the disc (1% of them at its edge); K6 and K8 on the headline uniforms,
+every lane a TGMM sky sample and every lane a sun-cone sample; the
+cotangents normal draws, on the radiance and (K7, K8) on the pdf. Each
+case prints the median of 7 CUDA-event times, its device time split
+between pass 1 and `reduce_partials` by torch.profiler, and checksums:
+the float64 sum and absolute sum of the cotangent row (sun, skyp, skyr,
+misc, and the gaussian table for K7/K8) and, for K5/K7, of the direction
+cotangent dd. The row is summed in another order by another design (and
+the sun table by shared atomics in no fixed order), so two trees agree
+to ~1e-6 of the absolute sum, not bitwise. Then K6's and K8's rows (K8
+without a pdf cotangent) against K5's at the directions K3 draws from
+the same uniforms, with a radiance cotangent on one of 64 headline lanes
+at a time (every sum exact: the rows are equal bitwise where the redrawn
+direction is K3's and the radiance's reverse rounds alike in the two
+kernels), and the ptxas report of the RGB adjoint kernels.
 `host`: medians and quartiles of 7 host-clock times, each ending in a
 synchronise, of the headline frame through render_rows (K2, K3), the
 bench_spectral frame, bench_grad's and bench_spectral_grad's fwd+bwd
@@ -290,6 +309,114 @@ def rgb_fwd(C, card):
     return out
 
 
+def rgb_bwd(C, card):
+    import torch
+    import tpusky_torch as tt
+    from torch.profiler import ProfilerActivity, profile
+    from tpusky_torch.models.sunsky import model as M
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import sunsky_kernel as K
+    dev = torch.device("cuda", 0)
+    n = C.N_LANES
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=C.SUN, device=dev))
+    tables = K.pack_tables(state, dev)
+    # chip_smoke.py phase 3's lanes, 1% of the directions at the disc edge
+    rng = np.random.default_rng(0)
+    u = rng.random((n, 2), dtype=np.float32)
+    ct = u[:, 0]
+    st = np.sqrt(1.0 - ct * ct)
+    phi = 2.0 * np.pi * u[:, 1]
+    d = torch.tensor(np.stack([st * np.cos(phi), st * np.sin(phi), ct],
+                              -1).astype(np.float32), device=dev)
+    u2 = torch.tensor(rng.random((n, 2), dtype=np.float32), device=dev)
+    d = C._with_disc_edge(d, state, np.random.default_rng(5))
+    w_sky = float(state.sky_sampling_w)
+    u_sky = torch.stack([u2[:, 0] * w_sky, u2[:, 1]], -1).contiguous()
+    u_sun = torch.stack([w_sky + (1.0 - w_sky) * u2[:, 0], u2[:, 1]],
+                        -1).contiguous()
+    # every direction in the disc: the plain sampler's sun-cone samples,
+    # 1% of them at the disc edge (chip_smoke.py phase 3's K2 lanes)
+    with torch.no_grad():
+        d_disc = C._with_disc_edge(M._sample_eval_rgb_plain(
+            state, u_sun)[0].contiguous(), state, np.random.default_rng(2))
+    # cotangents drawn as attached_pdf_phase draws them
+    g_rng = np.random.default_rng(8)
+    g_rad = torch.tensor(g_rng.normal(size=(n, 3)).astype(np.float32),
+                         device=dev)
+    g_pdf = torch.tensor(g_rng.normal(size=n).astype(np.float32),
+                         device=dev)
+    cases = {
+        "K5 headline": lambda: K.launch_eval_bwd(tables, d, g_rad),
+        "K5 all disc": lambda: K.launch_eval_bwd(tables, d_disc, g_rad),
+        "K7 headline": lambda: K.launch_hit_bwd(tables, d, g_rad, g_pdf),
+        "K7 all disc": lambda: K.launch_hit_bwd(tables, d_disc, g_rad,
+                                                g_pdf),
+    }
+    for mix, uu in (("headline", u2), ("all sky", u_sky),
+                    ("all sun-cone", u_sun)):
+        cases[f"K6 {mix}"] = lambda uu=uu: K.launch_nee_bwd(tables, uu,
+                                                           g_rad)
+        cases[f"K8 {mix}"] = lambda uu=uu: K.launch_nee_pdf_bwd(
+            tables, uu, g_rad, g_pdf)
+    out = []
+    for name, fn in cases.items():
+        res = fn()
+        per_lane = name[:2] in ("K5", "K7")    # (dd, *tables)
+        row = torch.cat([x.reshape(-1)
+                         for x in res[per_lane:]]).double()
+        dd = (f" dd {float(res[0].double().sum()):.6e} "
+              f"{float(res[0].double().abs().sum()):.6e}"
+              if per_lane else "")
+        ms = C._median_ms(fn, reps=7)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        split = {"pass 1": 0.0, "reduce_partials": 0.0}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = ("reduce_partials" if "reduce_partials" in e.name
+                       else "pass 1" if "bwd_kernel" in e.name else None)
+                if key is not None:
+                    split[key] += e.device_time_total / 3e3
+        out.append(f"{name}: {ms:.4f} ms (profiled: pass 1 "
+                   f"{split['pass 1']:.4f} ms, reduce_partials "
+                   f"{split['reduce_partials']:.4f} ms) checksum "
+                   f"{float(row.sum()):.6e} {float(row.abs().sum()):.6e}"
+                   f"{dd}")
+    # K6 and K8 redraw K3's samples: with a radiance cotangent on one lane
+    # alone every sum is exact, so their rows are K5's at K3's direction
+    # bitwise where the redrawn direction is K3's and the radiance's
+    # reverse rounds alike in the kernels
+    d3 = K.launch_nee(tables, u2)[0].contiguous()
+    probes = np.random.default_rng(6).choice(n, 64, replace=False)
+    equal = {"K6": 0, "K8": 0}
+    no_pdf = torch.zeros_like(g_pdf)
+    for j in probes.tolist():
+        g1 = torch.zeros_like(g_rad)
+        g1[j] = g_rad[j]
+        r5 = torch.cat([x.reshape(-1) for x in K.launch_eval_bwd(
+            tables, d3, g1)[1:]])
+        r6 = torch.cat([x.reshape(-1) for x in K.launch_nee_bwd(
+            tables, u2, g1)])
+        r8 = torch.cat([x.reshape(-1) for x in K.launch_nee_pdf_bwd(
+            tables, u2, g1, no_pdf)[:4]])
+        equal["K6"] += bool(torch.equal(r6, r5))
+        equal["K8"] += bool(torch.equal(r8, r5))
+    out.append(f"K6 and K8 against K5 at K3's directions, a radiance "
+               f"cotangent on one headline lane: {equal['K6']} and "
+               f"{equal['K8']} of {len(probes)} rows bitwise equal "
+               f"({int((u2[probes, 0] < w_sky).sum())} of the lanes sky "
+               f"samples)")
+    with open(build.build()[:-3] + ".log") as f:
+        log = f.read().split("== sunsky_adjoint.cu")[1].split("\n== ")[0]
+    out += [" ".join(line.split()) for line in log.splitlines()
+            if "spill" in line or "registers" in line
+            or "Compiling entry" in line]
+    return out
+
+
 def host(C, card):
     import torch
     import tpusky_torch as tt
@@ -346,7 +473,7 @@ def main():
     card = C._card_line()
     build.library()
     modes = {"k14": k14, "spec_bwd": spec_bwd, "spec_fwd": spec_fwd,
-             "rgb_fwd": rgb_fwd, "host": host}
+             "rgb_fwd": rgb_fwd, "rgb_bwd": rgb_bwd, "host": host}
     for line in modes[mode](C, card):
         print(f"{mode.upper()} {os.path.relpath(tree)} {line} [{card}]")
 

@@ -1,14 +1,24 @@
 // What the sunsky adjoint kernels (sunsky_adjoint.cu: K5-K8;
 // sunsky_spectral_adjoint.cu: K12, K13) share: the block shape, the
-// warp-level sum of the sky pdf's gaussian table cotangent, and the second
-// pass that sums the blocks' partial rows in a fixed order.
+// warp-level sums of the table cotangents (the sun rows' and the sample
+// placement's grouped by row, the pdf's gaussian table's by a transposed
+// sum whose entries each lane owns), and the second pass that sums the
+// blocks' partial rows in a fixed order.
 //
 // Each adjoint takes two passes. Pass 1 is a grid-stride loop over the
-// lanes (one thread per lane at a time, at most kMaxBlocks blocks); every
-// thread of a block runs the same number of iterations, so warp-level
-// shuffles inside and after the loop see all 32 lanes (lanes past n carry
-// zero cotangents). Each block writes one partial row of the table
-// cotangents; reduce_partials sums the rows in a fixed order.
+// lanes (one thread per lane at a time; K12/K13 at most kMaxBlocks blocks,
+// K5-K8 as many as the SMs hold at once); every thread of a block runs
+// the same number of iterations, so warp-level shuffles inside and after
+// the loop see all 32 lanes (lanes past n carry zero cotangents). Each
+// block writes one partial row of the table cotangents; reduce_partials
+// sums the rows in a fixed order. What bounds the pdf's reverse on an
+// H100: the 20 gaussian terms a lane (an exp each) and their table
+// cotangent's sum over a warp. Summed by butterflies, gaussian by
+// gaussian, with IEEE divisions by sigma, it took ~1.5 ms of K8's 2.5 at
+// 2M lanes (an NVIDIA H100 80GB HBM3 at 700 W, tools/torch_ab.py rgb_bwd);
+// the transposed sums take ~100 shuffles a warp where the butterflies
+// took 500, no atomics in the loop, and multiply by 1/sigma (K12 with the
+// pdf 1.44 -> 0.61 ms, K13 2.10 -> 1.04, spec_bwd, the same card).
 #pragma once
 
 #include "sunsky_core.cuh"
@@ -34,34 +44,125 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The sky pdf's gaussian sum over the lanes of a warp (all 32 lanes call
-// it): returns each lane's sum and adds its coordinates' cotangents to
-// *g_phi, *g_theta. Every lane with a cotangent touches all 20 gaussians,
-// five table entries each, so the table's cotangent is summed over the
-// warp by shuffles, gaussian by gaussian, and lane 0 adds the sums to
-// s_gauss, the warp's own copy of the table: no two lanes contend for an
-// entry.
-__device__ __forceinline__ float gauss_sum_vjp_warp(
-    const float* __restrict__ gauss, const tsk::PdfLane& P, float* g_phi,
-    float* g_theta, float* s_gauss) {
+// The transposed sum of kM values v over a warp's 32 lanes (all lanes
+// call it): recursive halving. At each of the five steps a lane keeps half
+// of its values and sends the other half to its partner (lane ^ kOff),
+// which keeps the opposite half, and each adds what it receives to what
+// it kept; a value count that is odd gains a zero. Each of the kM sums
+// ends on one lane, transpose_owner(kM, lane) says which, after about kM
+// shuffles where a butterfly sum of every value takes 5 kM. The order of
+// the additions is fixed, so the sums are the same from run to run.
+template <int kM, int kOff>
+struct TransposeSum {
+  static __device__ __forceinline__ float run(const float* v) {
+    constexpr int kH = (kM + 1) / 2;
+    const bool up = (threadIdx.x & kOff) != 0;
+    float w[kH];
+#pragma unroll
+    for (int j = 0; j < kH; ++j) {
+      float lo = v[j], hi = j + kH < kM ? v[j + kH] : 0.0f;
+      w[j] = (up ? hi : lo) + __shfl_xor_sync(kFull, up ? lo : hi, kOff);
+    }
+    return TransposeSum<kH, kOff / 2>::run(w);
+  }
+};
+
+template <int kM>
+struct TransposeSum<kM, 0> {
+  static __device__ __forceinline__ float run(const float* v) {
+    return v[0];
+  }
+};
+
+template <int kM>
+__device__ __forceinline__ float warp_transpose_sum(const float (&v)[kM]) {
+  return TransposeSum<kM, 16>::run(v);
+}
+
+// Which of warp_transpose_sum's kM sums lane holds: its index, or -1. It
+// follows the lane's halves: `size` values, the first `real` of them not
+// padding, starting at index `first`.
+__device__ __forceinline__ int transpose_owner(int m, int lane) {
+  int first = 0, size = m, real = m;
+  for (int off = 16; off > 0; off >>= 1) {
+    int h = (size + 1) / 2;
+    if (lane & off) {
+      first += h;
+      real -= h;
+    } else {
+      real = min(real, h);
+    }
+    size = h;
+    if (real <= 0) return -1;
+  }
+  return first;
+}
+
+// The sky pdf's 20 gaussians as the adjoints read them, records gz (mu1,
+// 1/sigma1, mu2, 1/sigma2) and amplitudes gamp, staged by thread t of nt
+// (K12, K13; K5-K8 read StagedRgb's); the caller syncs the block before
+// reading.
+__device__ __forceinline__ void stage_gauss(float4* gz, float* gamp,
+                                            const float* __restrict__ g,
+                                            int t, int nt) {
+  for (int i = t; i < tsk::N_GAUSS; i += nt) {
+    gz[i] = make_float4(g[tsk::G_MU1 * tsk::N_GAUSS + i],
+                        g[tsk::G_INV_S1 * tsk::N_GAUSS + i],
+                        g[tsk::G_MU2 * tsk::N_GAUSS + i],
+                        g[tsk::G_INV_S2 * tsk::N_GAUSS + i]);
+    gamp[i] = g[tsk::G_A * tsk::N_GAUSS + i];
+  }
+}
+
+// The sky pdf's gaussian sum at each lane's (P.phi_rel, P.theta) and its
+// reverse for the sum's cotangent P.g_tg, over the lanes of a warp (all 32
+// lanes call it): returns the lane's sum (0 where !P.sky) and adds its
+// coordinates' cotangents to *g_phi, *g_theta. Each gaussian term reads
+// its staged record (gz, gamp), z = (x - mu) * (1/sigma), the same terms as
+// staged_pdf, so no division is left in the loop. The table's cotangents
+// [A, mu1, sigma1, mu2, sigma2] of kGaussGroup gaussians at a time (20
+// values a lane) are summed over the warp by warp_transpose_sum, and the
+// lane adds the one sum it holds to own[group]: it owns that entry
+// (gauss_table_warp writes it at the end of the pass). A warp without a
+// lane on the gaussians returns at once.
+constexpr int kGaussGroup = 4;
+constexpr int kGaussGroups = tsk::N_GAUSS / kGaussGroup;
+constexpr int kGaussVals = 5 * kGaussGroup;
+
+__device__ __forceinline__ float gauss_vjp_warp(
+    const float4* gz, const float* gamp, const tsk::PdfLane& P,
+    float* g_phi, float* g_theta, float (&own)[kGaussGroups]) {
   *g_phi = 0.0f;
   *g_theta = 0.0f;
   if (!__any_sync(kFull, P.sky)) return 0.0f;
-  bool lane0 = (threadIdx.x & 31) == 0;
   float tg = 0.0f;
-  for (int i = 0; i < tsk::N_GAUSS; ++i) {
-    float out[5];
-    tg += tsk::gauss_term_vjp(gauss, i, P.phi_rel, P.theta, P.g_tg, g_phi,
-                              g_theta, out);
+#pragma unroll 1
+  for (int q = 0; q < kGaussGroups; ++q) {
+    float v[kGaussVals];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) out[k] = warp_sum(out[k]);
-    if (lane0) {
-      atomicAdd(s_gauss + tsk::G_A * tsk::N_GAUSS + i, out[0]);
-      atomicAdd(s_gauss + tsk::G_MU1 * tsk::N_GAUSS + i, out[1]);
-      atomicAdd(s_gauss + tsk::G_S1 * tsk::N_GAUSS + i, out[2]);
-      atomicAdd(s_gauss + tsk::G_MU2 * tsk::N_GAUSS + i, out[3]);
-      atomicAdd(s_gauss + tsk::G_S2 * tsk::N_GAUSS + i, out[4]);
+    for (int k = 0; k < kGaussGroup; ++k) {
+      int i = q * kGaussGroup + k;
+      float4 r = gz[i];
+      float a = gamp[i];
+      float z1 = (P.phi_rel - r.x) * r.y;
+      float z2 = (P.theta - r.z) * r.w;
+      float e = expf(-0.5f * (z1 * z1 + z2 * z2));
+      tg += a * e;
+      float gq = -0.5f * (P.g_tg * a * e);   // d/d(z1^2 + z2^2)
+      float w1 = gq * 2.0f * z1 * r.y, w2 = gq * 2.0f * z2 * r.w;
+      *g_phi += w1;
+      *g_theta += w2;
+      v[5 * k] = P.g_tg * e;
+      v[5 * k + 1] = -w1;
+      v[5 * k + 2] = -w1 * z1;
+      v[5 * k + 3] = -w2;
+      v[5 * k + 4] = -w2 * z2;
     }
+    // own[q] += the sum; own rotates, so that it stays in registers
+    float sum = own[0] + warp_transpose_sum(v);
+#pragma unroll
+    for (int j = 0; j + 1 < kGaussGroups; ++j) own[j] = own[j + 1];
+    own[kGaussGroups - 1] = sum;
   }
   return P.sky ? tg : 0.0f;
 }
@@ -77,9 +178,10 @@ __device__ __forceinline__ float gauss_sum_vjp_warp(
 // in s_rec (the warp's 32 records); for each group lane l sums entries l,
 // l + 32, ... (or, where a row of g has at most 8 entries, lane c those
 // of g[c]) over the group's lanes in lane order and adds each with one
-// shared atomic: only the block's warps contend for an address. A warp
-// whose lanes have none returns at once.
-template <int kC, int kK, int kJ>
+// shared atomic (`Add`: plain adds where rows is the warp's own): only the
+// block's warps contend for an address. A warp whose lanes have none
+// returns at once.
+template <int kC, int kK, int kJ, class Add = tsk::AtomicAdd>
 __device__ __forceinline__ void outer_rows_warp(bool has, int key,
                                                 const float* g,
                                                 const float* a,
@@ -124,7 +226,7 @@ __device__ __forceinline__ void outer_rows_warp(bool has, int key,
         }
 #pragma unroll
         for (int q = 0; q < kNK * kNJ; ++q)
-          atomicAdd(row + lane * kNK * kNJ + q, sum[q]);
+          Add()(row + lane * kNK * kNJ + q, sum[q]);
       }
     } else {
       for (int e = lane; e < kC * kNK * kNJ; e += 32) {
@@ -136,7 +238,7 @@ __device__ __forceinline__ void outer_rows_warp(bool has, int key,
           float bj = kJ > 0 ? rec[kC + kK + j] : 1.0f;
           sum += rec[c] * (ak * bj);
         }
-        atomicAdd(row + e, sum);
+        Add()(row + e, sum);
       }
     }
     todo &= ~group;
@@ -156,6 +258,46 @@ __device__ __forceinline__ void sun_row_warp(const tsk::SunCot& sc,
                                    s_sun, tsk::SUN_F);
 }
 
+// K8's and K13's sample placement cotangents of a warp's lanes (place, 8
+// floats of gaussian idx; idx -1 for none) added to s_place, the warp's
+// own (20, 8) copy, [gaussian][c]: the lanes that picked one gaussian are
+// summed in lane order and added once (outer_rows_warp), so no two lanes
+// meet on an address and the sums are the same from run to run.
+constexpr int kPlaceN = tsk::N_GAUSS * tsk::N_PLACE;
+
+__device__ __forceinline__ void place_rows_warp(
+    int idx, const float (&place)[tsk::N_PLACE], float* s_rec,
+    float* s_place) {
+  outer_rows_warp<tsk::N_PLACE, 0, 0, tsk::PlainAdd>(
+      idx >= 0, idx, place, nullptr, nullptr, s_rec, s_place, tsk::N_PLACE);
+}
+
+// At the end of pass 1, the warp's gaussian table cotangent (14, 20) into
+// g_w (kGaussN floats of shared memory the warp owns; all 32 lanes call
+// it): the pdf's entries each lane owns (own, from gauss_vjp_warp), plus
+// the placement copy s_place unless it is null.
+__device__ __forceinline__ void gauss_table_warp(
+    const float (&own)[kGaussGroups], const float* s_place, float* g_w) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  for (int j = lane; j < kGaussN; j += 32) g_w[j] = 0.0f;
+  __syncwarp();
+  const int e = transpose_owner(kGaussVals, lane);
+  if (e >= 0) {
+    // [A, mu1, sigma1, mu2, sigma2] of gaussian q * kGaussGroup + e / 5
+    const int r = e % 5, row = r == 0 ? tsk::G_A : tsk::place_row(r - 1);
+#pragma unroll
+    for (int q = 0; q < kGaussGroups; ++q)
+      g_w[row * tsk::N_GAUSS + q * kGaussGroup + e / 5] = own[q];
+  }
+  if (s_place != nullptr) {
+    __syncwarp();
+    for (int j = lane; j < kPlaceN; j += 32)
+      g_w[tsk::place_row(j % tsk::N_PLACE) * tsk::N_GAUSS
+          + j / tsk::N_PLACE] += s_place[j];
+  }
+}
+
 // The sum of the warps' copies w of a shared table, entry j, in warp order.
 __device__ __forceinline__ float warps_sum(const float* s, int stride,
                                            int j) {
@@ -166,15 +308,16 @@ __device__ __forceinline__ float warps_sum(const float* s, int stride,
 }
 
 // Each thread's per-lane sums acc[k], k < kN, summed over the block in a
-// fixed order: over the warp by shuffles into s (kWarps x kN), then over
-// the warps by the caller (warps_sum) after a __syncthreads.
+// fixed order: over the warp by shuffles into s (kWarps rows of `stride`),
+// then over the warps by the caller (warps_sum) after a __syncthreads.
 template <int kN>
-__device__ __forceinline__ void warp_partials(const float* acc, float* s) {
+__device__ __forceinline__ void warp_partials(const float* acc, float* s,
+                                              int stride = kN) {
   bool lane0 = (threadIdx.x & 31) == 0;
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
     float v = warp_sum(acc[k]);
-    if (lane0) s[(threadIdx.x >> 5) * kN + k] = v;
+    if (lane0) s[(threadIdx.x >> 5) * stride + k] = v;
   }
 }
 

@@ -180,8 +180,8 @@ __device__ inline void radiance(const Tables& T, float dx, float dy,
   }
 }
 
-// Cotangent accumulator layout of the small tables (radiance_vjp's acc):
-// skyp (3, 9), then skyr (3,), then misc (16,).
+// The RGB small tables' cotangents in K5-K8's partial row (after the sun
+// table's): skyp (3, 9), then skyr (3,), then misc (16,).
 constexpr int ACC_SKYP = 0;
 constexpr int ACC_SKYR = 27;
 constexpr int ACC_MISC = 30;
@@ -211,8 +211,9 @@ struct AtomicAdd {
 // versions are: zero through sqrt at 0 and through asin/acos at |x| >= 1;
 // clamps pass the derivative at their bounds, as torch's do.
 
-// The forward intermediates of radiance() and the spectral radiance at an
-// above-horizon direction that their reverse sweeps read.
+// The forward intermediates of the spectral radiance at an above-horizon
+// direction that its reverse sweeps read (K12, K13; the RGB adjoints keep
+// their own, sunsky_adjoint.cu's LaneGeom).
 struct VjpGeom {
   float ct;                     // cos(theta) = dz
   float dot, s, ex, ey, ez, len, hc;   // gamma = 2 asin(|d - s n| / 2)
@@ -381,58 +382,6 @@ struct SunCot {
   int pos;
   float g[3], xp[4], cp[N_LD];
 };
-
-// Reverse-mode derivative of radiance() (model.py::_eval_rgb_plain) at one
-// direction, given the cotangent g of its RGB output. Adds the direction's
-// cotangent to dd and the small tables' cotangents to acc (layout ACC_*;
-// only what radiance() reads is touched); records the sun row's in sc
-// (set sc.g to zero before the call), which the caller sums over lanes
-// that share the row.
-__device__ __forceinline__ void radiance_vjp(const Tables& T, float dx,
-                                             float dy, float dz,
-                                             const float g[3], float dd[3],
-                                             float acc[N_ACC], SunCot& sc) {
-  if (dz < 0.0f) return;                  // below the horizon: radiance 0
-  const float* __restrict__ misc = T.misc;
-  VjpGeom v = vjp_geometry(misc, dx, dy, dz);
-  const float* __restrict__ coefs = T.sun + v.pos * SUN_F;
-  sc.pos = v.pos;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) sc.xp[k] = v.xp[k];
-#pragma unroll
-  for (int j = 0; j < N_LD; ++j) sc.cp[j] = v.cp[j];
-  float sky_scale = misc[M_SKY_SCALE], sun_scale = misc[M_SUN_SCALE];
-  GeomCot c = {};
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float G = g[ch] * CIE_Y_NORM;
-    // sun polynomial and its partials in x and cos_psi
-    float sun = 0.0f, sun_x = 0.0f, sun_cp = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        float co = coefs[ch * 24 + k * 6 + j];
-        sun += co * (v.xp[k] * v.cp[j]);
-        if (k > 0) sun_x += co * ((float)k * v.xp[k - 1] * v.cp[j]);
-        if (j > 0) sun_cp += co * (v.xp[k] * (float)j * v.cp[j - 1]);
-      }
-    // out = (sky_scale * sky + w * sun_scale * sun) * CIE_Y_NORM
-    float sky = sky_channel_vjp(T.skyp + 9 * ch, T.skyr[ch], v,
-                                G * sky_scale, acc + ACC_SKYP + 9 * ch,
-                                acc + ACC_SKYR + ch, c, PlainAdd());
-    acc[ACC_MISC + M_SKY_SCALE] += G * sky;
-    acc[ACC_MISC + M_SUN_SCALE] += G * v.hard * sun;
-    c.w += G * sun_scale * sun;
-    float g_sun = G * sun_scale * v.hard;
-    sc.g[ch] = g_sun;
-    if (g_sun != 0.0f) {
-      c.x += g_sun * sun_x;
-      c.cpsi += g_sun * sun_cp;
-    }
-  }
-  geometry_vjp(misc, v, c, dd, acc + ACC_MISC);
-}
 
 // Spectral channel ch's sun polynomial and limb darkening at the lane's
 // geometry, with their partials in x and cos_psi.
@@ -746,8 +695,11 @@ __device__ __forceinline__ float nee(const Tables& T, float u0, float u1,
 
 // mixture_pdf()'s forward state for the pdf's cotangent g_pdf: the gaussian
 // sum is needed, and has a cotangent, only where g_pdf is not 0. The sum
-// itself is taken by the caller (gauss_term_vjp per gaussian, summed over
-// a warp's lanes for the table).
+// and its reverse are taken by the caller (adjoint_common.cuh's
+// gauss_vjp_warp, the table's cotangent summed over a warp's lanes). The
+// table is read as mixture_pdf() reads it (the amplitude row folds in the
+// weight and the truncated volume), so its cotangent is the packed
+// table's and autograd through `_gauss_rows` takes it to the state.
 __device__ __forceinline__ PdfLane pdf_lane_vjp(const Tables& T, float dx,
                                                 float dy, float dz,
                                                 bool check_sun,
@@ -757,34 +709,6 @@ __device__ __forceinline__ PdfLane pdf_lane_vjp(const Tables& T, float dx,
   if (!P.sky) P.phi_rel = P.theta = 0.0f;
   P.g_tg = P.sky ? g_pdf * P.w / P.stc : 0.0f;
   return P;
-}
-
-// Gaussian i of the sky pdf's sum at (phi_rel, theta) and its reverse for
-// the sum's cotangent g_tg: returns the term A exp(-|z|^2 / 2), adds the
-// coordinates' cotangents to *g_phi and *g_theta and writes the table's
-// cotangents of [A, mu1, sigma1, mu2, sigma2] to out. The table is read
-// as mixture_pdf() reads it (z = (x - mu) / sigma; the amplitude row folds
-// in the weight and the truncated volume), so its cotangent is the packed
-// table's and autograd through `_gauss_rows` takes it to the state.
-__device__ __forceinline__ float gauss_term_vjp(const float* __restrict__ g,
-                                                int i, float phi_rel,
-                                                float theta, float g_tg,
-                                                float* g_phi, float* g_theta,
-                                                float out[5]) {
-  float s1 = g[G_S1 * N_GAUSS + i], s2 = g[G_S2 * N_GAUSS + i];
-  float z1, z2;
-  float e = gauss_exp(g, i, phi_rel, theta, &z1, &z2);
-  float a = g[G_A * N_GAUSS + i];
-  float gq = -0.5f * (g_tg * a * e);      // d/d(z1^2 + z2^2)
-  float gz1 = gq * 2.0f * z1, gz2 = gq * 2.0f * z2;
-  *g_phi += gz1 / s1;
-  *g_theta += gz2 / s2;
-  out[0] = g_tg * e;
-  out[1] = -gz1 / s1;
-  out[2] = -gz1 * z1 / s1;
-  out[3] = -gz2 / s2;
-  out[4] = -gz2 * z2 / s2;
-  return a * e;
 }
 
 // mixture_pdf()'s reverse after its gaussian sum tg, given the
@@ -846,16 +770,29 @@ __device__ __forceinline__ float erfinv_polished_vjp(float x, float* dydx) {
 // (model.py::sample_direction): the strategy pick, the gaussian pick and
 // the reused uniform are detached; a sky sample's mu, sigma and truncation
 // CDFs of its gaussian and the sun's phi, and a cone sample's cos_cut and
-// sun frame, are attached. Adds the picked gaussian's cotangents to gacc
-// (the (14, 20) table, with `add`) and the misc row's to am.
-template <class Add>
-__device__ __forceinline__ void nee_sample_vjp(const Tables& T, float u0,
-                                               float u1, const float gd[3],
-                                               float* am, float* gacc,
-                                               Add add) {
+// sun frame, are attached. Adds the misc row's cotangents to am; a sky
+// sample returns the index of its gaussian and writes that gaussian's
+// cotangents to place (rows place_row(0..7)), a cone sample returns -1
+// and zeros. The caller sums place over lanes that picked the same
+// gaussian.
+constexpr int N_PLACE = 8;
+
+// the gaussian table's row of place[c]: mu1, sigma1, mu2, sigma2, then
+// the truncation CDFs ca1, cb1, ca2, cb2
+__device__ __forceinline__ int place_row(int c) {
+  return c < 4 ? (c & 1) * (G_S1 - G_MU1) + (c >> 1) * (G_MU2 - G_MU1)
+               : G_CA1 + (c - 4);
+}
+
+__device__ __forceinline__ int nee_place_vjp(const Tables& T, float u0,
+                                             float u1, const float gd[3],
+                                             float* am,
+                                             float place[N_PLACE]) {
   const float* __restrict__ misc = T.misc;
   const float* __restrict__ g = T.gauss;
   float w = misc[M_WMIX];
+#pragma unroll
+  for (int k = 0; k < N_PLACE; ++k) place[k] = 0.0f;
   if (u0 < w) {
     SkyPick k = sky_pick(g, w, u0, u1);
     int idx = k.idx;
@@ -877,49 +814,49 @@ __device__ __forceinline__ void nee_sample_vjp(const Tables& T, float u0,
     float g_ang2 = ang2 <= THETA_MAX ? g_theta : 0.0f;
     am[M_SUN_PHI] += g_phi;
     // ang = sqrt(2) erfinv(2 p - 1) sigma + mu, p = clamp(lerp(ca, cb, u))
-    add(gacc + G_MU1 * N_GAUSS + idx, g_phi);
-    add(gacc + G_S1 * N_GAUSS + idx, g_phi * (SQRT2_F * y1));
-    add(gacc + G_MU2 * N_GAUSS + idx, g_ang2);
-    add(gacc + G_S2 * N_GAUSS + idx, g_ang2 * (SQRT2_F * y2));
+    place[0] = g_phi;
+    place[1] = g_phi * (SQRT2_F * y1);
+    place[2] = g_ang2;
+    place[3] = g_ang2 * (SQRT2_F * y2);
     if (p1r >= EPS_F32 && p1r <= 1.0f - EPS_F32) {
       float gp = 2.0f * dy1 * (g_phi * SQRT2_F * s1);
-      add(gacc + G_CA1 * N_GAUSS + idx, gp * (1.0f - reused));
-      add(gacc + G_CB1 * N_GAUSS + idx, gp * reused);
+      place[4] = gp * (1.0f - reused);
+      place[5] = gp * reused;
     }
     if (p2r >= EPS_F32 && p2r <= 1.0f - EPS_F32) {
       float gp = 2.0f * dy2 * (g_ang2 * SQRT2_F * s2);
-      add(gacc + G_CA2 * N_GAUSS + idx, gp * (1.0f - u1));
-      add(gacc + G_CB2 * N_GAUSS + idx, gp * u1);
+      place[6] = gp * (1.0f - u1);
+      place[7] = gp * u1;
     }
-  } else {
-    float px, py;
-    cone_disk(w, u0, u1, &px, &py);
-    float cos_cut = misc[M_COS_CUT];
-    float om = 1.0f - cos_cut;
-    float pn = px * px + py * py;
-    float lz = cos_cut + om * (1.0f - pn);
-    float q = om * (2.0f - om * pn);
-    float scale = safe_sqrt(q);
-    float lx = px * scale, ly = py * scale;
-    // d = lx s + ly t + lz n
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      am[M_SX + k] += gd[k] * lx;
-      am[M_TX + k] += gd[k] * ly;
-      am[M_SUNX + k] += gd[k] * lz;
-    }
-    float g_lx = gd[0] * misc[M_SX] + gd[1] * misc[M_SY] + gd[2] * misc[M_SZ];
-    float g_ly = gd[0] * misc[M_TX] + gd[1] * misc[M_TY] + gd[2] * misc[M_TZ];
-    float g_lz = gd[0] * misc[M_SUNX] + gd[1] * misc[M_SUNY]
-                 + gd[2] * misc[M_SUNZ];
-    // lz = cos_cut + om (1 - pn), scale = sqrt(om (2 - om pn)), om =
-    // 1 - cos_cut
-    float g_om = g_lz * (1.0f - pn);
-    if (q > 0.0f)
-      g_om += (g_lx * px + g_ly * py) * 0.5f / scale
-              * (2.0f - 2.0f * om * pn);
-    am[M_COS_CUT] += g_lz - g_om;
+    return idx;
   }
+  float px, py;
+  cone_disk(w, u0, u1, &px, &py);
+  float cos_cut = misc[M_COS_CUT];
+  float om = 1.0f - cos_cut;
+  float pn = px * px + py * py;
+  float lz = cos_cut + om * (1.0f - pn);
+  float q = om * (2.0f - om * pn);
+  float scale = safe_sqrt(q);
+  float lx = px * scale, ly = py * scale;
+  // d = lx s + ly t + lz n
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    am[M_SX + k] += gd[k] * lx;
+    am[M_TX + k] += gd[k] * ly;
+    am[M_SUNX + k] += gd[k] * lz;
+  }
+  float g_lx = gd[0] * misc[M_SX] + gd[1] * misc[M_SY] + gd[2] * misc[M_SZ];
+  float g_ly = gd[0] * misc[M_TX] + gd[1] * misc[M_TY] + gd[2] * misc[M_TZ];
+  float g_lz = gd[0] * misc[M_SUNX] + gd[1] * misc[M_SUNY]
+               + gd[2] * misc[M_SUNZ];
+  // lz = cos_cut + om (1 - pn), scale = sqrt(om (2 - om pn)), om =
+  // 1 - cos_cut
+  float g_om = g_lz * (1.0f - pn);
+  if (q > 0.0f)
+    g_om += (g_lx * px + g_ly * py) * 0.5f / scale * (2.0f - 2.0f * om * pn);
+  am[M_COS_CUT] += g_lz - g_om;
+  return -1;
 }
 
 // ---- counter-hash RNG (render/sampler.py, kind "independent") ----

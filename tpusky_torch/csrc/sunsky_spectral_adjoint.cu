@@ -20,10 +20,9 @@
 //
 // with_pdf is a template flag, chosen at launch by whether g_pdf is given.
 // The reverse sweeps are sunsky_core.cuh's: the radiance's in pieces
-// (vjp_geometry, spec_fold, sky_channel_vjp, spec_dwl, geometry_vjp,
-// sharing radiance_vjp's geometry, sky formula, disc surrogate and gamma
-// chain), pdf_lane_vjp/gauss_term_vjp/pdf_vjp_tail and nee_sample_vjp. The
-// TPU kernels traced a jax.vjp over (11, B) channel tiles and one-hot
+// (vjp_geometry, spec_fold, sky_channel_vjp, spec_dwl, geometry_vjp),
+// pdf_lane_vjp, pdf_vjp_tail and nee_place_vjp, and adjoint_common.cuh's
+// gauss_vjp_warp. The TPU kernels traced a jax.vjp over (11, B) channel tiles and one-hot
 // products (sunsky_kernel.py:1203-1280).
 //
 // What bounds them on an H100: arithmetic, as K5-K8 (the forward plus its
@@ -42,9 +41,13 @@
 // (adjoint_common.cuh::outer_rows_warp): records staged per warp, the sun
 // row summed over the lanes that share it, the limb table over the warp,
 // one shared atomic per entry per group. No two lanes of a warp add to
-// one address of these tables. The misc row's (16), which every lane touches, stays in
-// registers and is summed at the end; the gaussian table (with_pdf) takes
-// K7's per-warp copy. A block's partial row is [sun 1980 | skyp 99 |
+// one address of these tables. The misc row's (16), which every lane
+// touches, stays in registers and is summed at the end. With the pdf the
+// gaussians are staged once a block as K7 and K8 stage them: the pdf's
+// table cotangent is summed over the warp by K7's transposed sums, each
+// lane owning a few entries in registers (gauss_vjp_warp), and K13's
+// placement cotangent grouped by gaussian as K8's (place_rows_warp), into
+// the warp's own copy without atomics. A block's partial row is [sun 1980 | skyp 99 |
 // skyr 11 | ld 66 | misc 16 | gauss 280] (gauss zero without the pdf).
 
 #include "adjoint_common.cuh"
@@ -58,6 +61,10 @@ constexpr int kRow = kGaussCol + kGaussN;                       // 2452
 // a lane's staged record: the limb table's (11 + 6 floats), the largest of
 // the sun row's (11 + 4), the limb table's and a sky channel's (10)
 constexpr int kSpecRec = tsk::N_CH + tsk::N_LD;
+// a warp's records, which at the end of the pass hold its gaussian table
+// (gauss_table_warp)
+constexpr int kWarpRec = 32 * kSpecRec;
+static_assert(kWarpRec >= kGaussN, "the warp's records hold its table");
 
 // The sky formula's reverse of a warp's lanes, channel by channel (all 32
 // lanes call it): lane by lane in registers for the channels it reads
@@ -111,26 +118,32 @@ __device__ __forceinline__ void spec_adjoint_pass(
     const float* __restrict__ g, const float* __restrict__ g_pdf, int n,
     int nw, const tsk::Tables& T, float* __restrict__ dd_out,
     float* __restrict__ dwl_out, float* __restrict__ partial) {
+  constexpr bool kPlace = kNee && kPdf;
   __shared__ float s_sun[kSunN];
   __shared__ float s_small[kWarps * tsk::N_SPEC_SMALL];
   __shared__ float s_misc[kWarps * 16];
-  __shared__ float s_gauss[kPdf ? kWarps * kGaussN : 1];
-  __shared__ float s_rec[kWarps * 32 * kSpecRec];
+  __shared__ float4 s_gz[tsk::N_GAUSS];
+  __shared__ float s_gamp[tsk::N_GAUSS];
+  __shared__ float s_place[kPlace ? kWarps * kPlaceN : 1];
+  __shared__ float s_rec[kWarps * kWarpRec];
   for (int i = threadIdx.x; i < kSunN; i += kThreads) s_sun[i] = 0.0f;
   for (int i = threadIdx.x; i < kWarps * tsk::N_SPEC_SMALL; i += kThreads)
     s_small[i] = 0.0f;
-  if (kPdf)
-    for (int i = threadIdx.x; i < kWarps * kGaussN; i += kThreads)
-      s_gauss[i] = 0.0f;
+  if (kPlace)
+    for (int i = threadIdx.x; i < kWarps * kPlaceN; i += kThreads)
+      s_place[i] = 0.0f;
+  if (kPdf) stage_gauss(s_gz, s_gamp, T.gauss, threadIdx.x, kThreads);
   __syncthreads();
   int warp = threadIdx.x >> 5;
   float* s_small_w = s_small + warp * tsk::N_SPEC_SMALL;
-  float* s_gauss_w = s_gauss + (kPdf ? warp * kGaussN : 0);
-  float* s_rec_w = s_rec + warp * 32 * kSpecRec;
+  float* s_place_w = s_place + (kPlace ? warp * kPlaceN : 0);
+  float* s_rec_w = s_rec + warp * kWarpRec;
 
-  float am[16];
+  float am[16], own_g[kGaussGroups];
 #pragma unroll
   for (int k = 0; k < 16; ++k) am[k] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kGaussGroups; ++q) own_g[q] = 0.0f;
 
   for (long long base = (long long)blockIdx.x * kThreads; base < n;
        base += (long long)gridDim.x * kThreads) {
@@ -186,19 +199,21 @@ __device__ __forceinline__ void spec_adjoint_pass(
       if (kNee && !(d[2] >= 0.0f)) gp = 0.0f;
       tsk::PdfLane P = tsk::pdf_lane_vjp(T, d[0], d[1], d[2], pick_sky, gp);
       float g_phi, g_theta;
-      float tg = gauss_sum_vjp_warp(T.gauss, P, &g_phi, &g_theta, s_gauss_w);
+      float tg = gauss_vjp_warp(s_gz, s_gamp, P, &g_phi, &g_theta, own_g);
+      int idx = -1;
+      float place[tsk::N_PLACE] = {};
       if (gp != 0.0f) {
         if (kNee) {
           float dp[3] = {0.0f, 0.0f, 0.0f};
           tsk::pdf_vjp_tail(T.misc, d[0], d[1], d[2], P, tg, gp, true,
                             g_phi, g_theta, dp, am);
-          tsk::nee_sample_vjp(T, u0, u1, dp, am, s_gauss_w,
-                              tsk::AtomicAdd());
+          idx = tsk::nee_place_vjp(T, u0, u1, dp, am, place);
         } else {
           tsk::pdf_vjp_tail(T.misc, d[0], d[1], d[2], P, tg, gp, false,
                             g_phi, g_theta, dd, am);
         }
       }
+      if (kPlace) place_rows_warp(idx, place, s_rec_w, s_place_w);
     }
     if (!kNee && live && dd_out != nullptr) {
       dd_out[3 * i] = dd[0];
@@ -208,6 +223,7 @@ __device__ __forceinline__ void spec_adjoint_pass(
   }
 
   warp_partials<16>(am, s_misc);
+  if (kPdf) gauss_table_warp(own_g, kPlace ? s_place_w : nullptr, s_rec_w);
   __syncthreads();
   float* __restrict__ out = partial + (size_t)blockIdx.x * kRow;
   for (int j = threadIdx.x; j < kSunN; j += kThreads) out[j] = s_sun[j];
@@ -216,7 +232,7 @@ __device__ __forceinline__ void spec_adjoint_pass(
   if (threadIdx.x < 16)
     out[kMiscCol + threadIdx.x] = warps_sum(s_misc, 16, threadIdx.x);
   for (int j = threadIdx.x; j < kGaussN; j += kThreads)
-    out[kGaussCol + j] = kPdf ? warps_sum(s_gauss, kGaussN, j) : 0.0f;
+    out[kGaussCol + j] = kPdf ? warps_sum(s_rec, kWarpRec, j) : 0.0f;
 }
 
 template <bool kPdf>

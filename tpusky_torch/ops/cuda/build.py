@@ -54,8 +54,10 @@ _SIGNATURES = {
     # skyp, skyr, sun, misc, gauss, out, stream
     "tsk_direct_rgb_megakernel": (_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I,
                                   _I, _P, _P, _P, _P, _P, _P, _P),
-    # n -> rows of block-partial scratch the adjoints need
+    # n -> rows of block-partial scratch K12/K13 need
     "tsk_adjoint_rows": (_I,),
+    # n, k -> rows of block-partial scratch K5-K8 (k = 5-8) need
+    "tsk_adjoint_rgb_rows": (_I, _I),
     # d, g, n, skyp, skyr, sun, misc, dd, partial, out, stream
     "tsk_sunsky_eval_rgb_bwd": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # u, g, n, skyp, skyr, sun, misc, gauss, partial, out, stream

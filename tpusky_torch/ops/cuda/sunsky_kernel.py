@@ -249,8 +249,13 @@ def _split_cotangents(row):
     return out if row.shape[0] == _ROW else (*out, row[_ROW:].view(14, 20))
 
 
-def _adjoint_scratch(n, cols, device):
-    rows = build.library().tsk_adjoint_rows(n)
+def _adjoint_scratch(n, cols, device, rgb_kernel=None):
+    """(partial rows, output row) of an adjoint's launch over n lanes: K12
+    and K13 run a fixed grid, K5-K8 (rgb_kernel 5-8) as many blocks as
+    the card holds at once."""
+    lib = build.library()
+    rows = (lib.tsk_adjoint_rows(n) if rgb_kernel is None
+            else lib.tsk_adjoint_rgb_rows(n, rgb_kernel))
     partial = torch.empty((rows, cols), dtype=torch.float32, device=device)
     return partial, torch.empty(cols, dtype=torch.float32, device=device)
 
@@ -259,7 +264,7 @@ def launch_eval_bwd(tables: Tables, d, g_rad):
     """K5: -> (dd (N, 3), dskyp, dskyr, dsun, dmisc)."""
     n = d.shape[0]
     dd = torch.empty_like(d)
-    partial, row = _adjoint_scratch(n, _ROW, d.device)
+    partial, row = _adjoint_scratch(n, _ROW, d.device, 5)
     sk = tables.pointers()
     err = build.library().tsk_sunsky_eval_rgb_bwd(
         d.data_ptr(), g_rad.data_ptr(), n, sk[0], sk[1], sk[2], sk[3],
@@ -271,7 +276,7 @@ def launch_eval_bwd(tables: Tables, d, g_rad):
 def launch_nee_bwd(tables: Tables, u2, g_rad):
     """K6: -> (dskyp, dskyr, dsun, dmisc)."""
     n = u2.shape[0]
-    partial, row = _adjoint_scratch(n, _ROW, u2.device)
+    partial, row = _adjoint_scratch(n, _ROW, u2.device, 6)
     err = build.library().tsk_sunsky_nee_rgb_bwd(
         u2.data_ptr(), g_rad.data_ptr(), n, *tables.pointers(),
         partial.data_ptr(), row.data_ptr(), _stream(u2.device))
@@ -283,7 +288,7 @@ def launch_hit_bwd(tables: Tables, d, g_rad, g_pdf):
     """K7: -> (dd (N, 3), dskyp, dskyr, dsun, dmisc, dgauss)."""
     n = d.shape[0]
     dd = torch.empty_like(d)
-    partial, row = _adjoint_scratch(n, _ROW_PDF, d.device)
+    partial, row = _adjoint_scratch(n, _ROW_PDF, d.device, 7)
     err = build.library().tsk_sunsky_hit_rgb_bwd(
         d.data_ptr(), g_rad.data_ptr(), g_pdf.data_ptr(), n,
         *tables.pointers(), dd.data_ptr(), partial.data_ptr(),
@@ -295,7 +300,7 @@ def launch_hit_bwd(tables: Tables, d, g_rad, g_pdf):
 def launch_nee_pdf_bwd(tables: Tables, u2, g_rad, g_pdf):
     """K8: -> (dskyp, dskyr, dsun, dmisc, dgauss)."""
     n = u2.shape[0]
-    partial, row = _adjoint_scratch(n, _ROW_PDF, u2.device)
+    partial, row = _adjoint_scratch(n, _ROW_PDF, u2.device, 8)
     err = build.library().tsk_sunsky_nee_rgb_pdf_bwd(
         u2.data_ptr(), g_rad.data_ptr(), g_pdf.data_ptr(), n,
         *tables.pointers(), partial.data_ptr(), row.data_ptr(),
