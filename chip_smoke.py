@@ -9,8 +9,8 @@ Phases, each of which raises (exit code != 0) on failure:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the kernels from tpusky_torch/csrc with nvcc; print
    each kernel's registers and spills (ptxas) and require no spills in
-   K1-K3's three kernels, K5-K8's four, K9-K11's six instantiations (W =
-   4 and runtime W) and K12's and K13's four;
+   K1-K3's three kernels, K4's, K5-K8's four, K9-K11's six
+   instantiations (W = 4 and runtime W) and K12's and K13's four;
 3. K1-K3 against their plain PyTorch versions at 2,097,152 lanes, then
    the RGB lane classes: K2 with every direction in the sun's disc (1% of
    them moved to the disc's edge, the pdf's cone-edge flips counted and
@@ -27,7 +27,16 @@ Phases, each of which raises (exit code != 0) on failure:
    (K2, K3); every kernel's launch count must rise, the image must be
    finite and non-zero, and K4 must agree with the plain wavefront path
    lane by lane and per image, on the card and against the CPU on a small
-   frame;
+   frame; the camera, shape and material rows and the state's misc row
+   and gaussian table that K4 builds in its staging must equal their
+   plain versions (`megakernel.scene_rows`, `sunsky_kernel._misc_row` and
+   `_gauss_rows`), and the headline `render()` must make no host-device
+   synchronisation (run once under
+   `torch.cuda.set_sync_debug_mode("error")`); then a scene of 80 shapes,
+   more than K4 keeps in shared memory, under a rotated environment,
+   through `render` (K4): its rows and its lanes held the same way, its
+   image against the plain path's own spread (its lanes when the shapes
+   move by 2.4e-7, which flips as many silhouette lanes as K4's rounding);
 5. the gradient main path: `bench.py::bench_grad`'s loss (512x512, 4 spp,
    mean(img^2), gradients to turbidity, albedo and sun direction through
    precompute) through `render_rows` (K2, K3 forward; K5, K6 backward) and
@@ -35,7 +44,8 @@ Phases, each of which raises (exit code != 0) on failure:
    five training steps of `make_train_step_single` (512x512, 8 spp,
    log_l2_blur, Adam); K2-K6 must launch, the two gradients must agree,
    and the steps must lower the loss and raise turbidity toward the
-   target's. The kernel path's gradient is then held against the plain
+   target's; the step's loss on a scene built from leaves that require
+   grad must make no host-device synchronisation. The kernel path's gradient is then held against the plain
    path's on the card;
 6. the spectral main path: K9-K11 against their plain versions at
    2,097,152 lanes with 4 hero wavelengths from `sample_rgb_spectrum` (the
@@ -80,7 +90,9 @@ Phases, each of which raises (exit code != 0) on failure:
    against the plain path on the card, a crop against the CPU's plain
    render, and the frame's time;
 10. times of each kernel and its plain version (CUDA events; for the
-   adjoints, autograd's backward over a graph built once), the fwd+bwd
+   adjoints, autograd's backward over a graph built once), K4 by lane
+   class (the headline frame, and every lane a miss, which the plain
+   intersection confirms), the fwd+bwd
    rates of bench_grad and bench_spectral_grad, a training step's time
    and peak memory, the spectral frame's time and rays per second;
 11. one JSON line of kernel results, then the device line, last.
@@ -131,7 +143,7 @@ TIE_SUBDIV = 4
 # K13 with the pdf, K14 by mesh and wavefront (triangles, wavefront) ->
 # (direct, sorted) ms, K6, K12 and K13 by lane mix (K12 and K13's from
 # tools/torch_ab.py spec_bwd on the same card)
-PREV_MS = {"K1": 0.0478, "K2": 0.1242, "K3": 0.1833, "K4": 0.2919,
+PREV_MS = {"K1": 0.0478, "K2": 0.1242, "K3": 0.1833, "K4": 0.2905,
           "K5": 0.3570, "K6": 0.6136, "K7": 1.8245, "K8": 2.4844,
           "K9": 0.0931, "K10": 0.1592, "K11": 0.2388, "K12": 1.1880,
           "K13": 2.1624, "K14": 18.8273}
@@ -155,6 +167,9 @@ PREV_SPEC_FWD_MIX_MS = {"K10 disc": 0.1995, "K11 sky": 0.2076,
 # every lane a sun-cone sample, before K1-K3 were redesigned
 # (tools/torch_ab.py rgb_fwd on the parent checkout, the same card)
 PREV_RGB_MIX_MS = {"K2 disc": 0.1402, "K3 sky": 0.1542, "K3 sun": 0.1526}
+# K4 with every lane a miss (the camera turned to the sky), before K4 was
+# redesigned (tools/torch_ab.py k4 on the parent checkout, the same card)
+PREV_K4_MIX_MS = {"all miss": 0.0900}
 # K5 and K7 with every direction in the disc, K8 with every lane a sky
 # sample and every lane a sun-cone sample, before K5-K8 were redesigned
 # (tools/torch_ab.py rgb_bwd on the parent checkout, the same card)
@@ -478,6 +493,96 @@ def _headline_scene(state, device):
     sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
                               device=device)
     return scene, sensor
+
+
+def _many_shapes_scene(state, device, n=80):
+    """A scene of n shapes, more than K4 keeps in shared memory: the
+    headline ground, then spheres, rectangles and disks of both materials
+    in a grid on it, some two-sided, under a rotated environment."""
+    from tpusky_torch.render.scene import make_scene
+    shapes = [dict(kind=1, to_world=np.diag([10.0, 10.0, 1.0, 1.0]).astype(
+        np.float32), bsdf_idx=0)]
+    for i in range(n - 1):
+        m = np.diag([0.25, 0.25, 0.25, 1.0]).astype(np.float32)
+        m[:3, 3] = [-3.0 + 0.75 * (i % 9), -3.0 + 0.75 * (i // 9),
+                    0.3 + 0.1 * (i % 3)]
+        shapes.append(dict(kind=i % 3, to_world=m, bsdf_idx=1 + i % 2))
+    ca, sa = math.cos(0.3), math.sin(0.3)
+    return make_scene(
+        shapes=shapes, bsdf_albedos=[[0.4, 0.4, 0.4], [0.6, 0.2, 0.2],
+                                     [0.2, 0.5, 0.3]],
+        bsdf_twosided=[False, False, True], env=state,
+        env_to_world=[[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]],
+        device=device)
+
+
+def _k4_work(scene, sensor, state):
+    """K4's work on the headline-sized frame of `scene` seen by `sensor`,
+    counted from the plain wavefront path's own intermediates
+    (render/integrator.py::_path_sample at depth 2, the port's plain
+    functions): camera rays that hit, the hits' NEE samples from the sky
+    mixture, the NEE directions K4 looks up (lit, above the horizon,
+    unshadowed; of them the sun-cone samples) and the escaped
+    continuations."""
+    import torch
+    from tpusky_torch.ops.math import Frame, dot, norm
+    from tpusky_torch.render import bsdf as B, emitters as em
+    from tpusky_torch.render import integrator as I
+    from tpusky_torch.render.scene import scene_occluded
+    from tpusky_torch.render.sensors import sample_ray
+    dev = scene.shapes.to_world.device
+    lane = torch.arange(H * W * SPP, device=dev)
+    pixel = lane // SPP
+    smp = I._SamplerCtx("independent", SEED, pixel, lane % SPP, SPP)
+    u_pos = smp.next(10_000, 2)
+    uv = torch.stack([((pixel % W).float() + u_pos[:, 0]) / W,
+                      ((pixel // W).float() + u_pos[:, 1]) / H], -1)
+    o, d = sample_ray(sensor, uv)
+    _, p, ng, mat_idx, hit = I._scene_intersect(scene, o, d, True)
+    frame = Frame(ng)
+    wi_z = frame.to_local(-d)[:, 2]
+    flip = torch.where(scene.bsdfs.twosided[mat_idx] & (wi_z < 0.0), -1.0,
+                       1.0)
+    lit = hit & (wi_z * flip > 0.0)
+
+    def offset(dirs):
+        return p + torch.sign(dot(ng, dirs))[..., None] * ng * (
+            I._SHADOW_EPS * norm(p, keepdim=True).clamp(min=1.0))
+    u_nee = smp.next(0, 2)
+    sky = u_nee[:, 0] < state.sky_sampling_w
+    d_e = em.env_sample_eval(state, scene.env_to_world, u_nee, "rgb",
+                             pdf_detached=True, plain=True)[0]
+    above = (d_e @ scene.env_to_world)[:, 2] >= 0.0      # env-local z
+    nee = (lit & (frame.to_local(d_e)[:, 2] * flip > 0.0) & above
+           & ~scene_occluded(scene, offset(d_e), d_e, torch.inf, plain=True))
+    u_b = smp.next(1, 3)
+    wo, _, pdf_b, _ = B.sample(scene.bsdfs, mat_idx, frame.to_local(-d),
+                               u_b[:, :2], u_b[:, 2],
+                               kinds=B.table_kinds(scene.bsdfs))
+    d_n = frame.to_world(wo)
+    cont = (lit & (pdf_b > 0.0)
+            & ~I._scene_intersect(scene, offset(d_n), d_n, True)[4])
+    return {k: float(v.sum()) for k, v in (
+        ("hits", hit), ("sky", hit & sky), ("nee", nee),
+        ("nee_sun", nee & ~sky), ("cont", cont))}
+
+
+def _no_sync(fn, what):
+    """fn() under torch.cuda.set_sync_debug_mode("error"), reset
+    afterwards: a host-device synchronisation in it raises."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{what} synchronises the host with the "
+                             f"device: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"check {what} under set_sync_debug_mode('error'): no "
+          "synchronisation")
+    return out
 
 
 def grad_case(kind, scene, sensor, film, tables, dev):
@@ -1983,8 +2088,6 @@ def main():
     from tpusky_torch.parallel.render import image_loss
     from tpusky_torch.render import integrator
     from tpusky_torch.render.film import Film, develop, splat_ordered
-    from tpusky_torch.render.sensors import sample_ray
-    from tpusky_torch.render.shapes import ray_intersect
     card = _card_line()
     print(f"card: {card}")
     dev = torch.device("cuda", 0)
@@ -2006,7 +2109,7 @@ def main():
         print(f"ptxas {source} {kernel}: {r.get('registers')} registers, "
               f"{r.get('stack')} bytes stack, {r.get('spill_stores')} bytes "
               f"spill stores, {r.get('spill_loads')} bytes spill loads")
-        if ((source == "sunsky_kernels.cu"
+        if ((source in ("sunsky_kernels.cu", "megakernel.cu")
              or (source == "sunsky_adjoint.cu" and "bwd_kernel" in kernel)
              or (source in ("sunsky_spectral.cu",
                             "sunsky_spectral_adjoint.cu")
@@ -2163,16 +2266,96 @@ def main():
         raise AssertionError("K4 disagrees with the plain wavefront path")
     results["K4"] = float((lanes_k - lanes_p).abs().max())
     del lanes_p
+    # the rows K4 staged from the raw tensors against their plain versions
+    def check_rows(sc, se, label):
+        with torch.no_grad():
+            lanes_r, rows_k = MK.launch(MK.pack(sc, se, state), SEED, SPP,
+                                        W, H, rows=True)
+        # the scene rows to 1e-6, the state's (1/sigma reaches ~15 on the
+        # headline sky) to 1e-6 of their size
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(rows_k[:3], MK.scene_rows(sc, se)))
+        err_st = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                     for a, b in zip(rows_k[3:], (K._misc_row(state),
+                                                  K._gauss_rows(state))))
+        print(f"check K4 staged rows{label}: camera, shapes, materials "
+              f"against scene_rows max {err:.3e} (bar 1e-6), misc and "
+              f"gaussians against _misc_row and _gauss_rows max "
+              f"{err_st:.3e} relative (bar 1e-6)")
+        if not (err <= 1e-6 and err_st <= 1e-6):
+            raise AssertionError("K4's staged rows differ from their plain "
+                                 "versions")
+        return lanes_r
+    if not torch.equal(check_rows(scene, sensor, ""), lanes_k):
+        raise AssertionError("K4's lanes differ with the rows output")
+    # the headline render() makes no host-device synchronisation
+    img_again = _no_sync(lambda: integrator.render(
+        scene, sensor, film, SEED, spp=SPP, max_depth=MAX_DEPTH),
+        "the headline render()")
+    if not torch.equal(img_again, img):
+        raise AssertionError("render() is not deterministic")
 
-    # a small frame through K4 on the card and the plain path on the CPU
+    # a scene of more shapes than K4 keeps in shared memory, through
+    # render() on the card (K4), against the plain wavefront lane by lane.
+    # Its 80 shapes' silhouettes make a lane's shadow or continuation ray
+    # flip with the last bit of a hit test, so the image is held against
+    # the plain path's own spread: its lanes when every to_object moves
+    # by 2.4e-7 of itself (about two float32 ulps)
+    many = _many_shapes_scene(state, dev)
+    check_rows(many, sensor, f", {len(many.shapes.kind)} shapes")
+    count0 = build.launches["direct_rgb_megakernel"]
+    img_m = integrator.render(many, sensor, film, SEED, spp=SPP)
+    if build.launches["direct_rgb_megakernel"] != count0 + 1:
+        raise AssertionError("the many-shape frame did not go through K4")
+    lanes_mk = MK.megakernel_lanes(many, sensor, state, SEED, SPP, W, H)
+
+    def plain_lanes(sc):
+        return integrator._lane_radiance(sc, sensor, film, SEED, SPP, 0,
+                                         SPP, MAX_DEPTH, 1000, "rgb", 0, H,
+                                         plain=True)
+
+    def lane_share(a, b):
+        rel = (a - b).abs().amax(-1) / b.abs().clamp(min=1e-3).amax(-1)
+        return float((rel > 1e-3).float().mean())
+    lanes_mp = plain_lanes(many)
+    sh = many.shapes
+    lanes_mq = plain_lanes(many._replace(shapes=sh._replace(
+        to_object=sh.to_object * (1.0 + 2.4e-7))))
+    img_mp = develop(splat_ordered(film, lanes_mp, SPP))
+    err_m = float((img_m - img_mp).abs().max())
+    err_mq = float((develop(splat_ordered(film, lanes_mq, SPP))
+                    - img_mp).abs().max())
+    share_m, share_mq = lane_share(lanes_mk, lanes_mp), \
+        lane_share(lanes_mq, lanes_mp)
+    bar_m = max(1e-3 * max(float(img_mp.max()), 1.0), 1.5 * err_mq)
+    print(f"check K4 on {len(many.shapes.kind)} shapes: {share_m:.2e} of "
+          f"lanes outside 1e-3 (bar 1e-3; the plain path moved by 2.4e-7 "
+          f"{share_mq:.2e}), image max {err_m:.3e} (moved plain "
+          f"{err_mq:.3e}; bar {bar_m:.3e})")
+    if not (share_m <= 1e-3 and err_m <= bar_m):
+        raise AssertionError("K4 disagrees with the plain wavefront path on "
+                             "the many-shape scene")
+    del lanes_mk, lanes_mp, lanes_mq
+
+    # a small frame through K4 on the card and the plain path on the CPU,
+    # under the identity environment and a rotated one (K4 builds the
+    # continuation's frame in world coordinates, as the wavefront does)
     small = Film(32, 32, 3)
     scene_cpu, sensor_cpu = _headline_scene(state_cpu, "cpu")
-    img_s = integrator.render(scene, sensor, small, SEED, spp=4).cpu()
-    img_c = integrator.render(scene_cpu, sensor_cpu, small, SEED, spp=4)
-    err_s = float((img_s - img_c).abs().max())
-    print(f"check K4 vs CPU plain, 32x32x4: max {err_s:.3e}")
-    if not err_s < 1e-3 * max(float(img_c.max()), 1.0):
-        raise AssertionError("K4 on the card disagrees with the CPU")
+    ca, sa = math.cos(0.7), math.sin(0.7)
+    rot = torch.tensor([[ca, -sa * ca, sa * sa], [sa, ca * ca, -ca * sa],
+                        [0.0, sa, ca]])
+    for name, env in (("", None), (", rotated environment", rot)):
+        sc_k, sc_c = scene, scene_cpu
+        if env is not None:
+            sc_k = scene._replace(env_to_world=env.to(dev))
+            sc_c = scene_cpu._replace(env_to_world=env)
+        img_s = integrator.render(sc_k, sensor, small, SEED, spp=4).cpu()
+        img_c = integrator.render(sc_c, sensor_cpu, small, SEED, spp=4)
+        err_s = float((img_s - img_c).abs().max())
+        print(f"check K4 vs CPU plain, 32x32x4{name}: max {err_s:.3e}")
+        if not err_s < 1e-3 * max(float(img_c.max()), 1.0):
+            raise AssertionError("K4 on the card disagrees with the CPU")
 
     # ---- 5. the gradient main path ----
     tables_dev = tt.load_tables("rgb", device=dev)
@@ -2209,6 +2392,17 @@ def main():
                  "sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd"):
         if grad_launches[name] <= 0:
             raise AssertionError(f"the gradient path never launched {name}")
+    # the training step's loss, its scene built from leaves that require
+    # grad, makes no host-device synchronisation (the scene builder, the
+    # caller's, is left out)
+    from tpusky_torch.render.bsdf import table_kinds
+    sc_loss = builder({k: v.detach().requires_grad_()
+                       for k, v in start.items()})
+    _no_sync(lambda: image_loss(develop(integrator.render_rows(
+        sc_loss, sensor, film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0, H,
+        kinds=table_kinds(sc_loss.bsdfs))), target, "log_l2_blur"),
+        "the training step's loss")
+    del sc_loss
 
     names = ("turbidity", "albedo", "sun_direction")
     print("bench_grad loss %.6e, d/d(turbidity, albedo, sun) = %s" % (
@@ -2298,6 +2492,17 @@ def main():
         "K2 disc": _time_ms(lambda: K.launch_hit(tables, d_disc)),
         "K3 sky": _time_ms(lambda: K.launch_nee(tables, u_rgb["sky"])),
         "K3 sun": _time_ms(lambda: K.launch_nee(tables, u_rgb["sun"]))}
+    # K4 with every lane a miss: the headline scene seen by a camera
+    # turned up to the sky
+    from tpusky_torch.render.sensors import make_perspective
+    sky_cam = make_perspective([4, -4, 2.0], [4.5, -3.5, 12.0], fov_x_deg=45,
+                               device=dev)
+    miss_hits = _k4_work(scene, sky_cam, state)["hits"]
+    if miss_hits != 0:
+        raise AssertionError(f"{miss_hits:.0f} camera rays of the sky camera "
+                             "hit the scene")
+    mega_miss = MK.pack(scene, sky_cam, state)
+    k4_miss = _time_ms(lambda: MK.launch(mega_miss, SEED, SPP, W, H))
     wave_ms = _time_ms(lambda: integrator.render_rows(
         scene, sensor, film, SEED, SPP, MAX_DEPTH, 1000, "rgb", 0, H), 5)
     wrap_ms = _time_ms(lambda: K.sunsky_eval_rgb(state, dirs))
@@ -2332,6 +2537,10 @@ def main():
           + ", ".join(f"{k} {v} ms" for k, v in PREV_RGB_MIX_MS.items())
           + f" [{card}]")
     k4, p4 = times["K4"]
+    print(f"time K4 by lane class at {H * W * SPP} lanes: the headline "
+          f"frame {k4:.4f} ms, every lane a miss {k4_miss:.4f} ms; the "
+          f"previous kernel {PREV_MS['K4']} ms and "
+          f"{PREV_K4_MIX_MS['all miss']} ms [{card}]")
     print(f"time K4 frame: {k4:.3f} ms ({rays / k4 / 1e3:.1f} M rays/s), "
           f"plain wavefront {p4:.3f} ms ({rays / p4 / 1e3:.1f} M rays/s), "
           f"wavefront with K2+K3 {wave_ms:.3f} ms "
@@ -2362,19 +2571,28 @@ def main():
         disc3 = float((((d3 * n_sun).sum(-1) >= cos_cut)
                        & (d3[:, 2] >= 0)).sum())
         vjp6 = _vjp_ops(d3, state)
+        # K4's work on this frame, counted from the plain wavefront's
+        # intermediates: hits, their NEE strategies, and the lookups the
+        # frame needs (the NEE direction where it is lit and unshadowed,
+        # the escaped continuation; a miss's sky)
         n4 = H * W * SPP
-        u_pos = torch.rand((n4, 2), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(0))
-        px = torch.arange(n4, device=dev) // SPP
-        uv = torch.stack([(px % W + u_pos[:, 0]) / W,
-                          (px // W + u_pos[:, 1]) / H], -1)
-        hits = float(ray_intersect(scene.shapes,
-                                   *sample_ray(sensor, uv))[4].sum())
+        work = _k4_work(scene, sensor, state)
+        hits, sky4, nee4 = work["hits"], work["sky"], work["nee"]
+        nee4_sun, cont4 = work["nee_sun"], work["cont"]
     o = OPS
     sample_ops = sky_pick * o["sample_sky"] + (n - sky_pick) * o["sample_sun"]
     nee_ops = (sample_ops + above3 * (o["pdf"] + o["radiance"])
                + disc3 * o["radiance_sun"])
-    per_hit = o["path"] + o["sample_sky"] + 2 * (o["pdf"] + o["radiance"])
+    # sun-cone NEE samples lie in the disc; a sky sample's or a
+    # continuation's lookup in the disc is not counted
+    k4_ops = (hits * o["path"] + (n4 - hits) * (o["miss"] + o["radiance"])
+              + sky4 * o["sample_sky"] + (hits - sky4) * o["sample_sun"]
+              + (nee4 + cont4) * (o["pdf"] + o["radiance"])
+              + nee4_sun * o["radiance_sun"])
+    print(f"K4 work on the headline frame: {hits:.0f} of {n4} camera rays "
+          f"hit, {sky4:.0f} sky and {hits - sky4:.0f} sun-cone NEE samples, "
+          f"{nee4:.0f} NEE lookups ({nee4_sun:.0f} sun-cone), {cont4:.0f} "
+          f"continuation lookups")
     bounds = {
         "K1": _bound(24 * n + TABLE_BYTES,
                      above * o["radiance"] + disc * o["radiance_sun"]),
@@ -2382,9 +2600,7 @@ def main():
                      above * (o["radiance"] + o["pdf"])
                      + disc * o["radiance_sun"]),
         "K3": _bound(36 * n + TABLE_BYTES + GAUSS_BYTES, nee_ops),
-        "K4": _bound(12 * n4 + TABLE_BYTES + GAUSS_BYTES,
-                     hits * per_hit
-                     + (n4 - hits) * (o["miss"] + o["radiance"])),
+        "K4": _bound(12 * n4 + TABLE_BYTES + GAUSS_BYTES, k4_ops),
         "K5": _bound(36 * n + TABLE_BYTES + ROW_BYTES, vjp5),
         "K6": _bound(20 * n + TABLE_BYTES + GAUSS_BYTES + ROW_BYTES,
                      sample_ops + vjp6),

@@ -17,6 +17,7 @@ import torch
 import tpusky as ts
 from tpusky.models.sunsky import model as JM
 from tpusky.models.sunsky.tables import load_tables as jax_load_tables
+from tpusky.ops.pallas.megakernel import _shape_rows as _jax_shape_rows
 from tpusky.ops.pallas.megakernel import direct_rgb_megakernel
 from tpusky.render import film as JF
 from tpusky.render import integrator as JI
@@ -276,6 +277,62 @@ def test_cpu_render_impl_is_plain(scenes, port_render):
                                                  SPP, W, H), acc)
     assert all(v == 0 for v in build.launches.values())
     assert build.library.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+def test_megakernel_rows_match_jax(scenes, rotated):
+    """The rows K4 stages, by their plain version `scene_rows` (the one
+    chip_smoke.py holds the kernel's staged copy against), equal the JAX
+    megakernel's to 1e-6: the shape rows `_shape_rows(shapes, env_rot)`,
+    the camera and material rows its wrapper builds inline
+    (tpusky/ops/pallas/megakernel.py:452-465), recomputed in numpy; under
+    an identity and a rotated environment, with a two-sided material."""
+    (sc_j, sensor_j), (sc_t, sensor_t) = scenes
+    e = np.eye(3, dtype=np.float32)
+    if rotated:
+        c, s = np.cos(0.7), np.sin(0.7)
+        e = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]],
+                     np.float32) @ np.array([[c, -s, 0.0], [s, c, 0.0],
+                                             [0.0, 0.0, 1.0]], np.float32)
+    twosided = np.array([False, True])
+    sc_t = sc_t._replace(env_to_world=torch.tensor(e),
+                         bsdfs=sc_t.bsdfs._replace(
+                             twosided=torch.tensor(twosided)))
+    cam, shp, mat = TMK.scene_rows(sc_t, sensor_t)
+    shp_j = np.asarray(_jax_shape_rows(sc_j.shapes, jnp.asarray(e)))
+    np.testing.assert_allclose(shp.numpy(), shp_j[:, :12], rtol=0, atol=1e-6)
+    r = np.asarray(sensor_j.to_world)
+    cam_j = np.zeros(16, np.float32)
+    cam_j[0:9] = (e.T @ r[:3, :3]).reshape(-1)
+    cam_j[9:12] = e.T @ r[:3, 3]
+    cam_j[12] = np.tan(0.5 * np.deg2rad(np.asarray(sensor_j.fov_x_deg)))
+    cam_j[13] = np.asarray(sensor_j.aspect)
+    np.testing.assert_allclose(cam.numpy(), cam_j, rtol=0, atol=1e-6)
+    idx = np.asarray(sc_j.shapes.bsdf_idx)
+    mat_j = np.concatenate([np.asarray(sc_j.bsdfs.albedo)[idx],
+                            twosided.astype(np.float32)[idx, None]], 1)
+    np.testing.assert_allclose(mat.numpy(), mat_j, rtol=0, atol=1e-6)
+
+
+def test_megakernel_pack_takes_the_raw_tensors(scenes):
+    """K4's inputs are the scene's, the camera's and the state's own
+    tensors, not copies, so a frame builds no table on the host (the
+    kernel builds its rows in its staging); a state not in RGB mode, and
+    an input that requires grad, are refused."""
+    sc, sensor = scenes[1]
+    st = sc.env
+    packed = TMK.pack(sc, sensor, st)
+    for a, b in zip((packed.to_world, packed.to_object, packed.albedo,
+                     *packed.state),
+                    (sensor.to_world, sc.shapes.to_object, sc.bsdfs.albedo,
+                     *TMK._state_fields(st))):
+        assert a.data_ptr() == b.data_ptr()
+    assert packed.kind.tolist() == list(sc.shapes.kind)
+    with pytest.raises(ValueError, match="RGB mode"):
+        TMK.pack(sc, sensor, st._replace(sky_params=torch.zeros(11, 9)))
+    with pytest.raises(ValueError, match="no adjoint"):
+        TMK.pack(sc, sensor, st._replace(
+            gaussians=st.gaussians.clone().requires_grad_()))
 
 
 def test_render_rows_is_invariant_to_spp_chunking(scenes, port_render):

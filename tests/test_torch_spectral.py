@@ -205,6 +205,38 @@ def test_precompute_spectral_matches_jax(jax_precompute, turbidity, sun):
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), f
 
 
+def _leaves(obj):
+    """The tensors (and Nones) of a nested NamedTuple, in field order."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return [x for v in obj for x in _leaves(v)]
+    return [obj]
+
+
+def test_precompute_infers_spectral_mode(states):
+    """`sunsky_precompute` without a mode takes the one the params were
+    built for, as the reference package's does (an 11-channel albedo means
+    spectral): leaf for leaf the call with mode="spectral", and within the
+    bar of test_precompute_spectral_matches_jax of JAX's state; RGB params
+    still give the RGB state."""
+    _, conv = states
+    kw = dict(turbidity=5.2, albedo=0.25, sun_direction=SUN, device="cpu")
+    params = tt.make_params(**kw, mode="spectral")
+    st = tt.sunsky_precompute(params)
+    for a, b in zip(_leaves(st), _leaves(tt.sunsky_precompute(
+            params, mode="spectral")), strict=True):
+        assert (a is None and b is None) or torch.equal(a, b)
+    for f in _STATE_FIELDS:
+        a, b = getattr(st, f).numpy(), getattr(conv, f).numpy()
+        assert a.shape == b.shape, f
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), f
+    rgb_params = tt.make_params(**kw)
+    rgb = tt.sunsky_precompute(rgb_params)
+    assert rgb.sun_ld is None and tuple(rgb.sky_params.shape) == (3, 9)
+    for a, b in zip(_leaves(rgb), _leaves(tt.sunsky_precompute(
+            rgb_params, mode="rgb")), strict=True):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
 def test_sample_wavelengths_matches_jax(states):
     js, st = states
     u = np.random.default_rng(5).random(4096, dtype=np.float32)

@@ -143,7 +143,9 @@ def test_material_table_kinds_and_defaults():
     conv = convert.material_table(jax.tree.map(np.asarray, jt),
                                   device="cpu")
     for f in TB.MaterialTable._fields:
-        assert torch.equal(getattr(tt_, f), getattr(conv, f)), f
+        a, b = getattr(tt_, f), getattr(conv, f)
+        assert a == b if f == "host_kind" else torch.equal(a, b), f
+    assert tt_.host_kind == (1, 0)
     assert TB.table_kinds(tt_) == ((0, 1), False)
     with pytest.raises(NotImplementedError):
         TB.eval_pdf(tt_, torch.zeros(4, dtype=torch.long), torch.ones(4, 3),

@@ -6,6 +6,8 @@ wrappers take for CPU tensors. Eval is tested apart from precompute by
 feeding the port the very state JAX computed (`tpusky_torch.convert`).
 """
 
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from tpusky_torch.models.sunsky import model as TM
 from tpusky_torch.models.sunsky import tables as TT
 from tpusky_torch.ops.cuda import build
 from tpusky_torch.ops.cuda import sunsky_kernel as TK
+from tpusky_torch.render import bsdf as TB
 
 # pytest's workers already share the cores: one torch thread each keeps
 # the many small CPU ops from contending with the other workers
@@ -195,3 +198,44 @@ def test_wrappers_refuse_other_devices(states):
         TK.sunsky_eval_rgb(st, torch.empty((8, 3), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         TK.sunsky_nee_rgb(st, torch.empty((8, 2), device="meta"))
+
+
+_SIGNATURES = {
+    "sunsky_eval": (ts.sunsky_eval, tt.sunsky_eval),
+    "eval": (JM.eval, TM.eval),
+    "eval_pdf": (JM.eval_pdf, TM.eval_pdf),
+    "sample_eval": (JM.sample_eval, TM.sample_eval),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SIGNATURES))
+def test_signature_binds_as_the_reference(name):
+    """The reference's parameters come first, in its order, so a call
+    written for it binds each positional argument to the same name; the
+    port's own (`plain`) come after them."""
+    ref, port = (list(inspect.signature(f).parameters.values())
+                 for f in _SIGNATURES[name])
+    sig = inspect.signature(_SIGNATURES[name][1])
+    for k in range(1, len(ref) + 1):
+        bound = sig.bind_partial(*range(k)).arguments
+        assert list(bound) == [p.name for p in ref[:k]]
+    for r, p in zip(ref, port):
+        assert (p.name, p.kind, p.default) == (r.name, r.kind, r.default)
+    assert [p.name for p in port[len(ref):]] == (
+        ["plain"] if name != "sunsky_eval" else [])
+
+
+def test_table_kinds_reads_host_data():
+    """render()'s lobe descriptor comes from the table's host copy of its
+    kinds: a `kind` tensor whose values cannot be read (on the meta
+    device) is never read."""
+    table = TB.make_material_table(kinds=[1, 0, 1], albedos=[[0.5] * 3] * 3,
+                                   device="cpu")
+    blind = table._replace(kind=torch.empty((3,), dtype=torch.int64,
+                                            device="meta"))
+    assert TB.table_kinds(blind) == ((0, 1), False)
+    # a table built without the host copy reads `kind` on the CPU only
+    bare = table._replace(host_kind=None)
+    assert TB.table_kinds(bare) == ((0, 1), False)
+    with pytest.raises(ValueError, match="host copy"):
+        TB.table_kinds(blind._replace(host_kind=None))

@@ -7,6 +7,7 @@ checkouts in one call (run each in turns: A, B, B, A).
     python3 tools/torch_ab.py rgb_fwd <checkout>   # K1, K2 and K3 alone
     python3 tools/torch_ab.py rgb_bwd <checkout>   # K5, K6, K7 and K8 alone
     python3 tools/torch_ab.py host <checkout>      # host-bound frames
+    python3 tools/torch_ab.py k4 <checkout>        # K4 and render()
 
 `k14`: K14 alone on bench_mesh's two wavefronts (1,048,576 rays) at
 icosphere(4-7), direct and sorted (the sort not timed), median of 7 CUDA
@@ -62,6 +63,21 @@ kernels), and the ptxas report of the RGB adjoint kernels.
 synchronise, of the headline frame through render_rows (K2, K3), the
 bench_spectral frame, bench_grad's and bench_spectral_grad's fwd+bwd
 through render_rows and the mesh frame.
+`k4`: K4 alone (`megakernel.launch` on a packed headline frame,
+512x512x8 at depth 2), the median of 9 CUDA-event times of 10 launches
+each, on the headline camera and on the same scene seen by a camera
+turned up to the sky (every lane a miss), each with the checksums of
+its (N, 3) lanes as `rgb_fwd` prints them and their share outside 1e-3
+of the plain wavefront; the headline `render()`'s wall time (host clock
+ending in a synchronise, median and quartiles of 15); where one
+`render()` synchronises (file:line, under
+`torch.cuda.set_sync_debug_mode("warn")`; the mode's own notice that it
+is a prototype is no synchronisation); a torch.profiler split of one
+`render()` (host time in
+`megakernel.pack`, in `bsdf.table_kinds` and in the film's
+`splat_ordered` and `develop`, the device time of K4, the kernels
+launched and the synchronisations made); and the ptxas report of
+`megakernel.cu`.
 Each imports the checkout's own `tpusky_torch` and `chip_smoke.py`, so
 the two sides build and run their own kernels. Prints one line per case
 with the card's name and power limit.
@@ -70,6 +86,7 @@ with the card's name and power limit.
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -465,6 +482,122 @@ def host(C, card):
             for k, (m, q1, q3) in out.items()]
 
 
+def k4(C, card):
+    import functools
+    import torch
+    import tpusky_torch as tt
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from tpusky_torch.ops.cuda import build
+    from tpusky_torch.ops.cuda import megakernel as MK
+    from tpusky_torch.render import bsdf, film as film_mod, integrator
+    from tpusky_torch.render.sensors import make_perspective
+    dev = torch.device("cuda", 0)
+    film = film_mod.Film(C.H, C.W, 3)
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=C.SUN, device=dev))
+    scene, sensor = C._headline_scene(state, dev)
+    sky_cam = make_perspective([4, -4, 2.0], [4.5, -3.5, 12.0],
+                               fov_x_deg=45, device=dev)
+    out = []
+    for name, se in (("headline", sensor), ("all miss", sky_cam)):
+        with torch.no_grad():
+            packed = MK.pack(scene, se, state)
+
+            def fn():
+                return MK.launch(packed, C.SEED, C.SPP, C.W, C.H)
+            lanes = fn()
+            ms = float(np.median([C._time_ms(fn, reps=10, warmup=1)
+                                  for _ in range(9)]))
+            plain = integrator._lane_radiance(
+                scene, se, film, C.SEED, C.SPP, 0, C.SPP, C.MAX_DEPTH, 1000,
+                "rgb", 0, C.H, plain=True)
+            rel = ((lanes - plain).abs().amax(-1)
+                   / plain.abs().clamp(min=1e-3).amax(-1))
+        out.append(f"K4 {name}: {ms:.4f} ms checksum {_checksums((lanes,))}"
+                   f"; against the plain wavefront {float((rel > 1e-3).float().mean()):.3e} "
+                   f"of lanes outside 1e-3")
+
+    def frame():
+        return integrator.render(scene, sensor, film, C.SEED, spp=C.SPP)
+    frame()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    out.append(f"render() wall: median {np.median(ts):.4f} ms (quartiles "
+               f"{np.percentile(ts, 25):.4f}-{np.percentile(ts, 75):.4f})")
+    # where render() synchronises, if it does
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            frame()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.relpath(w.filename, os.path.dirname(C.__file__))}:"
+             f"{w.lineno} ({str(w.message)[:60]})" for w in caught
+             if "synchroniz" in str(w.message)]
+    out.append(f"render() synchronisations: {len(where)} {where}")
+
+    # one render() under the profiler, its host parts labelled
+    def labelled(mod, fname):
+        fn = getattr(mod, fname)
+
+        @functools.wraps(fn)
+        def wrapped(*a, **k):
+            with record_function(f"ab::{fname}"):
+                return fn(*a, **k)
+        return fn, wrapped
+    patches = ((MK, "pack"), (bsdf, "table_kinds"),
+               (film_mod, "splat_ordered"), (film_mod, "develop"))
+    saved = {}
+    for mod, fname in patches:
+        saved[(mod, fname)], w = labelled(mod, fname)
+        setattr(mod, fname, w)
+    try:
+        frame()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("ab::render"):
+                frame()
+            torch.cuda.synchronize()
+    finally:
+        for (mod, fname), fn in saved.items():
+            setattr(mod, fname, fn)
+    host = {}
+    k4_ms, kernels, syncs, launch_calls = 0.0, 0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            if "mega" in e.name:
+                k4_ms += e.device_time_total / 1e3
+        elif e.name.startswith("ab::"):
+            host[e.name[4:]] = host.get(e.name[4:], 0.0) + \
+                e.cpu_time_total / 1e3
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize"):
+            syncs += 1
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launch_calls += 1
+    # the profile's own closing synchronise is not the frame's
+    out.append("render() profiled: host " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in host.items())
+        + f"; K4 device {k4_ms:.4f} ms; {kernels} device kernels, "
+        f"{launch_calls} launch calls, {syncs - 1} synchronisations "
+        "(the profile's closing one left out)")
+    with open(build.build()[:-3] + ".log") as f:
+        log = f.read().split("== megakernel.cu")[1].split("\n== ")[0]
+    out += [" ".join(line.split()) for line in log.splitlines()
+            if "spill" in line or "registers" in line
+            or "Compiling entry" in line]
+    return out
+
+
 def main():
     mode, tree = sys.argv[1], os.path.abspath(sys.argv[2])
     sys.path.insert(0, tree)
@@ -473,7 +606,8 @@ def main():
     card = C._card_line()
     build.library()
     modes = {"k14": k14, "spec_bwd": spec_bwd, "spec_fwd": spec_fwd,
-             "rgb_fwd": rgb_fwd, "rgb_bwd": rgb_bwd, "host": host}
+             "rgb_fwd": rgb_fwd, "rgb_bwd": rgb_bwd, "host": host,
+             "k4": k4}
     for line in modes[mode](C, card):
         print(f"{mode.upper()} {os.path.relpath(tree)} {line} [{card}]")
 

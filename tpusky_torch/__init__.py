@@ -37,20 +37,26 @@ from .models.sunsky.tables import load_tables
 __version__ = "0.1.0"
 
 
-def sunsky_precompute(params: SunskyParams, mode: str = "rgb") -> SunskyState:
+def sunsky_precompute(params: SunskyParams, mode: str = None) -> SunskyState:
     """Derive the evaluation state (tables interpolated at the parameters)
-    on the parameters' device."""
+    on the parameters' device. `mode` defaults to the mode the params were
+    built for (an 11-channel albedo means spectral), as in the reference
+    package."""
+    if mode is None:
+        mode = ("spectral"
+                if params.albedo.shape[-1] == sunsky_constants.N_WAVELENGTHS
+                else "rgb")
     tables = load_tables(mode, device=params.turbidity.device)
     return precompute(tables, params, mode)
 
 
-def sunsky_eval(state: SunskyState, directions, mode: str = "rgb",
-                wavelengths=None):
+def sunsky_eval(state: SunskyState, directions, wavelengths=None,
+                mode: str = "rgb"):
     """Radiance toward `directions` (unit vectors, +z up, pointing at the
     sky) -> (..., 3), kernel K1 on a CUDA device; in spectral mode
     (..., W) at `wavelengths` (..., W) in nm, kernel K9."""
-    return _sunsky_model.eval(state, directions, mode=mode,
-                              wavelengths=wavelengths)
+    return _sunsky_model.eval(state, directions, wavelengths=wavelengths,
+                              mode=mode)
 
 
 __all__ = [

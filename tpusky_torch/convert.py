@@ -99,7 +99,8 @@ def material_table(t, device="cuda") -> MaterialTable:
                          torch.tensor(np.asarray(t.twosided, bool),
                                       device=device),
                          *(_f32(getattr(t, f), device)
-                           for f in ("albedo_spec", "alpha", "eta", "k")))
+                           for f in ("albedo_spec", "alpha", "eta", "k")),
+                         tuple(int(k) for k in kinds))
 
 
 def mesh_table(m, device="cuda") -> MeshTable:

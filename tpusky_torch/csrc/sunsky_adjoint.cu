@@ -519,21 +519,12 @@ nee_pdf_bwd_kernel(const float* __restrict__ u, const float* __restrict__ g,
   adjoint_pass<true, true>(u, g, g_pdf, n, T, nullptr, partial);
 }
 
-// The grid of kernel k (5-8) over n lanes: as many blocks as the SMs hold
-// at once (asked of the card once a process: the query costs more host
-// time than a launch), at most one a kThreads lanes, at least one.
+// The grid of kernel k (5-8) over n lanes (tsk::staged_blocks).
 int rgb_rows(int k, int n) {
-  static int full[4] = {0, 0, 0, 0};
-  int& f = full[k - 5];
-  if (f == 0) {
-    constexpr int kAll = 1 << 30;
-    f = k == 5   ? tsk::staged_blocks<kThreads>(eval_bwd_kernel, kAll)
-        : k == 6 ? tsk::staged_blocks<kThreads>(nee_bwd_kernel, kAll)
-        : k == 7 ? tsk::staged_blocks<kThreads>(hit_bwd_kernel, kAll)
-                 : tsk::staged_blocks<kThreads>(nee_pdf_bwd_kernel, kAll);
-  }
-  int need = (int)(((long long)n + kThreads - 1) / kThreads);
-  return need < 1 ? 1 : (need < f ? need : f);
+  return k == 5   ? tsk::staged_blocks<kThreads>(eval_bwd_kernel, n)
+         : k == 6 ? tsk::staged_blocks<kThreads>(nee_bwd_kernel, n)
+         : k == 7 ? tsk::staged_blocks<kThreads>(hit_bwd_kernel, n)
+                  : tsk::staged_blocks<kThreads>(nee_pdf_bwd_kernel, n);
 }
 
 }  // namespace

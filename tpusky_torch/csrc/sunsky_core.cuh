@@ -898,13 +898,15 @@ __device__ inline float isect_shape(int kind, const float* __restrict__ row,
     float b = 2.0f * (ol[0] * dl[0] + ol[1] * dl[1] + ol[2] * dl[2]);
     float c = (ol[0] * ol[0] + ol[1] * ol[1] + ol[2] * ol[2]) - 1.0f;
     float disc = b * b - 4.0f * a * c;
-    float sb = (b > 0.0f) ? 1.0f : ((b < 0.0f) ? -1.0f : 0.0f);
-    float q = -0.5f * (b + sb * safe_sqrt(disc));
-    float t0 = q / a;
-    float t1 = c / (q == 0.0f ? 1.0f : q);
-    float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
-    t = tn > RAY_EPS ? tn : (tf > RAY_EPS ? tf : INFINITY);
-    if (!(disc >= 0.0f)) t = INFINITY;
+    t = INFINITY;
+    if (disc >= 0.0f) {       // a ray that misses skips the divisions
+      float sb = (b > 0.0f) ? 1.0f : ((b < 0.0f) ? -1.0f : 0.0f);
+      float q = -0.5f * (b + sb * safe_sqrt(disc));
+      float t0 = q / a;
+      float t1 = c / (q == 0.0f ? 1.0f : q);
+      float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
+      t = tn > RAY_EPS ? tn : (tf > RAY_EPS ? tf : INFINITY);
+    }
     float tc = isfinite(t) ? t : 0.0f;
 #pragma unroll
     for (int i = 0; i < 3; ++i) nl[i] = ol[i] + tc * dl[i];

@@ -1,11 +1,12 @@
-// The sunsky state staged in shared memory, and the forward path of the
-// spectral kernels K9-K11 (csrc/sunsky_spectral.cu) and the RGB kernels
-// K1-K3 (csrc/sunsky_kernels.cu) that reads it: radiance, the mixture pdf
-// and the NEE sample.
+// The sunsky state staged in shared memory, and the forward path that
+// reads it: radiance, the mixture pdf and the NEE sample. The spectral
+// kernels K9-K11 (csrc/sunsky_spectral.cu), the RGB kernels K1-K3
+// (csrc/sunsky_kernels.cu), the RGB adjoints K5-K8 (csrc/sunsky_adjoint.cu)
+// and the megakernel K4 (csrc/megakernel.cu) read their tables so; only
+// K12 and K13 (csrc/sunsky_spectral_adjoint.cu) read them from global
+// memory, through sunsky_core.cuh (K13's redrawn sample: nee_sample).
 //
-// What it changes against reading the tables from global memory
-// (sunsky_core.cuh's radiance/radiance_spec/mixture_pdf/nee_sample, which
-// K4-K8 and K12-K14 keep):
+// What it changes against reading the tables from global memory:
 // - every table a lane reads at a divergent address (a channel's sky
 //   formula row, the spectral limb-darkening and sun rows, the sampler's
 //   gaussian at its pick) is one or a few shared-memory loads, rows padded
@@ -28,6 +29,9 @@
 // rows, misc, the gaussians and the once-a-block scalars) take either
 // struct, StagedSpec or StagedRgb.
 #pragma once
+
+#include <map>
+#include <mutex>
 
 #include "sunsky_core.cuh"
 
@@ -402,17 +406,31 @@ __device__ __forceinline__ int rank_by_strategy(const bool (&sky)[kPasses],
 }
 
 // A grid of as many kThreads-thread blocks of `kernel` as the SMs hold at
-// once, at most one a kThreads lanes; the kernels walk the lanes
-// grid-stride and stage their tables once a block.
+// once, at most one a kThreads lanes and at least one; the kernels walk the
+// lanes grid-stride and stage their tables once a block. The card's
+// capacity for a kernel is asked once a process (cudaGetDevice, two
+// attribute queries and the occupancy query cost more host time than a
+// launch: ~0.035 ms a call on an H100).
 template <int kThreads, class Kernel>
 inline int staged_blocks(Kernel kernel, int n) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                0);
-  int need = (n + kThreads - 1) / kThreads;
-  return need < sms * per_sm ? need : (sms * per_sm > 0 ? sms * per_sm : 1);
+  static std::mutex mu;
+  static std::map<const void*, int> full;
+  int f;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    int& cached = full[(const void*)kernel];
+    if (cached == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, 0);
+      cached = sms * per_sm > 0 ? sms * per_sm : 1;
+    }
+    f = cached;
+  }
+  long long need = ((long long)n + kThreads - 1) / kThreads;
+  return need < 1 ? 1 : (need < f ? (int)need : f);
 }
 
 template <int kThreads, class Kernel, class... Args>

@@ -240,8 +240,10 @@ def _cos_psi(gamma, sun_half_aperture):
 
 def area_ratio(sun_half_aperture):
     """Ratio of the physical sun disc's solid angle to a custom aperture's."""
-    full = torch.cos(torch.tensor(C.SUN_HALF_APERTURE, dtype=_F32,
-                                  device=sun_half_aperture.device))
+    # torch.full fills on the device, where torch.tensor of a Python
+    # number would copy it from the host and wait for the device
+    full = torch.cos(torch.full((), C.SUN_HALF_APERTURE, dtype=_F32,
+                                device=sun_half_aperture.device))
     return (1.0 - full) / (1.0 - torch.cos(sun_half_aperture))
 
 
@@ -383,8 +385,8 @@ def _need_wavelengths(mode, wavelengths):
         raise ValueError("spectral mode needs wavelengths")
 
 
-def eval(state: SunskyState, d, mode: str = "rgb", plain: bool = False,
-         wavelengths=None):
+def eval(state: SunskyState, d, wavelengths=None, mode: str = "rgb",
+         plain: bool = False):
     """Emitted radiance along local direction d (pointing at the sky)
     (reference `sunsky.cpp:303-352`): RGB mode -> (..., 3) linear sRGB,
     kernel K1 (K5 backward) for CUDA tensors; spectral mode -> (..., W) at
@@ -541,9 +543,8 @@ def _sample_eval_spec_plain(state: SunskyState, u2, wavelengths):
     return d, _eval_spec_plain(state, d, wavelengths), pdf
 
 
-def eval_pdf(state: SunskyState, d, mode: str = "rgb",
-             pdf_detached: bool = False, plain: bool = False,
-             wavelengths=None):
+def eval_pdf(state: SunskyState, d, wavelengths=None, mode: str = "rgb",
+             pdf_detached: bool = False, plain: bool = False):
     """Radiance + solid-angle pdf toward local direction d (the
     emitter-hit MIS block): kernel K2 for CUDA tensors, or K10 in
     spectral mode. pdf_detached=True is the render contract (the pdf is
@@ -571,9 +572,8 @@ def eval_pdf(state: SunskyState, d, mode: str = "rgb",
     return rad, (pdf.detach() if pdf_detached else pdf)
 
 
-def sample_eval(state: SunskyState, u2, mode: str = "rgb",
-                pdf_detached: bool = False, plain: bool = False,
-                wavelengths=None):
+def sample_eval(state: SunskyState, u2, wavelengths=None, mode: str = "rgb",
+                pdf_detached: bool = False, plain: bool = False):
     """Importance-sample a direction and evaluate its radiance + pdf (the
     NEE block): kernel K3 for CUDA tensors, K6 backward with the pdf
     detached, K8 with it attached; in spectral mode kernel K11, K13

@@ -50,10 +50,13 @@ _SIGNATURES = {
     "tsk_sunsky_hit_rgb": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # u, n, skyp, skyr, sun, misc, gauss, d, rad, pdf, stream
     "tsk_sunsky_nee_rgb": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # cam, shp, mat, kind, n_shapes, seed, spp, width, height,
-    # skyp, skyr, sun, misc, gauss, out, stream
-    "tsk_direct_rgb_megakernel": (_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I,
-                                  _I, _P, _P, _P, _P, _P, _P, _P),
+    # to_world, fov, aspect, env, to_object, bsdf_idx, kind, n_shapes,
+    # albedo, twosided, n_mats, the state's 13 tensors
+    # (megakernel.py::_state_fields), seed, spp, width, height, out, rows
+    # (or null), stream
+    "tsk_direct_rgb_megakernel": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                                  *(_P,) * 13, ctypes.c_uint, _I, _I, _I, _P,
+                                  _P, _P),
     # n -> rows of block-partial scratch K12/K13 need
     "tsk_adjoint_rows": (_I,),
     # n, k -> rows of block-partial scratch K5-K8 (k = 5-8) need

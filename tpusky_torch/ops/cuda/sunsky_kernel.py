@@ -84,8 +84,9 @@ def _gauss_rows(state) -> torch.Tensor:
     g = state.gaussians                           # (20, 5)
     mu, sigma, w = g[:, 0:2], g[:, 2:4], g[:, 4]
     lo = torch.zeros(2, dtype=g.dtype, device=g.device)
-    hi = torch.tensor([2.0 * math.pi, 0.5 * math.pi], dtype=g.dtype,
-                      device=g.device)
+    # filled on the device: a copy from the host would wait for it
+    hi = torch.cat([torch.full((1,), v, dtype=g.dtype, device=g.device)
+                    for v in (2.0 * math.pi, 0.5 * math.pi)])
     cdf_a = gaussian_cdf(mu, sigma, lo)
     cdf_b = gaussian_cdf(mu, sigma, hi)
     vol = ((cdf_b[:, 0] - cdf_a[:, 0]) * (cdf_b[:, 1] - cdf_a[:, 1])

@@ -21,7 +21,7 @@ Directions are in the local shading frame (+z = geometric normal).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,6 +41,9 @@ class MaterialTable(NamedTuple):
     alpha: torch.Tensor       # (M,) GGX roughness
     eta: torch.Tensor         # (M, 3) conductor IOR, real part
     k: torch.Tensor           # (M, 3) conductor IOR, imaginary part
+    # `kind` on the host, a tuple of Python ints, so that reading the lobe
+    # descriptor (`table_kinds`) never waits for the device
+    host_kind: Optional[tuple] = None
 
 
 def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
@@ -71,7 +74,7 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
     return MaterialTable(torch.tensor(kinds, device=device), f32(a),
                          torch.tensor(ts, device=device),
                          f32(spectral_albedos), f32(alphas), f32(etas),
-                         f32(ks))
+                         f32(ks), tuple(int(k) for k in kinds))
 
 
 def make_diffuse_table(albedos, twosided=None,
@@ -82,9 +85,17 @@ def make_diffuse_table(albedos, twosided=None,
 
 def table_kinds(table: MaterialTable):
     """Static lobe descriptor: (sorted kind tuple, any_mask flag), the
-    reference package's format. This port has no mask wrapper."""
-    ks = table.kind.cpu().numpy()
-    return tuple(sorted(int(k) for k in np.unique(ks))), False
+    reference package's format, from the table's host copy of its kinds
+    (or from `kind` itself where it lies on the CPU). This port has no
+    mask wrapper."""
+    ks = table.host_kind
+    if ks is None:
+        if table.kind.device.type != "cpu":
+            raise ValueError("table_kinds: the table has no host copy of "
+                             "its kinds (build it with make_material_table "
+                             "or pass host_kind)")
+        ks = table.kind.numpy().tolist()
+    return tuple(sorted(set(int(k) for k in ks))), False
 
 
 def _reflectance(table: MaterialTable, mat_idx, wavelengths):

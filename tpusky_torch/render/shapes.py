@@ -120,7 +120,9 @@ def ray_intersect(shapes: ShapeTable, o, d):
         best_idx = torch.where(closer, s, best_idx)
 
     valid = torch.isfinite(best_t) & (best_idx >= 0)
-    up = torch.tensor([0.0, 0.0, 1.0], device=o.device)
+    # made on the device: torch.tensor of Python numbers (or an item set
+    # from one) would copy from the host and wait for the device
+    up = torch.eye(3, device=o.device)[2]
     best_n = normalize(torch.where(valid[..., None], best_n, up))
     p = o + torch.where(valid, best_t, 0.0)[..., None] * d
     return best_t, p, best_n, best_idx, valid
