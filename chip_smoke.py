@@ -95,7 +95,26 @@ Phases, each of which raises (exit code != 0) on failure:
    intersection confirms), the fwd+bwd
    rates of bench_grad and bench_spectral_grad, a training step's time
    and peak memory, the spectral frame's time and rays per second;
-11. one JSON line of kernel results, then the device line, last.
+11. the reference's sky goldens through `sunsky_params(hour=...)` (the
+   port's float64 astronomy, equal on the card and the CPU) and K1, mean
+   relative error <= 0.017, and the spectral ones through K9, <= 0.037;
+12. chi-square at the reference's scale (`tools/chi2_tpu.py`'s six
+   configurations, N = 1e8 over 430 x 215 cells, the pdf integrated at
+   64 x 64 points a cell): directions from K3, the pdf through K2, and
+   one configuration through the plain sampler; each p >= 0.01;
+13. the port's 48x48, 64-spp renders of five scene goldens Z-tested
+   against tests/golden/scene_goldens.npz (`tools/torch_scene_goldens.
+   py`): sunsky_sphere and sky_only through K4, rough_conductor (depth
+   4, K2/K3), spectral_plane (K10/K11), mesh_gi (K14); render_moments'
+   mean equal to render_rows' image bitwise;
+14. inverse rendering: bench_train's evaluation loss through K4 against
+   render_rows on three grid candidates (1e-4), then the recovery recipe
+   of seed 0 at full size (512x512x8, 320 iterations, the full grid; K4
+   counted over its evaluations, K5/K6 over its steps), gated at the
+   TPU's r5 accuracy (turbidity 0.2, sun 0.52 degrees), and the
+   gradient-only sun recovery (256x256x8, from 5 degrees off), gated at
+   2 degrees;
+15. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -2071,6 +2090,282 @@ def mesh_frame_phase(dev, card):
     return launches["mesh_intersect"], err
 
 
+# phases 11-14: the sunsky goldens, chi-square at the reference's scale,
+# the scene goldens' Z-tests and the recovery recipe
+RGB_GOLDENS = ((9.5, 2.0, 0.2, "sky_rgb_hour9.50_t2.000_a0.200"),
+               (12.25, 5.2, 0.0, "sky_rgb_hour12.25_t5.200_a0.000"),
+               (18.3, 9.8, 0.5, "sky_rgb_hour18.30_t9.800_a0.500"))
+SPEC_GOLDENS = ((2.0, 2.0, "sky_spec_eta0.035_t2.000_a0.000"),
+                (20.0, 5.2, "sky_spec_eta0.349_t5.200_a0.000"),
+                (45.0, 9.8, "sky_spec_eta0.785_t9.800_a0.000"))
+SIN_OFFSET = 0.00775        # the reference's cropped sphere (chi2_tpu.py)
+CHI2_N = 100_000_000
+CHI2_RES = 215
+CHI2_IRES = 64
+CHI2_BATCH = 4_000_000
+GOLDEN_SPP = 64
+GOLDEN_SEED = 1234
+RECOVERY_ITERS = 320
+
+
+def _counted(fn):
+    """fn() with the launch counts set to 0 just before it -> (its result,
+    the counts read just after)."""
+    from tpusky_torch.ops.cuda import build
+    build.reset_launches()
+    out = fn()
+    return out, dict(build.launches)
+
+
+def _require(counts, names, what):
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{what} never launched {name}")
+
+
+def sky_golden_phase(dev):
+    """The reference's sky goldens on the card: RGB through `sunsky_params`
+    (the port's astronomy) and K1 at a mean relative error <= 0.017, the
+    spectral ones through K9 at <= 0.037; `sunsky_params` on the card
+    equals the CPU's."""
+    import torch
+    import tpusky_torch as tt
+    here = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(here, "tests", "golden",
+                              "sunsky_golden.npz")) as z:
+        gold = dict(z)
+    h, w = 32, 64
+    pg, tg = np.meshgrid(np.linspace(0, 2 * np.pi, w),
+                         np.linspace(np.pi, 0, h))
+    dirs = torch.tensor(-np.stack([np.cos(pg) * np.sin(tg),
+                                   np.sin(pg) * np.sin(tg), np.cos(tg)],
+                                  -1).astype(np.float32), device=dev)
+
+    def mean_rel(img, ref):
+        return float(np.mean(np.abs(img - ref) / (np.abs(ref) + 0.001)))
+
+    def rgb():
+        out = []
+        for hour, turb, albedo, key in RGB_GOLDENS:
+            kw = dict(turbidity=turb, albedo=albedo, hour=hour, sun_scale=0.0)
+            p = tt.sunsky_params(device=dev, **kw)
+            q = tt.sunsky_params(device="cpu", **kw)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(p, q)):
+                raise AssertionError("sunsky_params on the card differs from "
+                                     "the CPU's")
+            img = tt.sunsky_eval(tt.sunsky_precompute(p), dirs)
+            out.append((key, hour, mean_rel(img.cpu().numpy(), gold[key])))
+        return out
+
+    wl = torch.tensor(np.broadcast_to(np.array(
+        [360 + 47 / 2 + i * 47 for i in range(10)], np.float32),
+        (h, w, 10)).copy(), device=dev)
+
+    def spectral():
+        out = []
+        for eta, turb, key in SPEC_GOLDENS:
+            st = np.pi / 2 - np.deg2rad(eta)
+            p = tt.make_params(turbidity=turb, albedo=0.0,
+                               sun_direction=[np.sin(st), 0.0, np.cos(st)],
+                               sun_scale=0.0, mode="spectral", device=dev)
+            img = tt.sunsky_eval(tt.sunsky_precompute(p), dirs,
+                                 mode="spectral", wavelengths=wl)
+            out.append((key, mean_rel(img.cpu().numpy(), gold[key])))
+        return out
+
+    errs, counts = _counted(rgb)
+    _require(counts, ("sunsky_eval_rgb",), "the RGB sky goldens")
+    for key, hour, err in errs:
+        print(f"check RGB golden {key} (sunsky_params(hour={hour}), K1): "
+              f"mean relative error {err:.5f} (bar 0.017)")
+        if not err <= 0.017:
+            raise AssertionError(f"RGB golden {key}: {err:.5f}")
+    errs, counts = _counted(spectral)
+    _require(counts, ("sunsky_eval_spec",), "the spectral sky goldens")
+    for key, err in errs:
+        print(f"check spectral golden {key} (K9): mean relative error "
+              f"{err:.5f} (bar 0.037)")
+        if not err <= 0.037:
+            raise AssertionError(f"spectral golden {key}: {err:.5f}")
+
+
+def chi2_phase(dev, card):
+    """tools/chi2_tpu.py's six configurations at the reference's scale
+    (N = 1e8, 430 x 215 cells of the cropped sphere, the pdf integrated at
+    64 x 64 points a cell): directions from K3 (`sample_eval`), the pdf
+    through K2 (`eval_pdf`); then one configuration through the plain
+    `sample_direction` / `pdf_direction`. Each must reach p >= 0.01."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky import model as M
+    from tpusky_torch.utils.chi2 import chi2_test
+
+    def state_of(turb, theta_deg, sun_scale, aperture=None):
+        th, ph = np.deg2rad(theta_deg), -4 * np.pi / 5
+        kw = {} if aperture is None else {"sun_aperture_deg": aperture}
+        return tt.sunsky_precompute(tt.make_params(
+            turbidity=turb, albedo=0.5,
+            sun_direction=[np.cos(ph) * np.sin(th), np.sin(ph) * np.sin(th),
+                           np.cos(th)], sun_scale=sun_scale, device=dev,
+            **kw))
+
+    configs = [(f"sky_t{t}_theta{e}", state_of(t, e, 0.0), False)
+               for t in (2.2, 6.0) for e in (20, 50)]
+    configs += [(f"sunsky_t{t}_aperture30", state_of(t, 50, 1.0, 30.0),
+                 False) for t in (2.2, 6.0)]
+    configs.append(("sunsky_t2.2_aperture30, plain",
+                    state_of(2.2, 50, 1.0, 30.0), True))
+    cos_range = (0.0, float(np.sqrt(1 - SIN_OFFSET ** 2)))
+    for name, state, plain in configs:
+        def sample_fn(batch_seed, n, state=state, plain=plain):
+            u = torch.rand(n, 2, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(batch_seed))
+            if plain:
+                return M.sample_direction(state, u)[0]
+            return M.sample_eval(state, u)[0]
+
+        def pdf_fn(d, state=state, plain=plain):
+            if plain:
+                return M.pdf_direction(state, d)
+            return M.eval_pdf(state, d)[1]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (p, ok, info), counts = _counted(lambda: chi2_test(
+            sample_fn, pdf_fn, seed=0, sample_count=CHI2_N,
+            res_phi=2 * CHI2_RES, res_cos=CHI2_RES, cos_range=cos_range,
+            ires=CHI2_IRES, batch=CHI2_BATCH))
+        secs = time.perf_counter() - t0
+        how = ("plain" if plain else
+               f"K3 x{counts['sunsky_nee_rgb']}, K2 x{counts['sunsky_hit_rgb']}")
+        print(f"check chi2 {name} ({how}): p {p:.4f} (bar 0.01), stat "
+              f"{info['stat']:.1f}, dof {info['dof']}, integral "
+              f"{info['integral']:.6f}, outside {info['miss_frac']:.2e}, "
+              f"{secs:.1f} s [{card}]")
+        if not plain:
+            _require(counts, ("sunsky_nee_rgb", "sunsky_hit_rgb"),
+                     f"chi2 {name}")
+        if not ok:
+            raise AssertionError(f"chi2 {name}: p = {p:.4g}")
+
+
+def golden_ztest_phase(dev):
+    """The port's 48x48 renders at 64 spp of five scene goldens
+    (`tools/torch_scene_goldens.py`) Z-tested against
+    tests/golden/scene_goldens.npz: sunsky_sphere and sky_only through
+    render() (K4), rough_conductor (depth 4, the wavefront: K2, K3),
+    spectral_plane (K10, K11) and mesh_gi (K14); then render_moments' mean
+    against render_rows' image at the same seed, bitwise."""
+    import torch
+    from tools.torch_scene_goldens import SCENES, build, golden
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film, develop
+    from tpusky_torch.utils.ztest import z_test
+    kernels = {"sunsky_sphere": ("direct_rgb_megakernel",),
+               "sky_only": ("direct_rgb_megakernel",),
+               "rough_conductor": ("sunsky_hit_rgb", "sunsky_nee_rgb"),
+               "spectral_plane": ("sunsky_hit_spec", "sunsky_nee_spec"),
+               "mesh_gi": ("mesh_intersect",)}
+    for name in SCENES:
+        scene, sensor, depth, mode = build(name, dev)
+        mean, var, size, gold_depth = golden(name)
+        if gold_depth != depth:
+            raise AssertionError(f"{name}: depth {depth}, golden's "
+                                 f"{gold_depth}")
+        img, counts = _counted(lambda: integrator.render(
+            scene, sensor, Film(size, size, 3), GOLDEN_SEED, spp=GOLDEN_SPP,
+            max_depth=depth, mode=mode))
+        _require(counts, kernels[name], f"the {name} golden")
+        ok, n_failed, min_p, alpha = z_test(img.cpu().numpy(), GOLDEN_SPP,
+                                            mean, var)
+        print(f"check Z-test {name} ({', '.join(kernels[name])}): "
+              f"{n_failed} of {size * size * 3} pixel tests failed, min p "
+              f"{min_p:.3g}, alpha_corr {alpha:.3g}")
+        if not ok:
+            raise AssertionError(f"{name} fails the golden Z-test")
+    scene, sensor, depth, mode = build("sunsky_sphere", dev)
+    film = Film(48, 48, 3)
+    mean, m2 = integrator.render_moments(scene, sensor, film, GOLDEN_SEED,
+                                         spp=GOLDEN_SPP, max_depth=depth)
+    img = develop(integrator.render_rows(scene, sensor, film, GOLDEN_SEED,
+                                         GOLDEN_SPP, depth, 1000, mode, 0,
+                                         48))
+    if not (torch.equal(mean, img) and bool((m2 >= 0).all())):
+        raise AssertionError("render_moments' mean is not render_rows' image")
+    print("check render_moments: its mean equals render_rows' image "
+          "bitwise (48x48x64, sunsky_sphere)")
+
+
+def recovery_phase(dev, card):
+    """bench.py::bench_train's recovery of seed 0 at full size (512x512x8,
+    320 iterations, the full grid): first the evaluation loss of three grid
+    candidates through `_render_impl` (K4) against the loss the training
+    step takes through `render_rows` (K2/K3) at the same point (1e-4
+    relative); then the recipe, K4 counted over its evaluations and K5/K6
+    over its steps, gated at r5's worst TPU accuracy (turbidity 0.2, sun
+    0.52 degrees); then the gradient-only sun recovery from 5 degrees
+    off, gated at 2 degrees."""
+    import torch
+    from tools.torch_recover import instrumented_recovery
+    from tpusky_torch.ad import recovery as R
+    from tpusky_torch.ops.cuda import build
+    machinery = R.bench_train_machinery(dev, H, W, SPP, RECOVERY_ITERS)
+    eval_fn, step, opt, n4, target_of, cands, t_grid = machinery
+    target, crn = target_of(0)
+    for sv in cands[:3]:
+        pd = {"t": torch.tensor(t_grid[0], device=dev),
+              "alb": torch.full((3,), 0.3, device=dev),
+              "sun": torch.tensor(np.asarray(sv, np.float32), device=dev)}
+        loss_k4, counts = _counted(lambda: float(eval_fn(pd, target, crn)))
+        _require(counts, ("direct_rgb_megakernel",), "the evaluation loss")
+        loss_w = float(step(opt.init(pd), pd, target, crn)[2])
+        rel = abs(loss_k4 - loss_w) / abs(loss_w)
+        print(f"check recovery eval loss at t {t_grid[0]}, sun "
+              f"{np.round(sv, 4).tolist()}: K4 {loss_k4:.7e}, the step's "
+              f"render_rows {loss_w:.7e}, relative {rel:.2e} (bar 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError("K4's evaluation loss differs from the "
+                                 "wavefront's")
+
+    build.reset_launches()
+    run = instrumented_recovery(0, machinery, RECOVERY_ITERS)
+    counts = run["launches"]
+    _require(counts["eval"], ("direct_rgb_megakernel",),
+             "the recipe's evaluations")
+    _require(counts["step"], ("sunsky_hit_rgb", "sunsky_nee_rgb",
+                              "sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd"),
+             "the recipe's steps")
+    step_s, t_err, ang = run["step_s"], run["t_err"], run["ang"]
+    step_ms = 1e3 * sum(step_s[1:]) / (len(step_s) - 1)
+    print(f"recovery seed 0 ({H}x{W}x{SPP}, {RECOVERY_ITERS} iterations): "
+          f"turbidity {float(run['params']['t']):.4f}, error {t_err:.4f} "
+          f"(bar 0.2; the TPU's r4 0.041, r5 0.199), sun error {ang:.4f} deg "
+          f"(bar 0.52; TPU r4 0.239, r5 0.511); {len(step_s)} steps, mean of "
+          f"steps 2-{len(step_s)} {step_ms:.2f} ms; wall {run['wall_s']:.1f} "
+          f"s; peak memory {run['peak_gib']:.2f} GiB; K4 "
+          f"x{counts['eval']['direct_rgb_megakernel']} over the evaluations, "
+          f"K5 x{counts['step']['sunsky_eval_rgb_bwd']}, K6 "
+          f"x{counts['step']['sunsky_nee_rgb_bwd']} over the steps [{card}]")
+    if not (t_err <= 0.2 and ang <= 0.52):
+        raise AssertionError("recovery seed 0 misses r5's TPU accuracy")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, counts = _counted(lambda: R.grad_only_sun_recovery(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _require(counts, ("sunsky_hit_rgb", "sunsky_nee_rgb",
+                      "sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd"),
+             "the gradient-only sun recovery")
+    print(f"gradient-only sun recovery (256x256x8, {out['iters']} "
+          f"iterations, from 5 deg): sun error {out['sun_err_deg']:.4f} deg "
+          f"(bar 2.0; the TPU's r5 0.876), turbidity error "
+          f"{out['turbidity_abs_err']:.4f}, loss {out['losses'][0]:.4e} -> "
+          f"{out['losses'][-1]:.4e}; wall {wall:.1f} s [{card}]")
+    if not out["sun_err_deg"] <= 2.0:
+        raise AssertionError("the gradient-only sun recovery misses 2 deg")
+
+
 START = time.perf_counter()
 
 
@@ -2558,7 +2853,15 @@ def main():
           f"steps 2-{TRAIN_STEPS} {step_ms:.2f} ms; peak memory "
           f"{peak_gib:.2f} GiB [{card}]")
 
-    # ---- 11. bounds and results ----
+    # ---- 11-14. goldens, chi-square, Z-tests, recovery ----
+    t0 = time.perf_counter()
+    sky_golden_phase(dev)
+    chi2_phase(dev, card)
+    golden_ztest_phase(dev)
+    recovery_phase(dev, card)
+    print(f"phases 11-14: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))

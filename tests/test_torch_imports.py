@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no file of `tpusky_torch` imports jax or
-the JAX package, and every module imports on a machine without nvcc,
-triton or a CUDA device (kernels are built and loaded only when a CUDA
-tensor first reaches them)."""
+"""The PyTorch port stands alone: no file of `tpusky_torch`, nor
+chip_smoke.py or the port's tools (`tools/torch_*.py`), imports jax,
+optax, scipy or the JAX package, and every module imports on a machine
+without nvcc, triton or a CUDA device (kernels are built and loaded only
+when a CUDA tensor first reaches them)."""
 
 import ast
 import importlib
@@ -15,11 +16,14 @@ import tpusky_torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_ROOT, "tpusky_torch")
-_FORBIDDEN = ("jax", "jaxlib", "tpusky")
+_FORBIDDEN = ("jax", "jaxlib", "optax", "scipy", "tpusky")
 
 
 def _python_files():
     files = [os.path.join(_ROOT, "chip_smoke.py")]
+    tools = os.path.join(_ROOT, "tools")
+    files += [os.path.join(tools, n) for n in os.listdir(tools)
+              if n.startswith("torch_") and n.endswith(".py")]
     for dirpath, _dirs, names in os.walk(_PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -69,6 +73,10 @@ def test_package_has_kernel_wrappers():
             "tpusky_torch.ops.cuda.mesh_kernel",
             "tpusky_torch.render.mesh",
             "tpusky_torch.ad.optimizers",
+            "tpusky_torch.ad.recovery",
+            "tpusky_torch.models.sunsky.astronomy",
+            "tpusky_torch.utils.chi2",
+            "tpusky_torch.utils.ztest",
             "tpusky_torch.parallel.render",
             "tpusky_torch.convert"} <= names
     csrc = set(os.listdir(os.path.join(_PKG, "csrc")))

@@ -24,7 +24,6 @@ from tpusky.render import integrator as JI
 from tpusky.render import sensors as JS
 from tpusky.render.bsdf import table_kinds
 from tpusky.render.scene import make_scene as jax_make_scene
-from tpusky.utils.ztest import z_test
 
 import tpusky_torch as tt
 from tpusky_torch import convert
@@ -33,6 +32,7 @@ from tpusky_torch.render import integrator as TI
 from tpusky_torch.render.scene import make_scene
 from tpusky_torch.render.sensors import make_perspective
 from tpusky_torch.utils.meshio import icosphere
+from tpusky_torch.utils.ztest import z_test
 
 # pytest's workers already share the cores: one torch thread each keeps
 # the many small CPU ops from contending with the other workers

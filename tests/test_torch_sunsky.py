@@ -16,8 +16,6 @@ import torch
 import tpusky as ts
 from tpusky.models.sunsky import model as JM
 from tpusky.models.sunsky import tables as JT
-from tpusky.models.sunsky.astronomy import (DateTimeRecord, LocationRecord,
-                                            sun_direction)
 from tpusky.ops.pallas import sunsky_kernel as JK
 
 import tpusky_torch as tt
@@ -159,11 +157,10 @@ def test_sample_eval_matches_jax(states):
 ])
 def test_sky_radiance_rgb_golden(golden, hour, turb, albedo, key):
     """The reference goldens at test_sunsky_golden.py's bar (mean relative
-    error <= 0.017) on its lat-long directions."""
-    sd = np.asarray(sun_direction(DateTimeRecord(hour=hour),
-                                  LocationRecord()), np.float32)
-    params = tt.make_params(turbidity=turb, albedo=albedo, sun_direction=sd,
-                            sun_scale=0.0, device="cpu")
+    error <= 0.017) on its lat-long directions, the sun placed by the
+    port's own astronomy."""
+    params = tt.sunsky_params(turbidity=turb, albedo=albedo, hour=hour,
+                              sun_scale=0.0, device="cpu")
     h, w = 32, 64
     pg, tg = np.meshgrid(np.linspace(0, 2 * np.pi, w),
                          np.linspace(np.pi, 0, h))

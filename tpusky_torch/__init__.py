@@ -10,8 +10,9 @@ in `csrc`), built with nvcc at first use.
 Quick start (sky-dome evaluation)::
 
     import tpusky_torch as tt
-    params = tt.make_params(turbidity=3.0, albedo=0.3,
-                            sun_direction=[0.3, 0.2, 0.93], device="cuda")
+    params = tt.sunsky_params(turbidity=3.0, albedo=0.3, hour=15.0)
+    # or an explicit direction: tt.make_params(turbidity=3.0, albedo=0.3,
+    #                               sun_direction=[0.3, 0.2, 0.93])
     state = tt.sunsky_precompute(params)
     rgb = tt.sunsky_eval(state, directions)        # (..., 3) radiance
 
@@ -29,12 +30,41 @@ See `tpusky_torch.render.integrator.render` for the scene renderer.
 
 from .models.sunsky import constants as sunsky_constants
 from .models.sunsky import model as _sunsky_model
+from .models.sunsky.astronomy import (DateTimeRecord, LocationRecord,
+                                      sun_direction)
 from .models.sunsky.model import (SunskyParams, SunskyState, make_params,
                                   pdf_direction, precompute,
                                   sample_direction, sample_wavelengths)
 from .models.sunsky.tables import load_tables
 
 __version__ = "0.1.0"
+
+
+def sunsky_params(turbidity=3.0, albedo=0.3, sun_direction_xyz=None,
+                  hour=None, minute=0.0, second=0.0, year=2010, month=7,
+                  day=10, latitude=35.6894, longitude=139.6917, timezone=9.0,
+                  sky_scale=1.0, sun_scale=1.0,
+                  sun_aperture_deg=sunsky_constants.SUN_APERTURE_DEG,
+                  mode="rgb", device="cuda") -> SunskyParams:
+    """Build sunsky parameters on `device` from either an explicit sun
+    direction or a date/time + location (the reference plugin's property
+    set, reference `sunsky.cpp:21-103`; defaults: Tokyo, 2010-07-10
+    15:00). The solar position is computed on the host in float64."""
+    if sun_direction_xyz is not None and hour is not None:
+        raise ValueError("give either sun_direction_xyz or time/location, "
+                         "not both")
+    if sun_direction_xyz is None:
+        dt = DateTimeRecord(year=year, month=month, day=day,
+                            hour=15.0 if hour is None else hour,
+                            minute=minute, second=second)
+        loc = LocationRecord(latitude=latitude, longitude=longitude,
+                             timezone=timezone)
+        sun_direction_xyz = sun_direction(dt, loc)
+    return make_params(turbidity=turbidity, albedo=albedo,
+                       sun_direction=sun_direction_xyz, sky_scale=sky_scale,
+                       sun_scale=sun_scale,
+                       sun_aperture_deg=sun_aperture_deg, mode=mode,
+                       device=device)
 
 
 def sunsky_precompute(params: SunskyParams, mode: str = None) -> SunskyState:
@@ -60,7 +90,8 @@ def sunsky_eval(state: SunskyState, directions, wavelengths=None,
 
 
 __all__ = [
-    "SunskyParams", "SunskyState", "load_tables", "make_params",
-    "pdf_direction", "precompute", "sample_direction", "sample_wavelengths",
-    "sunsky_constants", "sunsky_eval", "sunsky_precompute",
+    "DateTimeRecord", "LocationRecord", "SunskyParams", "SunskyState",
+    "load_tables", "make_params", "pdf_direction", "precompute",
+    "sample_direction", "sample_wavelengths", "sun_direction",
+    "sunsky_constants", "sunsky_eval", "sunsky_params", "sunsky_precompute",
 ]

@@ -254,6 +254,14 @@ def _render_rows_chunk(scene, sensor, film_cfg, seed, spp, spp0, spp_chunk,
     return film_mod.splat_ordered(block, radiance, spp_chunk)
 
 
+def _spp_chunk(film_cfg, spp, n_rows, max_lanes):
+    """The largest divisor of spp whose chunk of n_rows rows fits the lane
+    budget."""
+    w = film_mod.crop_extent(film_cfg)[2]
+    chunk_cap = max(1, min(spp, max_lanes // max(n_rows * w, 1)))
+    return next(c for c in range(chunk_cap, 0, -1) if spp % c == 0)
+
+
 def render_rows(scene, sensor, film_cfg, seed, spp, max_depth, rr_depth,
                 mode, row0, n_rows, max_lanes=(1 << 20),
                 sampler_kind="independent", kinds=None, plain=False):
@@ -262,10 +270,7 @@ def render_rows(scene, sensor, film_cfg, seed, spp, max_depth, rr_depth,
     reference bounds it the same way, `integrator.cpp:247-265`). On the
     card K14's mesh tables are built once for all its queries."""
     scene = with_mesh_tables(scene, plain)
-    w = film_mod.crop_extent(film_cfg)[2]
-    chunk_cap = max(1, min(spp, max_lanes // max(n_rows * w, 1)))
-    # smallest divisor-of-spp chunking whose chunk fits the lane budget
-    spp_chunk = next(c for c in range(chunk_cap, 0, -1) if spp % c == 0)
+    spp_chunk = _spp_chunk(film_cfg, spp, n_rows, max_lanes)
     accum = None
     for spp0 in range(0, spp, spp_chunk):
         a = _render_rows_chunk(scene, sensor, film_cfg, seed, spp, spp0,
@@ -412,3 +417,37 @@ def render(scene: Scene, sensor, film: film_mod.Film, seed: int,
     accum = _render_impl(scene, sensor, film, seed, spp, max_depth, rr_depth,
                          mode, sampler_kind, bsdf_mod.table_kinds(scene.bsdfs))
     return film_mod.develop(accum)
+
+
+def render_moments(scene: Scene, sensor, film: film_mod.Film, seed: int,
+                   spp: int = 16, max_depth: int = 2, rr_depth: int = 1000,
+                   mode: str = "rgb", sampler_kind: str = "independent"):
+    """Mean image and per-pixel second moment E[x^2] -> two (H, W, C)
+    images (the reference's `moment.cpp` integrator, which builds the
+    Z-test reference data; variance = m2 - mean^2).
+
+    The wavefront path's lanes (K2/K3 on the card, K10/K11 in spectral
+    mode) are accumulated with their squares into a box film of 2C
+    channels, in the spp chunks `render_rows` takes, so the mean is
+    bitwise the developed `render_rows` image at the same seed. `seed`
+    maps from the reference package's key as `render()`'s does: its
+    `render_moments(..., key)` uses `key_data(fold_in(key, 0))[-1]`."""
+    kinds = bsdf_mod.table_kinds(scene.bsdfs)
+    scene = with_mesh_tables(scene, False)
+    n_rows = film_mod.crop_extent(film)[3]
+    spp_chunk = _spp_chunk(film, spp, n_rows, 1 << 20)
+    c = film.n_channels
+    accum = None
+    for spp0 in range(0, spp, spp_chunk):
+        radiance = _lane_radiance(scene, sensor, film, seed, spp, spp0,
+                                  spp_chunk, max_depth, rr_depth, mode, 0,
+                                  n_rows, sampler_kind, kinds)
+        block = film_mod.Film(n_rows, film_mod.crop_extent(film)[2], c)
+        # the sums of the lanes and of their squares, each reduced as
+        # render_rows reduces its lanes, then one 2C-channel accumulation
+        a1 = film_mod.splat_ordered(block, radiance, spp_chunk)
+        a2 = film_mod.splat_ordered(block, radiance * radiance, spp_chunk)
+        a = torch.cat([a1[..., :c], a2[..., :c], a1[..., c:]], -1)
+        accum = a if accum is None else accum + a
+    img = film_mod.develop(accum)
+    return img[..., :c], img[..., c:]
