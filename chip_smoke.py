@@ -32,7 +32,8 @@ Phases, each of which raises (exit code != 0) on failure:
    plain versions (`megakernel.scene_rows`, `sunsky_kernel._misc_row` and
    `_gauss_rows`), and the headline `render()` must make no host-device
    synchronisation (run once under
-   `torch.cuda.set_sync_debug_mode("error")`); then a scene of 80 shapes,
+   `torch.cuda.set_sync_debug_mode("error")`) and must launch K4 alone;
+   then a scene of 80 shapes,
    more than K4 keeps in shared memory, under a rotated environment,
    through `render` (K4): its rows and its lanes held the same way, its
    image against the plain path's own spread (its lanes when the shapes
@@ -102,11 +103,14 @@ Phases, each of which raises (exit code != 0) on failure:
    configurations, N = 1e8 over 430 x 215 cells, the pdf integrated at
    64 x 64 points a cell): directions from K3, the pdf through K2, and
    one configuration through the plain sampler; each p >= 0.01;
-13. the port's 48x48, 64-spp renders of five scene goldens Z-tested
+13. the port's 48x48, 64-spp renders of eight scene goldens Z-tested
    against tests/golden/scene_goldens.npz (`tools/torch_scene_goldens.
    py`): sunsky_sphere and sky_only through K4, rough_conductor (depth
-   4, K2/K3), spectral_plane (K10/K11), mesh_gi (K14); render_moments'
-   mean equal to render_rows' image bitwise;
+   4, K2/K3), spectral_plane (K10/K11), mesh_gi (K14), and
+   constant_cube_gi (a cube under a ConstantEnv, depth 4), area_light
+   and dielectric_sphere (area emitters, a smooth dielectric, depth 6),
+   whose wavefront is plain ops on the card and launches no kernel;
+   render_moments' mean equal to render_rows' image bitwise;
 14. inverse rendering: bench_train's evaluation loss through K4 against
    render_rows on three grid candidates (1e-4), then the recovery recipe
    of seed 0 at full size (512x512x8, 320 iterations, the full grid; K4
@@ -114,7 +118,17 @@ Phases, each of which raises (exit code != 0) on failure:
    TPU's r5 accuracy (turbidity 0.2, sun 0.52 degrees), and the
    gradient-only sun recovery (256x256x8, from 5 degrees off), gated at
    2 degrees;
-15. one JSON line of kernel results, then the device line, last.
+15. the path tracer's breadth at full width: a 512x512x8 frame at depth
+   6 with Russian roulette from depth 3 under the headline sunsky (K2,
+   K3), of a dielectric sphere, a diffuse cube, a rough-conductor
+   cylinder and a rectangle area panel on the ground, lit by a point, a
+   directional and a spot light (one sampled a vertex), through
+   `render`; K2 and K3 must launch and K4 not, its lanes agree with the
+   plain path's on the card (>= 99.9% within 1e-3), the share of lanes
+   whose Russian-roulette decision differs printed; `render()`'s wall
+   time (in turns with the plain path's) and the device's busy share
+   over a profiler window;
+16. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -569,7 +583,7 @@ def _k4_work(scene, sensor, state):
             I._SHADOW_EPS * norm(p, keepdim=True).clamp(min=1.0))
     u_nee = smp.next(0, 2)
     sky = u_nee[:, 0] < state.sky_sampling_w
-    d_e = em.env_sample_eval(state, scene.env_to_world, u_nee, "rgb",
+    d_e = em.env_sample_eval(state, scene.env_to_world, u_nee, mode="rgb",
                              pdf_detached=True, plain=True)[0]
     above = (d_e @ scene.env_to_world)[:, 2] >= 0.0      # env-local z
     nee = (lit & (frame.to_local(d_e)[:, 2] * flip > 0.0) & above
@@ -1942,10 +1956,13 @@ def mesh_kernel_phase(dev, card):
     return err, line
 
 
-def _profile_window(name, fn, card, iters=2):
+def _profile_window(name, fn, card, iters=2,
+                    focus=(("K14", "mesh_isect_kernel"),)):
     """Where one call of fn spends the card's time: a torch.profiler window
     of iters calls after a warm-up; prints the wall time, the device's
-    busy share, K14's device time and the 12 largest device-time entries."""
+    busy share, the device time of each (label, kernel name) in `focus`
+    and the 12 largest device-time entries. Returns the busy share."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1964,16 +1981,22 @@ def _profile_window(name, fn, card, iters=2):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels) / iters
-    k14_us = sum(e.device_time_total for e in kernels
-                 if "mesh_isect_kernel" in e.name) / iters
+
+    def kernel_ms(kernel):
+        pattern = re.compile(rf"\b{kernel}\b")
+        return sum(e.device_time_total for e in kernels
+                   if pattern.search(e.name)) / iters / 1e3
+    parts = ", ".join(f"{label} {kernel_ms(kernel):.3f} ms"
+                      for label, kernel in focus)
     print(f"profile {name}: wall {wall_us / 1e3:.2f} ms a call, device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), of "
-          f"which K14 {k14_us / 1e3:.3f} ms; {len(kernels) // iters} kernel "
-          f"launches a call [{card}]")
+          f"which {parts}; {len(kernels) // iters} kernel launches a call "
+          f"[{card}]")
     rows = sorted(prof.key_averages(), key=device_us, reverse=True)
     for e in rows[:12]:
         print(f"profile   {device_us(e) / iters / 1e3:9.3f} ms "
               f"{e.count // iters:6d}x  {e.key[:80]}")
+    return busy_us / wall_us
 
 
 def mesh_frame_phase(dev, card):
@@ -2250,12 +2273,15 @@ def chi2_phase(dev, card):
 
 
 def golden_ztest_phase(dev):
-    """The port's 48x48 renders at 64 spp of five scene goldens
+    """The port's 48x48 renders at 64 spp of eight scene goldens
     (`tools/torch_scene_goldens.py`) Z-tested against
     tests/golden/scene_goldens.npz: sunsky_sphere and sky_only through
     render() (K4), rough_conductor (depth 4, the wavefront: K2, K3),
-    spectral_plane (K10, K11) and mesh_gi (K14); then render_moments' mean
-    against render_rows' image at the same seed, bitwise."""
+    spectral_plane (K10, K11), mesh_gi (K14), and constant_cube_gi,
+    area_light and dielectric_sphere, which have no sunsky: their
+    wavefront is plain ops on the card and launches no kernel; then
+    render_moments' mean against render_rows' image at the same seed,
+    bitwise."""
     import torch
     from tools.torch_scene_goldens import SCENES, build, golden
     from tpusky_torch.render import integrator
@@ -2265,7 +2291,9 @@ def golden_ztest_phase(dev):
                "sky_only": ("direct_rgb_megakernel",),
                "rough_conductor": ("sunsky_hit_rgb", "sunsky_nee_rgb"),
                "spectral_plane": ("sunsky_hit_spec", "sunsky_nee_spec"),
-               "mesh_gi": ("mesh_intersect",)}
+               "mesh_gi": ("mesh_intersect",),
+               "constant_cube_gi": (), "area_light": (),
+               "dielectric_sphere": ()}
     for name in SCENES:
         scene, sensor, depth, mode = build(name, dev)
         mean, var, size, gold_depth = golden(name)
@@ -2276,9 +2304,12 @@ def golden_ztest_phase(dev):
             scene, sensor, Film(size, size, 3), GOLDEN_SEED, spp=GOLDEN_SPP,
             max_depth=depth, mode=mode))
         _require(counts, kernels[name], f"the {name} golden")
+        if not kernels[name] and any(counts.values()):
+            raise AssertionError(f"the {name} golden launched {counts}")
         ok, n_failed, min_p, alpha = z_test(img.cpu().numpy(), GOLDEN_SPP,
                                             mean, var)
-        print(f"check Z-test {name} ({', '.join(kernels[name])}): "
+        print(f"check Z-test {name} "
+              f"({', '.join(kernels[name]) or 'plain ops, no kernel'}): "
               f"{n_failed} of {size * size * 3} pixel tests failed, min p "
               f"{min_p:.3g}, alpha_corr {alpha:.3g}")
         if not ok:
@@ -2364,6 +2395,150 @@ def recovery_phase(dev, card):
           f"{out['losses'][-1]:.4e}; wall {wall:.1f} s [{card}]")
     if not out["sun_err_deg"] <= 2.0:
         raise AssertionError("the gradient-only sun recovery misses 2 deg")
+
+
+# phase 15: the path tracer's breadth at full width
+BREADTH_DEPTH = 6
+BREADTH_RR = 3
+BREADTH_TURNS = 3
+
+
+def _breadth_scene(state, device):
+    """The breadth frame's scene under the headline sunsky: on the
+    headline ground a smooth dielectric sphere, a diffuse cube, a
+    rough-conductor cylinder and a rectangle area panel facing down, lit
+    by a point, a directional and a spot light (three delta lights, so
+    one is sampled a vertex by weight), seen by the headline camera."""
+    from tpusky_torch.render.bsdf import DIELECTRIC, DIFFUSE, ROUGH_CONDUCTOR
+    from tpusky_torch.render.emitters import make_spot
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+
+    def at(scale, xyz):
+        m = np.diag(list(scale) + [1.0]).astype(np.float32)
+        m[:3, 3] = xyz
+        return m
+    panel = at([0.8, 0.8, 1.0], [0.0, -1.0, 3.0])
+    panel[:3, :3] = panel[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+    shapes = [dict(kind=1, to_world=at([10.0, 10.0, 1.0], [0, 0, 0]),
+                   bsdf_idx=0),
+              dict(kind=0, to_world=at([0.8] * 3, [0.0, 0.0, 0.8]),
+                   bsdf_idx=1),
+              dict(kind=3, to_world=at([0.45] * 3, [1.6, 0.7, 0.45]),
+                   bsdf_idx=2),
+              dict(kind=4, to_world=at([0.4, 0.4, 1.4], [-1.5, 0.9, 0.0]),
+                   bsdf_idx=3),
+              dict(kind=1, to_world=panel, bsdf_idx=4, emitter_idx=0)]
+    rad = np.zeros((len(shapes), 3), np.float32)
+    rad[4] = [12.0, 10.0, 8.0]
+    scene = make_scene(
+        shapes=shapes,
+        bsdf_albedos=[[0.4, 0.4, 0.4], [1.0, 1.0, 1.0], [0.7, 0.3, 0.2],
+                      [0.9, 0.7, 0.4], [0.0, 0.0, 0.0]],
+        bsdf_kinds=[DIFFUSE, DIELECTRIC, DIFFUSE, ROUGH_CONDUCTOR, DIFFUSE],
+        bsdf_alphas=[0.1, 0.1, 0.1, 0.2, 0.1],
+        bsdf_iors=[1.5, 1.5, 1.5, 1.5, 1.5], area_radiance=rad, env=state,
+        point_lights=[[1.5, -1.5, 2.5, 8.0, 8.0, 8.0]],
+        directional_lights=[[-0.3, 0.4, -0.85, 1.0, 0.9, 0.8]],
+        spot_lights=[make_spot([-2.0, -2.0, 3.5], [0.45, 0.45, -0.77],
+                               [40.0, 36.0, 32.0], cutoff_angle_deg=25.0,
+                               device=device)],
+        delta_light_weights=[1.0, 2.0, 1.5], device=device)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+def breadth_frame_phase(dev, card):
+    """Phase 15: the breadth frame (H x W x SPP, depth BREADTH_DEPTH,
+    Russian roulette from depth BREADTH_RR) through render() with the
+    launch counts of that run: K2 and K3 must launch, K4 not; its lanes
+    against the plain path's on the card, with the share of lanes whose
+    Russian-roulette decision differs; render()'s wall time in turns with
+    the plain path's, and a profiler window."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    film = Film(H, W, 3)
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
+    scene, sensor = _breadth_scene(state, dev)
+
+    def frame(plain=False):
+        if plain:
+            return integrator.render_rows(
+                scene, sensor, film, SEED, SPP, BREADTH_DEPTH, BREADTH_RR,
+                "rgb", 0, H, kinds=B.table_kinds(scene.bsdfs), plain=True)
+        return integrator.render(scene, sensor, film, SEED, spp=SPP,
+                                 max_depth=BREADTH_DEPTH,
+                                 rr_depth=BREADTH_RR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    print(f"breadth frame: {time.perf_counter() - t0:.2f} s (first call), "
+          f"launches {launches}")
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb"),
+             "the breadth frame")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError("the breadth frame went through K4")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError("breadth frame: image not finite, shaped or "
+                             "lit")
+    print(f"breadth image: mean {float(img.mean()):.5f} max "
+          f"{float(img.max()):.3f}")
+
+    kinds = B.table_kinds(scene.bsdfs)
+    logs = ([], [])
+    with torch.no_grad():
+        lanes_k, lanes_p = (integrator._lane_radiance(
+            scene, sensor, film, SEED, SPP, 0, SPP, BREADTH_DEPTH,
+            BREADTH_RR, "rgb", 0, H, kinds=kinds, plain=plain, rr_log=log)
+            for plain, log in ((False, logs[0]), (True, logs[1])))
+        rel = (lanes_k - lanes_p).abs().amax(-1) / \
+            lanes_p.abs().clamp(min=1e-3).amax(-1)
+        share = float((rel > 1e-3).float().mean())
+        ended = [int(sum(m.sum() for m in log)) for log in logs]
+        rr_diff = torch.zeros_like(logs[0][0])
+        for a, b in zip(*logs):
+            rr_diff |= a != b
+        rr_share = float(rr_diff.float().mean())
+    n = lanes_p.shape[0]
+    print(f"check breadth frame lanes: {share:.2e} of {n} lanes outside 1e-3 "
+          f"of the plain path (bar 1e-3), max {float(rel.max()):.3e}; "
+          f"Russian roulette ended {ended[0]} paths (plain {ended[1]}), its "
+          f"decision differs on {rr_share:.2e} of the lanes")
+    if not share <= 1e-3:
+        raise AssertionError("the breadth frame disagrees with the plain "
+                             "path")
+    del lanes_k, lanes_p, rel, logs
+
+    def wall_ms(plain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame(plain)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+    frame(True)
+    runs = {False: [], True: []}
+    for _ in range(BREADTH_TURNS):
+        for plain in (False, True, True, False):
+            runs[plain].append(wall_ms(plain))
+    ms, plain_ms = (float(np.median(runs[p])) for p in (False, True))
+    busy = _profile_window("breadth frame", frame, card,
+                           focus=(("K2", "hit_kernel"),
+                                  ("K3", "nee_kernel")))
+    rays_note = (f"{W}x{H}x{SPP}, depth {BREADTH_DEPTH}, Russian roulette "
+                 f"from depth {BREADTH_RR}")
+    print(f"time breadth frame ({rays_note}): render() {ms:.3f} ms "
+          f"(runs {', '.join(f'{t:.2f}' for t in runs[False])}), plain path "
+          f"{plain_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in runs[True])}), in turns; "
+          f"{launches['sunsky_hit_rgb']} K2 and {launches['sunsky_nee_rgb']} "
+          f"K3 launches a render(); device busy {100 * busy:.1f}% [{card}]")
 
 
 START = time.perf_counter()
@@ -2583,12 +2758,17 @@ def main():
         return lanes_r
     if not torch.equal(check_rows(scene, sensor, ""), lanes_k):
         raise AssertionError("K4's lanes differ with the rows output")
-    # the headline render() makes no host-device synchronisation
-    img_again = _no_sync(lambda: integrator.render(
+    # the headline render() makes no host-device synchronisation and
+    # launches K4 alone
+    img_again, counts = _counted(lambda: _no_sync(lambda: integrator.render(
         scene, sensor, film, SEED, spp=SPP, max_depth=MAX_DEPTH),
-        "the headline render()")
+        "the headline render()"))
     if not torch.equal(img_again, img):
         raise AssertionError("render() is not deterministic")
+    if {k: v for k, v in counts.items() if v} != {"direct_rgb_megakernel": 1}:
+        raise AssertionError(f"the headline render() launched {counts}, not "
+                             "K4 alone")
+    print("check the headline render(): K4 alone, once")
 
     # a scene of more shapes than K4 keeps in shared memory, through
     # render() on the card (K4), against the plain wavefront lane by lane.
@@ -2861,7 +3041,12 @@ def main():
     recovery_phase(dev, card)
     print(f"phases 11-14: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 15. bounds and results ----
+    # ---- 15. the path tracer's breadth ----
+    t0 = time.perf_counter()
+    breadth_frame_phase(dev, card)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))

@@ -240,19 +240,6 @@ def test_render_rows_matches_jax_megakernel(port_render, jax_megakernel):
     assert np.abs(img - img_m).max() < 1e-3 * max(img_m.max(), 1.0)
 
 
-def test_render_rows_depth3_matches_jax(scenes):
-    """The bounce loop past direct illumination (one diffuse
-    interreflection), per developed image."""
-    (sc_j, sensor_j), (sc_t, sensor_t) = scenes
-    img_j = np.asarray(jax.jit(lambda sc, se, k: JF.develop(JI.render_rows(
-        sc, se, JF.Film(16, 16, 3), k, 2, 3, 1000, "rgb", 0, 16,
-        kinds=table_kinds(sc.bsdfs))))(sc_j, sensor_j, KEY))
-    img_t = TF.develop(TI.render_rows(sc_t, sensor_t, TF.Film(16, 16, 3),
-                                      SEED, 2, 3, 1000, "rgb", 0, 16))
-    assert np.abs(img_t.numpy() - img_j).max() < 1e-3 * max(img_j.max(),
-                                                            1.0)
-
-
 def test_cpu_render_impl_is_plain(scenes, port_render):
     """On the CPU `_render_impl` takes the wavefront path with the plain
     sunsky functions, and K4's wrapper returns its plain version: no
@@ -370,11 +357,12 @@ def test_megakernel_rules_match_jax(scenes):
 def test_path_sample_refuses_what_is_not_ported(scenes):
     sc, sensor = scenes[1]
     film = TF.Film(8, 8, 3)
-    with pytest.raises(NotImplementedError):      # Russian roulette
-        TI.render(sc, sensor, film, SEED, spp=1, max_depth=3, rr_depth=1)
+    with pytest.raises(NotImplementedError):      # a plastic material
+        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 4))),
+                  sensor, film, SEED, spp=1)
     with pytest.raises(NotImplementedError):
         TI.render(sc, sensor, film, SEED, spp=1, mode="polarized")
     with pytest.raises(NotImplementedError):
         TI.render(sc, sensor, film, SEED, spp=1, sampler_kind="stratified")
-    with pytest.raises(NotImplementedError):
-        TI.render(sc._replace(env=None), sensor, film, SEED, spp=1)
+    with pytest.raises(NotImplementedError):      # an environment map
+        TI.render(sc._replace(env=object()), sensor, film, SEED, spp=1)

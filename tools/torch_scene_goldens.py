@@ -2,12 +2,14 @@
 renders, built with the port's own constructors.
 
 Each scene function mirrors its namesake in
-`tools/gen_scene_goldens.py:55-175` (the same shapes, materials, sunsky
-parameters, camera and depth);
+`tools/gen_scene_goldens.py:55-205` (the same shapes, materials,
+emitters, camera and depth);
 `tests/golden/scene_goldens.npz` holds their reference means and
 per-sample variances for the per-pixel Z-test
-(`tpusky_torch.utils.ztest.z_test`). chip_smoke.py Z-tests all five on
-the card; tests/test_torch_moments.py Z-tests `sunsky_sphere` on the CPU.
+(`tpusky_torch.utils.ztest.z_test`). chip_smoke.py Z-tests all eight on
+the card; tests/test_torch_moments.py Z-tests `sunsky_sphere` and
+tests/test_torch_breadth_goldens.py the three without a sunsky on the
+CPU.
 
     from tools.torch_scene_goldens import build
     scene, sensor, depth, mode = build("sunsky_sphere", device="cuda")
@@ -16,9 +18,11 @@ the card; tests/test_torch_moments.py Z-tests `sunsky_sphere` on the CPU.
 import os
 
 import numpy as np
+import torch
 
 import tpusky_torch as tt
-from tpusky_torch.render.bsdf import DIFFUSE, ROUGH_CONDUCTOR
+from tpusky_torch.render.bsdf import DIELECTRIC, DIFFUSE, ROUGH_CONDUCTOR
+from tpusky_torch.render.emitters import ConstantEnv
 from tpusky_torch.render.scene import make_scene
 from tpusky_torch.render.sensors import make_perspective
 from tpusky_torch.utils.meshio import icosphere
@@ -105,12 +109,72 @@ def scene_spectral_plane(device):
     return scene, sensor, 2, "spectral"
 
 
+def _panel(scale, z):
+    """A rectangle emitter scaled by `scale` at height z, facing down."""
+    m = np.diag([scale, scale, 1.0, 1.0]).astype(np.float32)
+    m[2, 3] = z
+    m[:3, :3] = m[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+    return m
+
+
+def scene_constant_cube_gi(device):
+    """A cube on a plane under constant light, depth 4."""
+    cube = np.diag([0.6, 0.6, 0.6, 1.0]).astype(np.float32)
+    cube[2, 3] = 0.6
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=_ground(), bsdf_idx=0),
+                dict(kind=3, to_world=cube, bsdf_idx=1)],
+        bsdf_albedos=[[0.6, 0.6, 0.6], [0.7, 0.3, 0.2]],
+        env=ConstantEnv(torch.ones(3, device=device)), device=device)
+    sensor = make_perspective([3, -3, 2.0], [0, 0, 0.6], fov_x_deg=45,
+                              device=device)
+    return scene, sensor, 4, "rgb"
+
+
+def scene_area_light(device):
+    """A diffuse plane lit by a rectangle area emitter, no environment."""
+    rad = np.zeros((2, 3), np.float32)
+    rad[1] = [8.0, 7.0, 6.0]
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=_ground(), bsdf_idx=0),
+                dict(kind=1, to_world=_panel(0.8, 2.0), bsdf_idx=1,
+                     emitter_idx=0)],
+        bsdf_albedos=[[0.5, 0.5, 0.5], [0.0, 0.0, 0.0]],
+        area_radiance=rad, device=device)
+    sensor = make_perspective([3, -3, 1.5], [0, 0, 0.5], fov_x_deg=45,
+                              device=device)
+    return scene, sensor, 2, "rgb"
+
+
+def scene_dielectric_sphere(device):
+    """A smooth dielectric sphere over a diffuse plane under an area
+    panel, depth 6."""
+    sphere = np.diag([0.7, 0.7, 0.7, 1.0]).astype(np.float32)
+    sphere[2, 3] = 0.9
+    rad = np.zeros((3, 3), np.float32)
+    rad[2] = [10.0, 9.0, 8.0]
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=_ground(), bsdf_idx=0),
+                dict(kind=0, to_world=sphere, bsdf_idx=1),
+                dict(kind=1, to_world=_panel(1.2, 3.0), bsdf_idx=2,
+                     emitter_idx=0)],
+        bsdf_albedos=[[0.5, 0.5, 0.5], [1.0, 1.0, 1.0], [0.0, 0.0, 0.0]],
+        bsdf_kinds=[DIFFUSE, DIELECTRIC, DIFFUSE], bsdf_iors=[1.0, 1.5, 1.0],
+        area_radiance=rad, device=device)
+    sensor = make_perspective([3.2, -3.2, 1.6], [0, 0, 0.9], fov_x_deg=45,
+                              device=device)
+    return scene, sensor, 6, "rgb"
+
+
 SCENES = {
     "sunsky_sphere": scene_sunsky_sphere,
     "sky_only": scene_sunsky_sky_only,
     "rough_conductor": scene_rough_conductor,
     "spectral_plane": scene_spectral_plane,
     "mesh_gi": scene_mesh_gi,
+    "constant_cube_gi": scene_constant_cube_gi,
+    "area_light": scene_area_light,
+    "dielectric_sphere": scene_dielectric_sphere,
 }
 
 

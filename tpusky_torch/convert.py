@@ -4,9 +4,12 @@ Each function takes a `tpusky` object whose array leaves have been
 turned into numpy arrays (for example `jax.tree.map(np.asarray, state)`)
 and returns the port's counterpart as float32/int64 tensors on `device`
 (the card unless the caller names another device).
-Nothing here imports jax or tpusky: the objects are read by field name.
-Parts the port does not have yet (area/delta lights, material kinds
-other than diffuse and rough conductor) raise NotImplementedError.
+Nothing here imports jax or tpusky: the objects are read by field name
+(and an environment by its type's name). Parts the port does not have
+yet raise NotImplementedError: material kinds other than diffuse,
+conductors and smooth dielectrics, opacity masks and textures, media,
+SDFs, curves, environments other than the sunsky, constant and uniform
+ones, and an area emitter on a cube (R8).
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ from .models.sunsky.tables import SunskyTables
 from .ops.distr import ContinuousDistribution, DiscreteDistribution
 from .render.bsdf import KINDS as BSDF_KINDS
 from .render.bsdf import MaterialTable
+from .render.emitters import ConstantEnv, SpotLight, UniformEnv
 from .render.mesh import MeshTable
 from .render.scene import Scene
 from .render.sensors import Perspective
-from .render.shapes import KINDS, ShapeTable
+from .render.shapes import KINDS, ShapeTable, check_emitters
 
 
 def _f32(a, device):
@@ -79,10 +83,10 @@ def shape_table(t, device="cuda") -> ShapeTable:
     kinds = tuple(int(k) for k in t.kind)
     if any(k not in KINDS for k in kinds):
         raise NotImplementedError(f"shape kinds {kinds}")
-    if (np.asarray(t.emitter_idx) >= 0).any():
-        raise NotImplementedError("area emitters")
+    check_emitters(kinds, t.emitter_idx)
     return ShapeTable(kinds, _f32(t.to_world, device),
-                      _f32(t.to_object, device), _i64(t.bsdf_idx, device))
+                      _f32(t.to_object, device), _i64(t.bsdf_idx, device),
+                      _i64(t.emitter_idx, device), _f32(t.area, device))
 
 
 def material_table(t, device="cuda") -> MaterialTable:
@@ -99,7 +103,8 @@ def material_table(t, device="cuda") -> MaterialTable:
                          torch.tensor(np.asarray(t.twosided, bool),
                                       device=device),
                          *(_f32(getattr(t, f), device)
-                           for f in ("albedo_spec", "alpha", "eta", "k")),
+                           for f in ("albedo_spec", "alpha", "eta", "k",
+                                     "ior")),
                          tuple(int(k) for k in kinds))
 
 
@@ -113,27 +118,54 @@ def mesh_table(m, device="cuda") -> MeshTable:
                      None if m.col is None else _f32(m.col, device))
 
 
+def environment(env, device="cuda"):
+    """A `tpusky` environment (SunskyState, ConstantEnv, UniformEnv or
+    None) -> the port's. ConstantEnv and UniformEnv have the same field,
+    so they are told apart by their type's name."""
+    if env is None:
+        return None
+    name = type(env).__name__
+    if name in ("ConstantEnv", "UniformEnv"):
+        kind = ConstantEnv if name == "ConstantEnv" else UniformEnv
+        return kind(_f32(env.radiance, device))
+    if hasattr(env, "gaussian_distr"):
+        return sunsky_state(env, device)
+    raise NotImplementedError(f"environment {name}")
+
+
+def spot_light(light, device="cuda") -> SpotLight:
+    return SpotLight(*(None if getattr(light, f) is None
+                       else _f32(getattr(light, f), device)
+                       for f in SpotLight._fields))
+
+
 def scene(sc, device="cuda") -> Scene:
-    """A `tpusky` Scene of analytic shapes, triangle meshes, diffuse and
-    rough-conductor materials and a sunsky (or no) environment -> Scene."""
-    for field in ("area_emitter_shapes", "point_lights",
-                  "directional_lights"):
-        if not _none_or_empty(getattr(sc, field)):
-            raise NotImplementedError(f"scene.{field}")
+    """A `tpusky` Scene of analytic shapes, triangle meshes, the ported
+    materials, a sunsky, constant, uniform or no environment and area,
+    point, directional and spot emitters -> Scene. Where no shape emits
+    and none is an emitter, `area_radiance` is None; empty light tables
+    are None."""
     for field in ("textures", "medium", "sdf", "curve"):
         if getattr(sc, field) is not None:
             raise NotImplementedError(f"scene.{field}")
-    if sc.spot_lights:
-        raise NotImplementedError("scene.spot_lights")
-    env = sc.env
-    if env is not None:
-        if not hasattr(env, "gaussian_distr"):
-            raise NotImplementedError(f"environment {type(env).__name__}")
-        env = sunsky_state(env, device)
+
+    def rows(a):
+        return None if _none_or_empty(a) else _f32(a, device)
+    area = np.asarray(sc.area_radiance)
+    emitters = (np.zeros((0,), np.int64) if sc.area_emitter_shapes is None
+                else np.asarray(sc.area_emitter_shapes).reshape(-1))
     return Scene(shape_table(sc.shapes, device),
-                 material_table(sc.bsdfs, device), env,
-                 _f32(sc.env_to_world, device),
-                 None if sc.mesh is None else mesh_table(sc.mesh, device))
+                 material_table(sc.bsdfs, device),
+                 environment(sc.env, device), _f32(sc.env_to_world, device),
+                 None if sc.mesh is None else mesh_table(sc.mesh, device),
+                 None,
+                 (_f32(area, device) if (area != 0).any() or emitters.size
+                  else None),
+                 _i64(emitters, device),
+                 rows(sc.point_lights), rows(sc.directional_lights),
+                 tuple(spot_light(s, device) for s in sc.spot_lights),
+                 (None if sc.delta_light_weights is None
+                  else _f32(sc.delta_light_weights, device)))
 
 
 def perspective(s, device="cuda") -> Perspective:

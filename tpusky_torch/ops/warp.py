@@ -1,8 +1,9 @@
 """Warps mapping the unit square to sampling domains, with pdfs.
 
-The subset of `tpusky/ops/warp.py` that the sunsky model and the diffuse
-BSDF use. `sample` arguments are uniform in [0, 1)^2 with a trailing axis
-of size 2; all functions broadcast over leading batch dims.
+The subset of `tpusky/ops/warp.py` that the sunsky model, the diffuse
+BSDF and the constant environments use. `sample` arguments are uniform
+in [0, 1)^2 with a trailing axis of size 2; all functions broadcast over
+leading batch dims.
 """
 
 from __future__ import annotations
@@ -61,3 +62,14 @@ def square_to_cosine_hemisphere_pdf(v):
 def square_to_std_normal_pdf(p):
     """Pdf of a 2D standard normal at p (trailing axis 2)."""
     return INV_TWO_PI * torch.exp(-0.5 * (p * p).sum(-1))
+
+
+INV_FOUR_PI = 1.0 / (4.0 * math.pi)
+
+
+def square_to_uniform_sphere(sample):
+    """Uniform direction on the unit sphere."""
+    z = 1.0 - 2.0 * sample[..., 1]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * sample[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)

@@ -1,4 +1,4 @@
-"""Material table: the diffuse and rough-conductor kinds of
+"""Material table: the diffuse, conductor and smooth dielectric kinds of
 `tpusky/render/bsdf.py`.
 
 Kinds (the reference package's numbering):
@@ -6,17 +6,26 @@ Kinds (the reference package's numbering):
   0 diffuse         smooth Lambertian (`diffuse.cpp`)
   1 roughconductor  GGX microfacet + complex-IOR Fresnel
                     (`roughconductor.cpp`, `microfacet.h`)
+  2 conductor       smooth mirror + complex-IOR Fresnel (delta lobe)
+  3 dielectric      smooth glass, reflect or refract by Fresnel (delta)
+  7 thindielectric  thin glass sheet: delta reflection or straight-through
+                    transmission, reflectance R* = 2F/(1+F)
+                    (`thindielectric.cpp`)
 
-both behind the `twosided.cpp` adapter. Materials live in one
-struct-of-arrays table; `eval_pdf` and `sample` evaluate the lobes the
-table holds and select per lane by kind. In spectral mode (`wavelengths`
-given, (..., W) in nm) reflectance is the 11-channel spectrum lerped at
-the hero wavelengths, and the conductor's Fresnel term is the mean over
-its three RGB channels, as in the reference package. Tables holding
-other kinds (or masks, textures) raise.
+Kinds 0-2 sit behind the `twosided.cpp` adapter; the dielectrics are
+two-sided by construction. Materials live in one struct-of-arrays table;
+`eval_pdf` and `sample` evaluate the lobes the table holds and select
+per lane by kind. The delta lobes evaluate to zero in `eval_pdf` (their
+throughput arrives only through `sample`, with is_delta set). In
+spectral mode (`wavelengths` given, (..., W) in nm) reflectance is the
+11-channel spectrum lerped at the hero wavelengths, and a conductor's
+Fresnel term is the mean over its three RGB channels, as in the
+reference package. Tables holding other kinds (plastic, rough
+dielectric, principled, ...; masks, textures) raise.
 
 Directions are in the local shading frame (+z = geometric normal).
-`sample` returns weight = value / pdf with the cosine included.
+`sample` returns weight = value / pdf with the cosine included; a delta
+lobe's pdf is its discrete probability.
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ import torch
 from ..ops import warp
 from ..ops.math import PI, safe_sqrt
 
-DIFFUSE, ROUGH_CONDUCTOR = 0, 1
-KINDS = (DIFFUSE, ROUGH_CONDUCTOR)
+DIFFUSE, ROUGH_CONDUCTOR, CONDUCTOR, DIELECTRIC = 0, 1, 2, 3
+THIN_DIELECTRIC = 7
+KINDS = (DIFFUSE, ROUGH_CONDUCTOR, CONDUCTOR, DIELECTRIC, THIN_DIELECTRIC)
 
 
 class MaterialTable(NamedTuple):
@@ -41,6 +51,7 @@ class MaterialTable(NamedTuple):
     alpha: torch.Tensor       # (M,) GGX roughness
     eta: torch.Tensor         # (M, 3) conductor IOR, real part
     k: torch.Tensor           # (M, 3) conductor IOR, imaginary part
+    ior: torch.Tensor         # (M,) dielectric relative IOR (int/ext)
     # `kind` on the host, a tuple of Python ints, so that reading the lobe
     # descriptor (`table_kinds`) never waits for the device
     host_kind: Optional[tuple] = None
@@ -48,10 +59,11 @@ class MaterialTable(NamedTuple):
 
 def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
                         twosided=None, spectral_albedos=None, alphas=None,
-                        etas=None, ks=None, device="cuda") -> MaterialTable:
+                        etas=None, ks=None, iors=None,
+                        device="cuda") -> MaterialTable:
     """Host-side description -> table, with the reference package's
     defaults: the spectral albedo repeats the RGB mean, alpha 0.1, a
-    gold-like conductor IOR."""
+    gold-like conductor IOR, a dielectric IOR of 1.5046."""
     a = np.atleast_2d(np.asarray(albedos, np.float32))
     m = a.shape[0]
     kinds = (np.zeros((m,), np.int64) if kinds is None
@@ -68,13 +80,15 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
             if etas is None else np.atleast_2d(np.asarray(etas, np.float32)))
     ks = (np.tile(np.array([3.983, 2.386, 1.603], np.float32), (m, 1))
           if ks is None else np.atleast_2d(np.asarray(ks, np.float32)))
+    iors = (np.full((m,), 1.5046, np.float32) if iors is None
+            else np.asarray(iors, np.float32))
 
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
     return MaterialTable(torch.tensor(kinds, device=device), f32(a),
                          torch.tensor(ts, device=device),
                          f32(spectral_albedos), f32(alphas), f32(etas),
-                         f32(ks), tuple(int(k) for k in kinds))
+                         f32(ks), f32(iors), tuple(int(k) for k in kinds))
 
 
 def make_diffuse_table(albedos, twosided=None,
@@ -174,6 +188,22 @@ def _conductor_fresnel(table, mat_idx, cos_i, wavelengths):
                                            + wavelengths.shape[-1:])
 
 
+def fresnel_dielectric(cos_i, eta):
+    """Fresnel reflectance of a dielectric interface -> (F, cos_t signed
+    against cos_i, eta_rel): eta_rel is eta entering (cos_i >= 0), 1/eta
+    leaving; F = 1 under total internal reflection."""
+    entering = cos_i >= 0.0
+    eta_rel = torch.where(entering, eta, 1.0 / eta)
+    c = cos_i.abs()
+    s2_t = (1.0 - c * c) / (eta_rel * eta_rel).clamp(min=1e-12)
+    tir = s2_t >= 1.0
+    cos_t = safe_sqrt(1.0 - s2_t)
+    rs = (c - eta_rel * cos_t) / (c + eta_rel * cos_t).clamp(min=1e-12)
+    rp = (eta_rel * c - cos_t) / (eta_rel * c + cos_t).clamp(min=1e-12)
+    f = torch.where(tir, 1.0, 0.5 * (rs * rs + rp * rp))
+    return f, torch.where(entering, -cos_t, cos_t), eta_rel
+
+
 def _reflect(wi, m):
     return 2.0 * (wi * m).sum(-1, keepdim=True) * m - wi
 
@@ -203,7 +233,8 @@ def _flip(table, mat_idx, wi):
 def eval_pdf(table: MaterialTable, mat_idx, wi, wo, wavelengths=None,
              kinds=None):
     """(f * cos(theta_o) (..., C), pdf (...,)) of the lanes' materials, C
-    = 3 or W (`_eval_pdf_core` of the reference package)."""
+    = 3 or W (`_eval_pdf_core` of the reference package); 0 for the
+    delta lobes."""
     present = _lobes(kinds)
     kind = table.kind[mat_idx]
     sign3 = _flip(table, mat_idx, wi)
@@ -247,18 +278,22 @@ def eval_pdf(table: MaterialTable, mat_idx, wi, wo, wavelengths=None,
 def sample(table: MaterialTable, mat_idx, wi, sample2, sample1,
            wavelengths=None, kinds=None):
     """Sample an outgoing direction -> (wo, weight = f cos / pdf, pdf,
-    is_delta) (`_sample_core` of the reference package). `sample1` drives
-    discrete lobe choices, which the ported kinds do not have."""
+    is_delta) (`_sample_core` of the reference package). `sample1` picks
+    the dielectrics' reflection or transmission. The two-sided adapter's
+    lobes are sampled in the flipped frame and flipped back; the
+    dielectrics work in the geometric frame."""
     present = _lobes(kinds)
     kind = table.kind[mat_idx]
     sign3 = _flip(table, mat_idx, wi)
     wi_l = wi * sign3
     cos_i = wi_l[..., 2]
     active = cos_i > 0.0
+    nc = _n_chan(wavelengths)
     wo = torch.zeros_like(wi)
-    weight = torch.zeros(cos_i.shape + (_n_chan(wavelengths),),
-                         device=wi.device)
+    weight = torch.zeros(cos_i.shape + (nc,), device=wi.device)
     pdf = torch.zeros(cos_i.shape, device=wi.device)
+    is_delta = torch.zeros(cos_i.shape, dtype=torch.bool, device=wi.device)
+    geom_frame = torch.zeros(cos_i.shape, dtype=torch.bool, device=wi.device)
     refl = _reflectance(table, mat_idx, wavelengths)
 
     if DIFFUSE in present:
@@ -290,7 +325,54 @@ def sample(table: MaterialTable, mat_idx, wi, sample2, sample1,
                              weight)
         pdf = torch.where(is_rough, pdf_rough, pdf)
 
+    if CONDUCTOR in present:
+        wo_mirr = torch.stack([-wi_l[..., 0], -wi_l[..., 1], wi_l[..., 2]],
+                              -1)
+        f_m = _conductor_fresnel(table, mat_idx, cos_i, wavelengths)
+        is_mirr = kind == CONDUCTOR
+        wo = torch.where(is_mirr[..., None], wo_mirr, wo)
+        weight = torch.where(is_mirr[..., None], refl * f_m, weight)
+        pdf = torch.where(is_mirr, 1.0, pdf)
+        is_delta = is_delta | is_mirr
+
+    if DIELECTRIC in present or THIN_DIELECTRIC in present:
+        ior = table.ior[mat_idx]
+        wo_refl = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], -1)
+
+    if DIELECTRIC in present:
+        # two-sided by construction: the unflipped wi
+        f_d, cos_t, eta_rel = fresnel_dielectric(wi[..., 2], ior)
+        do_reflect = sample1 < f_d
+        scale_xy = -1.0 / eta_rel
+        wo_refr = torch.stack([wi[..., 0] * scale_xy, wi[..., 1] * scale_xy,
+                               cos_t], -1)
+        wo_diel = torch.where(do_reflect[..., None], wo_refl, wo_refr)
+        # refraction carries the 1/eta_rel^2 solid-angle compression
+        w_diel = torch.where(do_reflect, 1.0, 1.0 / (eta_rel * eta_rel))
+        is_diel = kind == DIELECTRIC
+        wo = torch.where(is_diel[..., None], wo_diel, wo)
+        weight = torch.where(is_diel[..., None],
+                             w_diel[..., None].expand(weight.shape), weight)
+        pdf = torch.where(is_diel, torch.where(do_reflect, f_d, 1.0 - f_d),
+                          pdf)
+        is_delta = is_delta | is_diel
+        geom_frame = geom_frame | is_diel
+
     # back from the two-sided local frame to the geometric one
-    return (wo * sign3, torch.where(active[..., None], weight, 0.0),
-            torch.where(active, pdf, 0.0),
-            torch.zeros(cos_i.shape, dtype=torch.bool, device=wi.device))
+    wo = torch.where(geom_frame[..., None], wo, wo * sign3)
+    ok = geom_frame | active
+    weight = torch.where(ok[..., None], weight, 0.0)
+    pdf = torch.where(ok, pdf, 0.0)
+
+    if THIN_DIELECTRIC in present:
+        f_td, _, _ = fresnel_dielectric(wi[..., 2].abs(), ior)
+        r_star = torch.where(f_td < 1.0, 2.0 * f_td / (1.0 + f_td), 1.0)
+        td_reflect = sample1 < r_star
+        wo_td = torch.where(td_reflect[..., None], wo_refl, -wi)
+        is_td = kind == THIN_DIELECTRIC
+        wo = torch.where(is_td[..., None], wo_td, wo)
+        weight = torch.where(is_td[..., None], 1.0, weight)
+        pdf = torch.where(is_td, torch.where(td_reflect, r_star,
+                                             1.0 - r_star), pdf)
+        is_delta = is_delta | is_td
+    return wo, weight, pdf, is_delta

@@ -1,10 +1,11 @@
-"""Samplers: per-lane counter-hash uniforms.
+"""Samplers: per-lane counter-hash uniforms, and the key's fold-in.
 
 The `independent` kind of `tpusky/render/sampler.py`, bitwise: uniforms
 are keyed on (lane = pixel * spp + sample, stream = dim * 64 + channel,
 seed), so they do not depend on device layout or chunking. The seed is a
 plain integer; for a JAX key made by `PRNGKey(s)` the reference package
-uses `key_data(key)[-1] == s`.
+uses `key_data(key)[-1] == s`. `fold_in` derives a pass's key from the
+reference's threefry key words on the host.
 
 The u32 arithmetic runs in int64 with explicit wrapping: torch's uint32
 lacks wrapping multiplies on the CPU, and a 32 x 32-bit product does not
@@ -13,9 +14,28 @@ fit int64, so `_mul32` splits the constant into 16-bit halves.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def fold_in(key, data: int):
+    """`jax.random.fold_in` on a threefry-2x32 key's two uint32 words
+    (`np.asarray(jax.random.key_data(key))`) -> the new key's words
+    (uint32 (2,)): threefry-2x32, 20 rounds, of the counter (0, data)
+    under the key (Salmon et al. 2011), in Python integers."""
+    k0, k1 = (int(k) for k in np.asarray(key, np.uint32).reshape(2))
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = k0, (int(data) + k1) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return np.array([x0, x1], np.uint32)
 
 
 def _mul32(x, c: int):
