@@ -103,13 +103,14 @@ Phases, each of which raises (exit code != 0) on failure:
    configurations, N = 1e8 over 430 x 215 cells, the pdf integrated at
    64 x 64 points a cell): directions from K3, the pdf through K2, and
    one configuration through the plain sampler; each p >= 0.01;
-13. the port's 48x48, 64-spp renders of eight scene goldens Z-tested
+13. the port's 48x48, 64-spp renders of nine scene goldens Z-tested
    against tests/golden/scene_goldens.npz (`tools/torch_scene_goldens.
    py`): sunsky_sphere and sky_only through K4, rough_conductor (depth
    4, K2/K3), spectral_plane (K10/K11), mesh_gi (K14), and
    constant_cube_gi (a cube under a ConstantEnv, depth 4), area_light
-   and dielectric_sphere (area emitters, a smooth dielectric, depth 6),
-   whose wavefront is plain ops on the card and launches no kernel;
+   and dielectric_sphere (area emitters, a smooth dielectric, depth 6)
+   and envmap_lit (a 16x32 bitmap sky), whose wavefront is plain ops on
+   the card and launches no kernel;
    render_moments' mean equal to render_rows' image bitwise;
 14. inverse rendering: bench_train's evaluation loss through K4 against
    render_rows on three grid candidates (1e-4), then the recovery recipe
@@ -128,7 +129,27 @@ Phases, each of which raises (exit code != 0) on failure:
    whose Russian-roulette decision differs printed; `render()`'s wall
    time (in turns with the plain path's) and the device's busy share
    over a profiler window;
-16. one JSON line of kernel results, then the device line, last.
+16. the bitmap environment at full width: `make_envmap` of a 1024x2048
+   sky (a gradient and a bright disc about 3 degrees wide) on the card,
+   timed; envmap_lit's sphere and ground under it through `render`
+   (512x512x8, depth 2; plain ops, no kernel launches, K4 refused); a
+   32x32 crop's lanes against the CPU's (>= 99.9% within 1e-3);
+   `EmitterAdapter`'s chi-square over the map at N = 1e8, binned on the
+   card (p >= 0.01); the frame's wall time in turns, its launches and
+   busy share;
+17. the material breadth at full width: a 512x512x8 frame at depth 6
+   with Russian roulette from depth 3 under the headline sunsky (K2, K3)
+   of a rough-dielectric sphere, a plastic cube behind a mask of opacity
+   0.5, a rough-plastic cylinder, a principled sphere inside a null
+   sphere, a principledthin disk and a blend rectangle, through
+   `render`; K2 and K3 must launch and K4 not, its lanes agree with the
+   plain path's (>= 99.9% within 1e-3), the share of lanes whose
+   Russian-roulette decision differs printed, its wall time in turns
+   with the plain path's and busy share; then `BSDFAdapter`'s chi-square
+   of kinds 4 (the base), 5, 8, 9, 10 and 15 and `chi2_test_2d` of
+   Marginal2D, Hierarchical2D and Bilinear2D at N = 1e7 on the card, each
+   p >= 0.01;
+18. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -2278,8 +2299,8 @@ def golden_ztest_phase(dev):
     tests/golden/scene_goldens.npz: sunsky_sphere and sky_only through
     render() (K4), rough_conductor (depth 4, the wavefront: K2, K3),
     spectral_plane (K10, K11), mesh_gi (K14), and constant_cube_gi,
-    area_light and dielectric_sphere, which have no sunsky: their
-    wavefront is plain ops on the card and launches no kernel; then
+    area_light, dielectric_sphere and envmap_lit, which have no sunsky:
+    their wavefront is plain ops on the card and launches no kernel; then
     render_moments' mean against render_rows' image at the same seed,
     bitwise."""
     import torch
@@ -2293,7 +2314,7 @@ def golden_ztest_phase(dev):
                "spectral_plane": ("sunsky_hit_spec", "sunsky_nee_spec"),
                "mesh_gi": ("mesh_intersect",),
                "constant_cube_gi": (), "area_light": (),
-               "dielectric_sphere": ()}
+               "dielectric_sphere": (), "envmap_lit": ()}
     for name in SCENES:
         scene, sensor, depth, mode = build(name, dev)
         mean, var, size, gold_depth = golden(name)
@@ -2449,96 +2470,371 @@ def _breadth_scene(state, device):
     return scene, sensor
 
 
-def breadth_frame_phase(dev, card):
-    """Phase 15: the breadth frame (H x W x SPP, depth BREADTH_DEPTH,
-    Russian roulette from depth BREADTH_RR) through render() with the
-    launch counts of that run: K2 and K3 must launch, K4 not; its lanes
-    against the plain path's on the card, with the share of lanes whose
-    Russian-roulette decision differs; render()'s wall time in turns with
-    the plain path's, and a profiler window."""
+def _wavefront_frame(label, scene, sensor, depth, rr_depth, turns, card):
+    """A sunsky frame (H x W x SPP) through render() with the launch
+    counts of that run: K2 and K3 must launch, K4 not; its lanes against
+    the plain path's on the card (>= 99.9% within 1e-3), with the share
+    of lanes whose Russian-roulette decision differs; render()'s wall
+    time in turns with the plain path's, and a profiler window."""
     import torch
-    import tpusky_torch as tt
     from tpusky_torch.render import bsdf as B
     from tpusky_torch.render import integrator
     from tpusky_torch.render.film import Film
     film = Film(H, W, 3)
-    state = tt.sunsky_precompute(tt.make_params(
-        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
-    scene, sensor = _breadth_scene(state, dev)
+    kinds = B.table_kinds(scene.bsdfs)
 
     def frame(plain=False):
         if plain:
             return integrator.render_rows(
-                scene, sensor, film, SEED, SPP, BREADTH_DEPTH, BREADTH_RR,
-                "rgb", 0, H, kinds=B.table_kinds(scene.bsdfs), plain=True)
+                scene, sensor, film, SEED, SPP, depth, rr_depth, "rgb", 0, H,
+                kinds=kinds, plain=True)
         return integrator.render(scene, sensor, film, SEED, spp=SPP,
-                                 max_depth=BREADTH_DEPTH,
-                                 rr_depth=BREADTH_RR)
+                                 max_depth=depth, rr_depth=rr_depth)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img, launches = _counted(frame)
     torch.cuda.synchronize()
-    print(f"breadth frame: {time.perf_counter() - t0:.2f} s (first call), "
-          f"launches {launches}")
-    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb"),
-             "the breadth frame")
+    print(f"{label}: {time.perf_counter() - t0:.2f} s (first call), kinds "
+          f"{kinds}, launches {launches}")
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb"), f"the {label}")
     if launches["direct_rgb_megakernel"] != 0:
-        raise AssertionError("the breadth frame went through K4")
+        raise AssertionError(f"the {label} went through K4")
     if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
             and float(img.mean()) > 0.0):
-        raise AssertionError("breadth frame: image not finite, shaped or "
-                             "lit")
-    print(f"breadth image: mean {float(img.mean()):.5f} max "
-          f"{float(img.max()):.3f}")
-
-    kinds = B.table_kinds(scene.bsdfs)
+        raise AssertionError(f"{label}: image not finite, shaped or lit")
     logs = ([], [])
     with torch.no_grad():
         lanes_k, lanes_p = (integrator._lane_radiance(
-            scene, sensor, film, SEED, SPP, 0, SPP, BREADTH_DEPTH,
-            BREADTH_RR, "rgb", 0, H, kinds=kinds, plain=plain, rr_log=log)
+            scene, sensor, film, SEED, SPP, 0, SPP, depth, rr_depth, "rgb",
+            0, H, kinds=kinds, plain=plain, rr_log=log)
             for plain, log in ((False, logs[0]), (True, logs[1])))
-        rel = (lanes_k - lanes_p).abs().amax(-1) / \
-            lanes_p.abs().clamp(min=1e-3).amax(-1)
-        share = float((rel > 1e-3).float().mean())
+        share, worst = _lanes_share(lanes_k, lanes_p)
         ended = [int(sum(m.sum() for m in log)) for log in logs]
         rr_diff = torch.zeros_like(logs[0][0])
         for a, b in zip(*logs):
             rr_diff |= a != b
         rr_share = float(rr_diff.float().mean())
-    n = lanes_p.shape[0]
-    print(f"check breadth frame lanes: {share:.2e} of {n} lanes outside 1e-3 "
-          f"of the plain path (bar 1e-3), max {float(rel.max()):.3e}; "
+    print(f"check {label} lanes: {share:.2e} of {lanes_p.shape[0]} lanes "
+          f"outside 1e-3 of the plain path (bar 1e-3), max {worst:.3e}; "
+          f"image mean {float(img.mean()):.5f} max {float(img.max()):.3f}; "
           f"Russian roulette ended {ended[0]} paths (plain {ended[1]}), its "
           f"decision differs on {rr_share:.2e} of the lanes")
     if not share <= 1e-3:
-        raise AssertionError("the breadth frame disagrees with the plain "
-                             "path")
-    del lanes_k, lanes_p, rel, logs
+        raise AssertionError(f"the {label} disagrees with the plain path")
+    del lanes_k, lanes_p, logs
 
-    def wall_ms(plain):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame(plain)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0)
     frame(True)
-    runs = {False: [], True: []}
-    for _ in range(BREADTH_TURNS):
-        for plain in (False, True, True, False):
-            runs[plain].append(wall_ms(plain))
-    ms, plain_ms = (float(np.median(runs[p])) for p in (False, True))
-    busy = _profile_window("breadth frame", frame, card,
-                           focus=(("K2", "hit_kernel"),
-                                  ("K3", "nee_kernel")))
-    rays_note = (f"{W}x{H}x{SPP}, depth {BREADTH_DEPTH}, Russian roulette "
-                 f"from depth {BREADTH_RR}")
-    print(f"time breadth frame ({rays_note}): render() {ms:.3f} ms "
-          f"(runs {', '.join(f'{t:.2f}' for t in runs[False])}), plain path "
+    ms, plain_ms, runs, plain_runs = _turns(frame, lambda: frame(True),
+                                            turns)
+    busy = _profile_window(label, frame, card, focus=(("K2", "hit_kernel"),
+                                                      ("K3", "nee_kernel")))
+    print(f"time {label} ({W}x{H}x{SPP}, depth {depth}, Russian roulette "
+          f"from depth {rr_depth}): render() {ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in runs)}), plain path "
           f"{plain_ms:.3f} ms (runs "
-          f"{', '.join(f'{t:.2f}' for t in runs[True])}), in turns; "
+          f"{', '.join(f'{t:.2f}' for t in plain_runs)}), in turns; "
           f"{launches['sunsky_hit_rgb']} K2 and {launches['sunsky_nee_rgb']} "
           f"K3 launches a render(); device busy {100 * busy:.1f}% [{card}]")
+
+
+def breadth_frame_phase(dev, card):
+    """Phase 15: the breadth frame (depth BREADTH_DEPTH, Russian roulette
+    from depth BREADTH_RR) held as `_wavefront_frame` holds a frame."""
+    import tpusky_torch as tt
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
+    scene, sensor = _breadth_scene(state, dev)
+    _wavefront_frame("breadth frame", scene, sensor, BREADTH_DEPTH,
+                     BREADTH_RR, BREADTH_TURNS, card)
+
+
+def _wall_ms(fn):
+    """Host-clock ms of one call of fn, ending in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _turns(fn_a, fn_b, turns):
+    """Wall ms of fn_a and fn_b run in turns a, b, b, a, `turns` times ->
+    (median a, median b, runs a, runs b)."""
+    runs = ([], [])
+    for _ in range(turns):
+        for k in (0, 1, 1, 0):
+            runs[k].append(_wall_ms((fn_a, fn_b)[k]))
+    return (float(np.median(runs[0])), float(np.median(runs[1])), *runs)
+
+
+def _lanes_share(lanes_k, lanes_p):
+    """(share of lanes whose largest channel error relative to the plain
+    lanes, floor 1e-3, exceeds 1e-3; that error's maximum)."""
+    rel = (lanes_k - lanes_p).abs().amax(-1) / \
+        lanes_p.abs().clamp(min=1e-3).amax(-1)
+    return float((rel > 1e-3).float().mean()), float(rel.max())
+
+
+# phase 16: the bitmap environment at full width
+ENV_H, ENV_W = 1024, 2048
+ENV_SUN = (np.deg2rad(50.0), np.deg2rad(-40.0))   # theta, phi of the disc
+ENV_DISC = (np.deg2rad(1.2), np.deg2rad(1.6))     # flat, then a ramp to 0
+ENV_DISC_RADIANCE = 3000.0
+ENV_DEPTH = 2
+ENV_CROP = (240, 200, 32, 32)
+
+
+def _envmap_bitmap():
+    """A (ENV_H, ENV_W, 3) sky from fixed constants: a gradient from a
+    blue zenith to a pale horizon over a dark ground, and a bright disc
+    about 3 degrees wide, which holds most of the map's power."""
+    theta = (np.arange(ENV_H) + 0.5) / ENV_H * np.pi
+    phi = (np.arange(ENV_W) + 0.5) / ENV_W * 2.0 * np.pi
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    d = np.stack([np.cos(phi)[None, :] * st, np.sin(phi)[None, :] * st,
+                  np.broadcast_to(ct, (ENV_H, ENV_W))], -1)
+    up = np.clip(ct, 0.0, 1.0)[..., None]
+    sky = (np.array([0.9, 0.9, 0.85]) * (1.0 - up)
+           + np.array([0.25, 0.45, 0.9]) * up)
+    sky = np.where((ct < 0.0)[..., None],
+                   np.array([0.08, 0.07, 0.06]), sky)
+    s_th, s_ph = ENV_SUN
+    sun = np.array([np.cos(s_ph) * np.sin(s_th), np.sin(s_ph) * np.sin(s_th),
+                    np.cos(s_th)])
+    ang = np.arccos(np.clip(d @ sun, -1.0, 1.0))
+    disc = np.clip((ENV_DISC[1] - ang) / (ENV_DISC[1] - ENV_DISC[0]),
+                   0.0, 1.0)
+    return (sky + ENV_DISC_RADIANCE * disc[..., None]
+            * np.array([1.0, 0.95, 0.85])).astype(np.float32)
+
+
+def _envmap_scene(bitmap, device):
+    """`envmap_lit`'s sphere and ground and camera
+    (tools/torch_scene_goldens.py) under a bitmap, its envmap built on
+    `device`."""
+    from tools.torch_scene_goldens import scene_envmap_lit
+    from tpusky_torch.render.emitters import make_envmap
+    scene, sensor, _, _ = scene_envmap_lit(device)
+    return scene._replace(env=make_envmap(bitmap, device=device)), sensor
+
+
+def envmap_frame_phase(dev, card):
+    """Phase 16: make_envmap of a 1024x2048 bitmap on the card (timed);
+    envmap_lit's sphere and ground under it at H x W x SPP, depth 2,
+    through render() (no sunsky: plain ops, no hand-written kernel, K4
+    refused); a crop's lanes against the CPU's (>= 99.9% within 1e-3);
+    EmitterAdapter's chi-square at N = 1e8 binned on the card (p >=
+    0.01); the frame's time in turns, its launches and busy share."""
+    import torch
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.emitters import make_envmap
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.utils.chi2 import EmitterAdapter
+    bitmap = _envmap_bitmap()
+    make_envmap(bitmap, device=dev)
+    make_ms = float(np.median([_wall_ms(lambda: make_envmap(
+        bitmap, device=dev)) for _ in range(5)]))
+    scene, sensor = _envmap_scene(bitmap, dev)
+    lum = bitmap @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+    mass = lum * np.sin((np.arange(ENV_H) + 0.5) / ENV_H * np.pi)[:, None]
+    disc = bitmap[..., 0] > 100.0
+    print(f"envmap: {ENV_W}x{ENV_H} bitmap, make_envmap {make_ms:.3f} ms "
+          f"(host copy and Bilinear2D tables on the card); the disc's "
+          f"{int(disc.sum())} texels hold {mass[disc].sum() / mass.sum():.3f}"
+          f" of the sampling mass [{card}]")
+    film = Film(H, W, 3)
+
+    def frame():
+        return integrator.render(scene, sensor, film, SEED, spp=SPP,
+                                 max_depth=ENV_DEPTH)
+
+    def plain_frame():
+        return integrator.render_rows(scene, sensor, film, SEED, SPP,
+                                      ENV_DEPTH, 1000, "rgb", 0, H,
+                                      kinds=((0,), False), plain=True)
+    img, launches = _counted(frame)
+    if any(launches.values()):
+        raise AssertionError(f"the envmap frame launched {launches}")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError("envmap frame: image not finite, shaped or lit")
+
+    x0, y0, cw, ch = ENV_CROP
+    crop = Film(H, W, 3, crop_offset=(x0, y0), crop_size=(cw, ch))
+    scene_c, sensor_c = _envmap_scene(bitmap, "cpu")
+    with torch.no_grad():
+        lanes_k, lanes_c = (integrator._lane_radiance(
+            sc, se, crop, SEED, SPP, 0, SPP, ENV_DEPTH, 1000, "rgb", 0,
+            ch).cpu() for sc, se in ((scene, sensor), (scene_c, sensor_c)))
+    share, worst = _lanes_share(lanes_k, lanes_c)
+    print(f"check envmap frame vs CPU, crop {ENV_CROP}: {share:.2e} of "
+          f"{lanes_c.shape[0]} lanes outside 1e-3 (bar 1e-3), max "
+          f"{worst:.3e}; crop mean {float(lanes_c.mean()):.4f}")
+    if not (share <= 1e-3 and float(lanes_c.max()) > 0.0):
+        raise AssertionError("the envmap frame disagrees with the CPU")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, ok, info = EmitterAdapter(scene.env).run(
+        seed=0, sample_count=CHI2_N, res_phi=2 * CHI2_RES,
+        res_cos=CHI2_RES, ires=CHI2_IRES, batch=CHI2_BATCH)
+    secs = time.perf_counter() - t0
+    print(f"check chi2 envmap {ENV_W}x{ENV_H} (EmitterAdapter, N = "
+          f"{CHI2_N:.0e}, {2 * CHI2_RES} x {CHI2_RES} cells): p {p:.4f} "
+          f"(bar 0.01), stat {info['stat']:.1f}, dof {info['dof']}, "
+          f"integral {info['integral']:.6f}, {secs:.1f} s [{card}]")
+    if not ok:
+        raise AssertionError(f"chi2 envmap: p = {p:.4g}")
+
+    ms, plain_ms, runs, plain_runs = _turns(frame, plain_frame, 3)
+    busy = _profile_window("envmap frame", frame, card, focus=())
+    print(f"time envmap frame ({W}x{H}x{SPP}, depth {ENV_DEPTH}, "
+          f"{ENV_W}x{ENV_H} envmap): render() {ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in runs)}), render_rows(plain=True) "
+          f"{plain_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in plain_runs)}), in turns; "
+          f"hand-written kernel launches {sum(launches.values())}; device "
+          f"busy {100 * busy:.1f}% [{card}]")
+
+
+# phase 17: the material breadth at full width
+MAT_DEPTH = 6
+MAT_RR = 3
+MAT_TURNS = 2
+MAT_CHI2_N = 10_000_000
+MAT_WI = (0.3, 0.1, 0.95)
+
+
+def _material_scene(state, device):
+    """Under the headline sunsky and camera, on the headline ground: a
+    rough-dielectric sphere, a plastic cube behind a mask of opacity 0.5,
+    a rough-plastic cylinder, a principled sphere (metallic 0.3,
+    clearcoat 1) inside a null sphere, a principledthin disk and a blend
+    rectangle (0.4 of a rough conductor over a diffuse row). Material
+    rows are named in MAT_ROWS."""
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+
+    def at(scale, xyz, tilt=0.0):
+        c, s = np.cos(tilt), np.sin(tilt)
+        rot = np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = rot @ np.diag(scale)
+        m[:3, 3] = xyz
+        return m
+    shapes = [dict(kind=1, to_world=at([10, 10, 1], [0, 0, 0]), bsdf_idx=0),
+              dict(kind=0, to_world=at([0.8] * 3, [0, 0, 0.8]), bsdf_idx=1),
+              dict(kind=3, to_world=at([0.45] * 3, [1.6, 0.7, 0.45]),
+                   bsdf_idx=2),
+              dict(kind=4, to_world=at([0.4, 0.4, 1.4], [-1.5, 0.9, 0]),
+                   bsdf_idx=3),
+              dict(kind=0, to_world=at([0.45] * 3, [0.7, -1.4, 0.45]),
+                   bsdf_idx=4),
+              dict(kind=0, to_world=at([0.7] * 3, [0.7, -1.4, 0.45]),
+                   bsdf_idx=5),
+              dict(kind=2, to_world=at([0.5, 0.5, 1], [-0.9, -1.5, 0.9],
+                                       1.2), bsdf_idx=6),
+              dict(kind=1, to_world=at([0.5, 0.5, 1], [1.9, -0.7, 0.8],
+                                       1.4), bsdf_idx=7)]
+    kinds = [B.DIFFUSE, B.ROUGH_DIELECTRIC, B.PLASTIC, B.ROUGH_PLASTIC,
+             B.PRINCIPLED, B.NULL_BSDF, B.PRINCIPLED_THIN, B.BLEND,
+             B.DIFFUSE, B.ROUGH_CONDUCTOR]
+    extras = np.zeros((len(kinds), 8), np.float32)
+    extras[:, 1] = 0.5
+    extras[4] = [0.3, 0.5, 0.2, 0.3, 1.0, 0.6, 0.1, 0.0]
+    extras[6] = [0.4, 0.3, 0.2, 0.3, 0.2, 0.3, 0.0, 0.0]
+    children = np.zeros((len(kinds), 2), np.int64)
+    children[7] = [8, 9]
+    weights = np.zeros((len(kinds),), np.float32)
+    weights[7] = 0.4
+    opacities = np.ones((len(kinds),), np.float32)
+    opacities[2] = 0.5
+    scene = make_scene(
+        shapes=shapes,
+        bsdf_albedos=[[0.4, 0.4, 0.4], [1.0, 1.0, 1.0], [0.7, 0.3, 0.2],
+                      [0.2, 0.5, 0.7], [0.8, 0.6, 0.3], [1.0, 1.0, 1.0],
+                      [0.6, 0.7, 0.5], [0.5, 0.5, 0.5], [0.3, 0.6, 0.3],
+                      [0.9, 0.7, 0.4]],
+        bsdf_kinds=kinds,
+        bsdf_alphas=[0.1, 0.25, 0.1, 0.3, 0.35, 0.1, 0.3, 0.1, 0.1, 0.25],
+        bsdf_iors=[1.5, 1.5, 1.5, 1.5, 1.5, 1.0, 1.45, 1.5, 1.5, 1.5],
+        bsdf_twosided=[False] * 7 + [True] * 3, bsdf_extras=extras,
+        bsdf_blend_children=children, bsdf_blend_weights=weights,
+        bsdf_opacities=opacities, env=state, device=device)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+# (kind, the scene's row, whether it transmits) of the BSDF chi-squares
+MAT_ROWS = ((4, 2, False), (5, 1, True), (8, 3, False), (9, 4, False),
+            (10, 7, False), (15, 6, True))
+
+
+def _grid_2d(h, w):
+    """A (h, w) density with a hot patch and a zero row, from a seed."""
+    rng = np.random.default_rng(6)
+    v = rng.uniform(0.05, 1.0, (h, w)) ** 2
+    v[h // 3: h // 2, : w // 4] *= 25.0
+    v[h // 5] = 0.0
+    return v.astype(np.float32)
+
+
+def material_frame_phase(dev, card):
+    """Phase 17: the material frame (depth MAT_DEPTH, Russian roulette
+    from depth MAT_RR) held as `_wavefront_frame` holds a frame; then
+    BSDFAdapter's chi-square of each new kind's row (the plastic's base:
+    its coat is counted outside) and chi2_test_2d of the three distr2d
+    distributions, at N = 1e7 on the card, each p >= 0.01."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.ops import distr2d as D
+    from tpusky_torch.utils.chi2 import BSDFAdapter, chi2_test_2d
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
+    scene, sensor = _material_scene(state, dev)
+    _wavefront_frame("material frame", scene, sensor, MAT_DEPTH, MAT_RR,
+                     MAT_TURNS, card)
+
+    wi = np.asarray(MAT_WI, np.float32) / np.linalg.norm(MAT_WI)
+    for kind, row, transmits in MAT_ROWS:
+        t0 = time.perf_counter()
+        p, ok, info = BSDFAdapter(scene.bsdfs, row, wi).run(
+            seed=kind, sample_count=MAT_CHI2_N, res_phi=256, res_cos=128,
+            ires=16, batch=CHI2_BATCH,
+            cos_range=(-1.0, 1.0) if transmits else (0.0, 1.0))
+        print(f"check chi2 material kind {kind} (row {row}, BSDFAdapter, "
+              f"N = {MAT_CHI2_N:.0e}): p {p:.4f} (bar 0.01), stat "
+              f"{info['stat']:.1f}, dof {info['dof']}, integral "
+              f"{info['integral']:.6f}, outside {info['miss_frac']:.4f}, "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if not ok:
+            raise AssertionError(f"chi2 material kind {kind}: p = {p:.4g}")
+    grid = _grid_2d(64, 128)
+    dists = (("Marginal2D", D.make_marginal_2d(grid, device=dev),
+              D.marginal_sample, D.marginal_pdf),
+             ("Hierarchical2D", D.make_hierarchical_2d(grid, device=dev),
+              D.hierarchical_sample, D.hierarchical_pdf),
+             ("Bilinear2D", D.make_bilinear_2d(_grid_2d(65, 129),
+                                               device=dev),
+              D.bilinear_sample, D.bilinear_pdf))
+    for name, d, sample, pdf in dists:
+        def sample_fn(batch_seed, n, d=d, sample=sample):
+            u = torch.rand(n, 2, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(batch_seed))
+            return sample(d, u)[0]
+        t0 = time.perf_counter()
+        p, ok, info = chi2_test_2d(sample_fn, lambda xy, d=d, pdf=pdf:
+                                   pdf(d, xy), seed=3,
+                                   sample_count=MAT_CHI2_N, res_x=128,
+                                   res_y=64, batch=CHI2_BATCH)
+        print(f"check chi2_test_2d {name} (N = {MAT_CHI2_N:.0e}, 128 x 64 "
+              f"cells): p {p:.4f} (bar 0.01), stat {info['stat']:.1f}, dof "
+              f"{info['dof']}, {time.perf_counter() - t0:.1f} s [{card}]")
+        if not ok:
+            raise AssertionError(f"chi2_test_2d {name}: p = {p:.4g}")
 
 
 START = time.perf_counter()
@@ -3046,7 +3342,15 @@ def main():
     breadth_frame_phase(dev, card)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 16. bounds and results ----
+    # ---- 16-17. the envmap and the material breadth ----
+    t0 = time.perf_counter()
+    envmap_frame_phase(dev, card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    material_frame_phase(dev, card)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 18. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))

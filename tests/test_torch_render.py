@@ -357,8 +357,8 @@ def test_megakernel_rules_match_jax(scenes):
 def test_path_sample_refuses_what_is_not_ported(scenes):
     sc, sensor = scenes[1]
     film = TF.Film(8, 8, 3)
-    with pytest.raises(NotImplementedError):      # a plastic material
-        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 4))),
+    with pytest.raises(NotImplementedError):      # a polarized material
+        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 11))),
                   sensor, film, SEED, spp=1)
     with pytest.raises(NotImplementedError):
         TI.render(sc, sensor, film, SEED, spp=1, mode="polarized")

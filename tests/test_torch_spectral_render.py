@@ -131,10 +131,10 @@ def test_bsdf_eval_pdf_and_sample_match_jax(kinds, spectral):
 
 
 def test_material_table_kinds_and_defaults():
-    """Kinds the port does not have (plastic) are refused; the defaults
-    are the reference package's."""
+    """Kinds the port does not have (polarized plastic) are refused; the
+    defaults are the reference package's."""
     with pytest.raises(NotImplementedError):
-        TB.make_material_table(kinds=[4], device="cpu")
+        TB.make_material_table(kinds=[11], device="cpu")
     jt = JB.make_material_table(kinds=[1, 0],
                                 albedos=[[0.2, 0.4, 0.6], [0.5, 0.5, 0.5]])
     tt_ = TB.make_material_table(kinds=[1, 0],
@@ -144,12 +144,12 @@ def test_material_table_kinds_and_defaults():
                                   device="cpu")
     for f in TB.MaterialTable._fields:
         a, b = getattr(tt_, f), getattr(conv, f)
-        assert a == b if f == "host_kind" else torch.equal(a, b), f
+        assert a == b if f.startswith("host") else torch.equal(a, b), f
     assert tt_.host_kind == (1, 0)
     assert TB.table_kinds(tt_) == ((0, 1), False)
     with pytest.raises(NotImplementedError):
         TB.eval_pdf(tt_, torch.zeros(4, dtype=torch.long), torch.ones(4, 3),
-                    torch.ones(4, 3), kinds=((0, 4), False))
+                    torch.ones(4, 3), kinds=((0, 11), False))
 
 
 # ---------------------------------------------------------------------------

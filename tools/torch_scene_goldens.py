@@ -2,13 +2,14 @@
 renders, built with the port's own constructors.
 
 Each scene function mirrors its namesake in
-`tools/gen_scene_goldens.py:55-205` (the same shapes, materials,
+`tools/gen_scene_goldens.py:55-227` (the same shapes, materials,
 emitters, camera and depth);
 `tests/golden/scene_goldens.npz` holds their reference means and
 per-sample variances for the per-pixel Z-test
-(`tpusky_torch.utils.ztest.z_test`). chip_smoke.py Z-tests all eight on
-the card; tests/test_torch_moments.py Z-tests `sunsky_sphere` and
-tests/test_torch_breadth_goldens.py the three without a sunsky on the
+(`tpusky_torch.utils.ztest.z_test`). chip_smoke.py Z-tests all nine on
+the card; tests/test_torch_moments.py Z-tests `sunsky_sphere`,
+tests/test_torch_breadth_goldens.py the three lit by constant and area
+emitters and tests/test_torch_envmap_golden.py `envmap_lit` on the
 CPU.
 
     from tools.torch_scene_goldens import build
@@ -22,7 +23,7 @@ import torch
 
 import tpusky_torch as tt
 from tpusky_torch.render.bsdf import DIELECTRIC, DIFFUSE, ROUGH_CONDUCTOR
-from tpusky_torch.render.emitters import ConstantEnv
+from tpusky_torch.render.emitters import ConstantEnv, make_envmap
 from tpusky_torch.render.scene import make_scene
 from tpusky_torch.render.sensors import make_perspective
 from tpusky_torch.utils.meshio import icosphere
@@ -166,6 +167,30 @@ def scene_dielectric_sphere(device):
     return scene, sensor, 6, "rgb"
 
 
+def envmap_lit_bitmap():
+    """The 16x32 sky of `envmap_lit`: a vertical gradient in red and
+    blue, a horizontal sine in green."""
+    ys = np.linspace(0, 1, 16)[:, None]
+    xs = np.linspace(0, 1, 32)[None, :]
+    return np.stack([0.2 + 2.0 * ys * np.ones_like(xs),
+                     0.3 + 1.0 * np.sin(np.pi * xs) * np.ones_like(ys),
+                     0.8 - 0.5 * ys * np.ones_like(xs)],
+                    -1).astype(np.float32)
+
+
+def scene_envmap_lit(device):
+    """A bitmap environment (the Bilinear2D warp) lighting a sphere on a
+    plane, depth 2."""
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=_ground(), bsdf_idx=0),
+                dict(kind=0, to_world=_unit_sphere_at(1.0), bsdf_idx=1)],
+        bsdf_albedos=[[0.5, 0.5, 0.5], [0.7, 0.5, 0.3]],
+        env=make_envmap(envmap_lit_bitmap(), device=device), device=device)
+    sensor = make_perspective([3.5, -3.5, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor, 2, "rgb"
+
+
 SCENES = {
     "sunsky_sphere": scene_sunsky_sphere,
     "sky_only": scene_sunsky_sky_only,
@@ -175,6 +200,7 @@ SCENES = {
     "constant_cube_gi": scene_constant_cube_gi,
     "area_light": scene_area_light,
     "dielectric_sphere": scene_dielectric_sphere,
+    "envmap_lit": scene_envmap_lit,
 }
 
 

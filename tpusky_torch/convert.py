@@ -6,10 +6,9 @@ and returns the port's counterpart as float32/int64 tensors on `device`
 (the card unless the caller names another device).
 Nothing here imports jax or tpusky: the objects are read by field name
 (and an environment by its type's name). Parts the port does not have
-yet raise NotImplementedError: material kinds other than diffuse,
-conductors and smooth dielectrics, opacity masks and textures, media,
-SDFs, curves, environments other than the sunsky, constant and uniform
-ones, and an area emitter on a cube (R8).
+yet raise NotImplementedError: the polarized, hair and measured material
+kinds, textures, media, SDFs, curves, an envmap with rgb2spec spectra,
+and an area emitter on a cube (R8).
 """
 
 from __future__ import annotations
@@ -20,9 +19,9 @@ import torch
 from .models.sunsky.model import SunskyParams, SunskyState
 from .models.sunsky.tables import SunskyTables
 from .ops.distr import ContinuousDistribution, DiscreteDistribution
-from .render.bsdf import KINDS as BSDF_KINDS
-from .render.bsdf import MaterialTable
-from .render.emitters import ConstantEnv, SpotLight, UniformEnv
+from .ops.distr2d import Bilinear2D
+from .render.bsdf import MaterialTable, check_kinds
+from .render.emitters import ConstantEnv, EnvMapState, SpotLight, UniformEnv
 from .render.mesh import MeshTable
 from .render.scene import Scene
 from .render.sensors import Perspective
@@ -90,22 +89,26 @@ def shape_table(t, device="cuda") -> ShapeTable:
 
 
 def material_table(t, device="cuda") -> MaterialTable:
+    """A `tpusky` MaterialTable -> MaterialTable, its blend children as
+    int64."""
     kinds = np.asarray(t.kind)
-    if not np.isin(kinds, BSDF_KINDS).all():
-        raise NotImplementedError(f"material kinds {sorted(set(kinds))}")
-    if t.opacity is not None and (np.asarray(t.opacity) < 1.0).any():
-        raise NotImplementedError("opacity masks")
+    check_kinds(kinds)
     for field in ("tex_idx", "normal_tex_idx"):
         idx = getattr(t, field)
         if idx is not None and (np.asarray(idx) >= 0).any():
-            raise NotImplementedError("textured materials")
+            raise NotImplementedError("textured materials need "
+                                      "render/texture.py, not ported yet")
+    opacity = np.asarray(t.opacity, np.float32)
     return MaterialTable(_i64(kinds, device), _f32(t.albedo, device),
                          torch.tensor(np.asarray(t.twosided, bool),
                                       device=device),
                          *(_f32(getattr(t, f), device)
                            for f in ("albedo_spec", "alpha", "eta", "k",
-                                     "ior")),
-                         tuple(int(k) for k in kinds))
+                                     "ior", "opacity", "extra")),
+                         _i64(t.blend_a, device), _i64(t.blend_b, device),
+                         _f32(t.blend_w, device),
+                         tuple(int(k) for k in kinds),
+                         bool((opacity < 1.0).any()))
 
 
 def mesh_table(m, device="cuda") -> MeshTable:
@@ -119,15 +122,24 @@ def mesh_table(m, device="cuda") -> MeshTable:
 
 
 def environment(env, device="cuda"):
-    """A `tpusky` environment (SunskyState, ConstantEnv, UniformEnv or
-    None) -> the port's. ConstantEnv and UniformEnv have the same field,
-    so they are told apart by their type's name."""
+    """A `tpusky` environment (SunskyState, ConstantEnv, UniformEnv,
+    EnvMapState or None) -> the port's. ConstantEnv and UniformEnv have
+    the same field, so they are told apart by their type's name; an
+    envmap brings its bitmap, its Bilinear2D tables and its scale."""
     if env is None:
         return None
     name = type(env).__name__
     if name in ("ConstantEnv", "UniformEnv"):
         kind = ConstantEnv if name == "ConstantEnv" else UniformEnv
         return kind(_f32(env.radiance, device))
+    if name == "EnvMapState":
+        if env.coeff is not None:
+            raise NotImplementedError("an envmap's rgb2spec spectra need "
+                                      "ops/rgb2spec.py, not ported yet")
+        return EnvMapState(_f32(env.bitmap, device),
+                           Bilinear2D(*(_f32(getattr(env.warp, f), device)
+                                        for f in Bilinear2D._fields)),
+                           _f32(env.scale, device))
     if hasattr(env, "gaussian_distr"):
         return sunsky_state(env, device)
     raise NotImplementedError(f"environment {name}")
@@ -141,10 +153,10 @@ def spot_light(light, device="cuda") -> SpotLight:
 
 def scene(sc, device="cuda") -> Scene:
     """A `tpusky` Scene of analytic shapes, triangle meshes, the ported
-    materials, a sunsky, constant, uniform or no environment and area,
-    point, directional and spot emitters -> Scene. Where no shape emits
-    and none is an emitter, `area_radiance` is None; empty light tables
-    are None."""
+    materials, a sunsky, constant, uniform, envmap or no environment and
+    area, point, directional and spot emitters -> Scene. Where no shape
+    emits and none is an emitter, `area_radiance` is None; empty light
+    tables are None."""
     for field in ("textures", "medium", "sdf", "curve"):
         if getattr(sc, field) is not None:
             raise NotImplementedError(f"scene.{field}")

@@ -1,5 +1,5 @@
 """Scene: analytic shapes, triangle meshes, a material table, the
-environment (sunsky, constant, uniform or none) and the area, point,
+environment (sunsky, constant, uniform, envmap or none) and the area, point,
 directional and spot emitters (`tpusky/render/scene.py`).
 
 Media, SDFs, curves and textures are not ported yet, so a Scene here
@@ -21,7 +21,7 @@ from .shapes import ShapeTable, make_shape_table, ray_test
 class Scene(NamedTuple):
     shapes: ShapeTable
     bsdfs: MaterialTable
-    env: Any            # SunskyState | ConstantEnv | UniformEnv | None
+    env: Any    # SunskyState | ConstantEnv | UniformEnv | EnvMapState | None
     env_to_world: torch.Tensor       # (3, 3) env local -> world rotation
     mesh: Optional[MeshTable] = None  # every mesh's triangles, or None
     # K14's tables of `mesh` (ops/cuda/mesh_kernel.py::MeshTables), built
@@ -76,6 +76,8 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                bsdf_spectral_albedos=None, meshes=None, area_radiance=None,
                point_lights=None, directional_lights=None, spot_lights=(),
                delta_light_weights=None, bsdf_iors=None,
+               bsdf_opacities=None, bsdf_extras=None,
+               bsdf_blend_children=None, bsdf_blend_weights=None,
                device="cuda") -> Scene:
     """Assemble a scene from host-side descriptions: shapes are dicts
     accepted by `make_shape_table`; the bsdf_* lists are the columns of
@@ -107,7 +109,9 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                      twosided=bsdf_twosided,
                      spectral_albedos=bsdf_spectral_albedos,
                      alphas=bsdf_alphas, etas=bsdf_etas, ks=bsdf_ks,
-                     iors=bsdf_iors, device=device),
+                     iors=bsdf_iors, opacities=bsdf_opacities,
+                     extras=bsdf_extras, blend_children=bsdf_blend_children,
+                     blend_weights=bsdf_blend_weights, device=device),
                  env, f32(env_to_world),
                  make_mesh_table(meshes, device=device) if meshes else None,
                  None,

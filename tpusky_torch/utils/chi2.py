@@ -1,11 +1,13 @@
 """Chi-square goodness-of-fit harness for sampling routines.
 
-The PyTorch port's counterpart of `tpusky/utils/chi2.py::chi2_test`
-(reference `mi.chi2`, `src/python/python/chi2.py`): it checks that a
+The PyTorch port's counterpart of `tpusky/utils/chi2.py` (reference
+`mi.chi2`, `src/python/python/chi2.py`): `chi2_test` checks that a
 `sample` routine and its claimed `pdf` agree, by histogramming N samples
 over a spherical domain and comparing the counts with the pdf integrated
 over each cell (Pearson chi-square with pooling of cells whose
-expectation is below 5).
+expectation is below 5); `chi2_test_2d` does the same over the unit
+square, and `EmitterAdapter` and `BSDFAdapter` wrap an environment's or
+a material's sampling for `chi2_test`.
 
 Domain parameterisation: (phi in [-pi, pi], cos_theta in [cos_lo,
 cos_hi]); the area element in these coordinates is constant, so the
@@ -139,3 +141,142 @@ def chi2_test(sample_fn, pdf_fn, *, seed=0, sample_count=4_000_000,
                 integral=float(pooled_exp.sum()) / sample_count,
                 miss_frac=n_outside / sample_count)
     return p_value, p_value >= significance, info
+
+
+def chi2_test_2d(sample_fn, pdf_fn, *, seed=0, sample_count=2_000_000,
+                 res_x=64, res_y=64, ires=8, batch=1_000_000,
+                 significance=0.01):
+    """Chi-square test of a distribution over the unit square (the
+    reference's PlanarDomain path, `chi2.py:411-430`) -> (p_value,
+    passed, info). sample_fn(batch_seed, n) -> points (n, 2) on any
+    device, seeded as in `chi2_test`; pdf_fn(xy (m, 2) float32) -> (m,)
+    density on the samples' device, integrated over each cell at ires x
+    ires midpoints (`tpusky/utils/chi2.py:174-221`)."""
+    n_cells = res_x * res_y
+    counts = None
+    n_done = bi = 0
+    while n_done < sample_count:
+        n = min(batch, sample_count - n_done)
+        p = sample_fn(seed * 65536 + bi, n)
+        ix = (p[:, 0] * res_x).to(torch.int64).clamp(0, res_x - 1)
+        iy = (p[:, 1] * res_y).to(torch.int64).clamp(0, res_y - 1)
+        c = torch.bincount(iy * res_x + ix, minlength=n_cells)
+        counts = c if counts is None else counts + c
+        n_done += n
+        bi += 1
+    device = counts.device
+    fx = (torch.arange(res_x * ires, dtype=torch.float64, device=device)
+          + 0.5) / (res_x * ires)
+    fy = (torch.arange(res_y * ires, dtype=torch.float64, device=device)
+          + 0.5) / (res_y * ires)
+    pts = torch.stack([fx[None, :].expand(fy.shape[0], -1),
+                       fy[:, None].expand(-1, fx.shape[0])], -1)
+    dens = pdf_fn(pts.reshape(-1, 2).to(torch.float32)).cpu().numpy()
+    # the cell means in float32, as the reference's numpy takes them
+    cell = dens.reshape(res_y, ires, res_x, ires).mean(axis=(1, 3))
+    expected = cell * (1.0 / (res_x * res_y)) * sample_count
+    obs, exp = _pooled(counts.cpu().numpy().astype(np.float64),
+                       expected.ravel())
+    stat = float(np.sum((obs - exp) ** 2 / np.maximum(exp, 1e-9)))
+    dof = len(exp) - 1
+    p_value = chi2_sf(stat, max(dof, 1))
+    return p_value, p_value >= significance, dict(stat=stat, dof=dof)
+
+
+def _device_of(obj):
+    """The device of the first tensor in a (nested) NamedTuple."""
+    for v in obj:
+        if isinstance(v, torch.Tensor):
+            return v.device
+        if isinstance(v, tuple):
+            dev = _device_of(v)
+            if dev is not None:
+                return dev
+    return None
+
+
+def _uniforms(batch_seed, n, cols, device):
+    return torch.rand(n, cols, device=device, generator=torch.Generator(
+        device=device).manual_seed(batch_seed))
+
+
+class EmitterAdapter:
+    """`mi.chi2.EmitterAdapter` (`chi2.py:530`; `tpusky/utils/chi2.py:
+    224-248`): an environment's (sample_direction, pdf_direction) pair
+    for `chi2_test`, on the environment's device.
+
+    Seeds: where the reference draws batch i from `fold_in(key, i)` of a
+    JAX key, this draws it from a torch generator seeded with the integer
+    `seed * 65536 + i` (`chi2_test`'s convention); `run(seed)` takes the
+    reference's `run(key)` place."""
+
+    def __init__(self, env, env_to_world=None):
+        from ..render import emitters as em
+        self._em = em
+        self.env = env
+        self.device = _device_of(env)
+        self.env_to_world = (torch.eye(3, device=self.device)
+                             if env_to_world is None else torch.as_tensor(
+                                 env_to_world, dtype=torch.float32,
+                                 device=self.device))
+
+    def sample(self, batch_seed, n):
+        u = _uniforms(batch_seed, n, 2, self.device)
+        d, _, _ = self._em.env_sample_eval(self.env, self.env_to_world, u)
+        return d
+
+    def pdf(self, d):
+        return self._em.env_pdf_direction(self.env, self.env_to_world, d)
+
+    def run(self, seed=0, **kw):
+        return chi2_test(self.sample, self.pdf, seed=seed, **kw)
+
+
+class BSDFAdapter:
+    """`mi.chi2.BSDFAdapter` (`chi2.py:477`; `tpusky/utils/chi2.py:
+    250-282`): a fixed local wi and one material row's (sample, pdf) for
+    `chi2_test`, on the table's device.
+
+    Seeds as in `EmitterAdapter`: the batch's sample2 and sample1 are the
+    columns of one (n, 3) draw, where the reference draws sample1 from
+    `fold_in(key, 7)`. A sample of weight 0 (a microfacet sample the
+    lobe rejects) or of a delta lobe (a mask's pass-through, the
+    plastic's coat) comes back as NaN, which `chi2_test` counts outside
+    the domain, so the histogram holds what `eval_pdf` describes and the
+    pdf integrates to its share. Mitsuba's adapter drops the zero-weight
+    samples the same way (its histogram weighs each sample by whether
+    its weight is nonzero); the reference's keeps them, so its chi-square
+    of a rough dielectric fails (p = 0 at N = 1e6)."""
+
+    def __init__(self, bsdfs, mat_idx, wi, kinds=None):
+        from ..render import bsdf as bsdf_mod
+        self._bsdf = bsdf_mod
+        self.bsdfs = bsdfs
+        self.mat_idx = int(mat_idx)
+        self.device = bsdfs.albedo.device
+        self.wi = torch.as_tensor(wi, dtype=torch.float32,
+                                  device=self.device)
+        self.kinds = kinds or bsdf_mod.table_kinds(bsdfs)
+
+    def _lanes(self, n):
+        return (self.wi.expand(n, 3),
+                torch.full((n,), self.mat_idx, dtype=torch.int64,
+                           device=self.device))
+
+    def sample(self, batch_seed, n):
+        u = _uniforms(batch_seed, n, 3, self.device)
+        wi, idx = self._lanes(n)
+        wo, weight, _, is_delta = self._bsdf.sample(
+            self.bsdfs, idx, wi, u[:, :2], u[:, 2], None, kinds=self.kinds)
+        dropped = is_delta | (weight == 0.0).all(-1)
+        return torch.where(dropped[:, None], torch.nan, wo)
+
+    def pdf(self, wo):
+        wi, idx = self._lanes(wo.shape[0])
+        _, pdf = self._bsdf.eval_pdf(self.bsdfs, idx, wi, wo, None,
+                                     kinds=self.kinds)
+        return pdf
+
+    def run(self, seed=0, cos_range=(0.0, 1.0), **kw):
+        return chi2_test(self.sample, self.pdf, seed=seed,
+                         cos_range=cos_range, **kw)
