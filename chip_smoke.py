@@ -32,7 +32,8 @@ Phases, each of which raises (exit code != 0) on failure:
    plain versions (`megakernel.scene_rows`, `sunsky_kernel._misc_row` and
    `_gauss_rows`), and the headline `render()` must make no host-device
    synchronisation (run once under
-   `torch.cuda.set_sync_debug_mode("error")`) and must launch K4 alone;
+   `torch.cuda.set_sync_debug_mode("warn")`, every sync site named) and
+   must launch K4 alone;
    then a scene of 80 shapes,
    more than K4 keeps in shared memory, under a rotated environment,
    through `render` (K4): its rows and its lanes held the same way, its
@@ -149,7 +150,22 @@ Phases, each of which raises (exit code != 0) on failure:
    of kinds 4 (the base), 5, 8, 9, 10 and 15 and `chi2_test_2d` of
    Marginal2D, Hierarchical2D and Bilinear2D at N = 1e7 on the card, each
    p >= 0.01;
-18. one JSON line of kernel results, then the device line, last.
+18. the spectral film frame at full width: bench_spectral's scene
+   (512x512x8, depth 4) plus an RGB area panel and point light
+   (upsampled by rgb2spec, fitted once a render), seen by a thin lens
+   through a 4-channel SRF specfilm with the mitchell filter and the
+   multijitter sampler, through `render`; K10 and K11 must launch and K4
+   not, its lanes agree with the plain path's (>= 99.9% within 1e-3),
+   two renders be bitwise equal and `render()` make no synchronisation;
+   its wall time in turns with the plain path's, launches, busy share,
+   the fit's launches and the splat's time; then every sampler kind on
+   2,097,152 lanes bitwise on the card and the CPU, every filter's splat
+   within 1e-5 of a float64 CPU splat and bitwise between two calls,
+   each sensor kind (a filter each) at 64x64x4, depth 2, against the CPU
+   (>= 99.9% of pixels within 1e-3), the fwd+bwd of a 128x128x4 frame to
+   the turbidity and the area radiance (K10-K13) against the plain path
+   (1e-3), and a spectral envmap of 64x128 texels against the CPU;
+19. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -622,19 +638,27 @@ def _k4_work(scene, sensor, state):
 
 
 def _no_sync(fn, what):
-    """fn() under torch.cuda.set_sync_debug_mode("error"), reset
-    afterwards: a host-device synchronisation in it raises."""
+    """fn() under torch.cuda.set_sync_debug_mode("warn"), reset
+    afterwards: fails naming the file:line of every host-device
+    synchronisation in it (the mode's own notice that it is a prototype
+    is not one)."""
+    import warnings
     import torch
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
+    torch.cuda.set_sync_debug_mode("warn")
     try:
-        out = fn()
-    except RuntimeError as e:
-        raise AssertionError(f"{what} synchronises the host with the "
-                             f"device: {e}") from e
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    print(f"check {what} under set_sync_debug_mode('error'): no "
+    sites = sorted({f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message)
+                    and "prototype" not in str(w.message)})
+    if sites:
+        raise AssertionError(f"{what} synchronises the host with the "
+                             f"device at {', '.join(sites)}")
+    print(f"check {what} under set_sync_debug_mode('warn'): no "
           "synchronisation")
     return out
 
@@ -2837,6 +2861,386 @@ def material_frame_phase(dev, card):
             raise AssertionError(f"chi2_test_2d {name}: p = {p:.4g}")
 
 
+# phase 18: the spectral film frame at full width
+FILM_SPP = SPP
+FILM_DEPTH = SPEC_DEPTH
+FILM_TURNS = 2
+FILM_APERTURE = 0.05
+FILM_SAMPLER_LANES = 1 << 21
+FILM_SMALL = 64             # the sensor and filter cases: 64x64x4, depth 2
+FILM_SMALL_SPP = 4
+FILM_SPLAT = 128            # the splat cases: 128x128x8 lanes
+FILM_GRAD = 128             # the gradient case: 128x128x4, depth 2
+FILM_ENV = (64, 128)        # the spectral envmap's texels
+FILM_ENV_RES = 128
+
+
+def _film_srfs():
+    """Four smooth regular sensor responses over 400-700 nm (31 values
+    each), gaussians 40 nm wide at 450, 520, 590 and 650 nm."""
+    grid = np.linspace(400.0, 700.0, 31)
+    return tuple((400.0, 700.0, tuple(float(v) for v in np.exp(
+        -0.5 * ((grid - c) / 40.0) ** 2))) for c in (450.0, 520.0, 590.0,
+                                                        650.0))
+
+
+def _film_scene(state, device):
+    """bench_spectral's scene (`_spectral_scene`) plus a rectangle area
+    panel facing down and one point light, both RGB and upsampled by
+    rgb2spec in the render, seen by a thin lens (aperture FILM_APERTURE)
+    at bench_spectral's camera, focused on the ground at its target."""
+    from tpusky_torch.render.bsdf import DIFFUSE, ROUGH_CONDUCTOR
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import ThinLens, make_perspective
+    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
+    panel = np.diag([0.8, 0.8, 1.0, 1.0]).astype(np.float32)
+    panel[:3, :3] = panel[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+    panel[:3, 3] = [0.0, -1.0, 3.0]
+    rad = np.zeros((2, 3), np.float32)
+    rad[1] = [12.0, 10.0, 8.0]
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=ground, bsdf_idx=0),
+                dict(kind=1, to_world=panel, bsdf_idx=1, emitter_idx=0)],
+        bsdf_albedos=[[0.5, 0.5, 0.5], [0.0, 0.0, 0.0]],
+        bsdf_kinds=[ROUGH_CONDUCTOR, DIFFUSE], bsdf_alphas=[0.2, 0.1],
+        area_radiance=rad, point_lights=[[1.5, -1.5, 2.5, 8.0, 6.0, 4.0]],
+        env=state, device=device)
+    eye, target = np.array([4.0, -4.0, 2.0]), np.array([0.0, 0.0, 0.5])
+    cam = make_perspective(eye, target, fov_x_deg=45, device=device)
+
+    return scene, ThinLens(cam.to_world, cam.fov_x_deg, cam.aspect,
+                           _film_f32(FILM_APERTURE, device),
+                           _film_f32(np.linalg.norm(target - eye), device))
+
+
+def _film_f32(v, device):
+    import torch
+    return torch.tensor(np.asarray(v, np.float32), device=device)
+
+
+def _small_sensors(device):
+    """One sensor of each kind, looking at the film frame's ground."""
+    from tpusky_torch.render import sensors as S
+    persp = S.make_perspective([4.0, -4.0, 2.0], [0.0, 0.0, 0.5],
+                               fov_x_deg=45, device=device)
+    thin = S.ThinLens(persp.to_world, persp.fov_x_deg, persp.aspect,
+                      _film_f32(0.1, device), _film_f32(5.85, device))
+    irr = S.make_irradiancemeter([0.0, 0.0, 0.01], [0.0, 0.0, 1.0],
+                                 half_extent=2.0, device=device)
+    return {
+        "perspective": persp, "thinlens": thin,
+        "orthographic": S.Orthographic(persp.to_world,
+                                       _film_f32(3.0, device)),
+        "spherical": S.make_spherical([0.0, 0.0, 1.0], device=device),
+        "distant": S.make_distant([0.3, -0.2, -0.9], radius=6.0,
+                                  extent=4.0, device=device),
+        "radiancemeter": S.RadianceMeter(
+            _film_f32([0.0, -2.0, 2.0], device),
+            _film_f32([0.0, 0.6, -0.8], device)),
+        "irradiancemeter": irr,
+        "batch": S.Batch((thin, S.make_spherical([0.0, 0.0, 1.0],
+                                                 device=device), irr)),
+    }
+
+
+def _splat64(film, uv, values):
+    """A float64 splat on the CPU of pixel-ordered lanes, one tap at a
+    time (the reference's formulation, `tpusky/render/film.py:95-132`,
+    with the port's gaussian) -> (H, W, C+1)."""
+    import torch
+    from tpusky_torch.render import film as F
+    h, w, c = film.height, film.width, film.n_channels
+    uv, v = uv.double().cpu(), values.double().cpu()
+    v = torch.cat([v, torch.ones_like(v[:, :1])], -1)
+    r = F._RADIUS[film.rfilter]
+    img = torch.zeros((h * w, c + 1), dtype=torch.float64)
+    bx = torch.floor(uv[:, 0] - 0.5) - (r - 1)
+    by = torch.floor(uv[:, 1] - 0.5) - (r - 1)
+    for oy in range(2 * r):
+        for ox in range(2 * r):
+            px, py = bx + ox, by + oy
+            wgt = (F.filter_weight(film.rfilter, px + 0.5 - uv[:, 0])
+                   * F.filter_weight(film.rfilter, py + 0.5 - uv[:, 1]))
+            ok = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+            flat = (py.clamp(0, h - 1) * w + px.clamp(0, w - 1)).long()
+            img.index_add_(0, flat[ok], v[ok] * wgt[ok, None])
+    return img.reshape(h, w, c + 1)
+
+
+def _film_sampler_checks(dev):
+    """lane_samples of every kind on FILM_SAMPLER_LANES lanes at spp 8
+    (orthogonal at 9 as well, stratified at 6): bitwise equal on the card
+    and on the CPU."""
+    import torch
+    from tpusky_torch.render.sampler import VALID_KINDS, lane_samples
+    words = np.array([0, SEED], np.uint32)
+    lane = torch.arange(FILM_SAMPLER_LANES, device=dev)
+    cases = [(k, 8) for k in VALID_KINDS] + [("orthogonal", 9),
+                                            ("stratified", 6)]
+    for kind, spp in cases:
+        for dim, n in ((10_000, 2), (20_000, 1)):
+            args = (lane // spp, lane % spp, spp, dim, n)
+            on_card = lane_samples(kind, words, *args)
+            on_cpu = lane_samples(kind, words, *(a.cpu() if hasattr(
+                a, "cpu") else a for a in args))
+            if not torch.equal(on_card.cpu(), on_cpu):
+                bad = int((on_card.cpu() != on_cpu).sum())
+                raise AssertionError(f"lane_samples {kind} spp {spp} dim "
+                                     f"{dim}: {bad} values differ between "
+                                     "the card and the CPU")
+    print(f"check lane_samples, every kind ({', '.join(VALID_KINDS)}) at "
+          f"spp 8, orthogonal at 9, stratified at 6, dims 10000 and 20000, "
+          f"{FILM_SAMPLER_LANES} lanes: bitwise equal on the card and the "
+          f"CPU")
+
+
+def _film_splat_checks(dev, card):
+    """splat of every filter on the card (FILM_SPLAT^2 x 8 pixel-ordered
+    lanes of 4 channels): within 1e-5 of a float64 CPU splat (of the
+    largest value), bitwise equal between two calls; and the splat's
+    device time at the frame's chunk (1,048,576 lanes, mitchell)."""
+    import torch
+    from tpusky_torch.render import film as F
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    n = FILM_SPLAT * FILM_SPLAT * 8
+    pix = torch.arange(FILM_SPLAT * FILM_SPLAT).repeat_interleave(8)
+    uv = torch.stack([pix % FILM_SPLAT + torch.rand(n, generator=g),
+                      pix // FILM_SPLAT + torch.rand(n, generator=g)], -1)
+    vals = torch.rand((n, 4), generator=g) * 2.0
+    for rf in F.FILTERS:
+        film = F.Film(FILM_SPLAT, FILM_SPLAT, 4, rf)
+        a = F.splat(film, uv.to(dev), vals.to(dev), spp=8)
+        b = F.splat(film, uv.to(dev), vals.to(dev), spp=8)
+        if not torch.equal(a, b):
+            raise AssertionError(f"splat {rf}: two calls differ")
+        if rf == "box":
+            want = F.splat_ordered(film, vals.double(), 8)
+        else:
+            want = _splat64(film, uv, vals)
+        err = float((a.double().cpu() - want).abs().max()
+                    / want.abs().max())
+        print(f"check splat {rf} on the card vs a float64 CPU splat "
+              f"({FILM_SPLAT}x{FILM_SPLAT}x8 lanes): {err:.2e} of its scale "
+              f"(bar 1e-5); two calls bitwise equal")
+        if not err <= 1e-5:
+            raise AssertionError(f"splat {rf}: {err:.3e}")
+    half = H * W * FILM_SPP // 2
+    pix = torch.arange(H * W, device=dev).repeat_interleave(FILM_SPP // 2)
+    uv = torch.stack([pix % W + torch.rand(half, device=dev),
+                      pix // W + torch.rand(half, device=dev)], -1)
+    vals = torch.rand((half, 4), device=dev)
+    film = F.Film(H, W, 4, "mitchell")
+    ms = _time_ms(lambda: F.splat(film, uv, vals, spp=FILM_SPP // 2),
+                  reps=5)
+    print(f"time splat mitchell, {half} lanes of 4 channels into "
+          f"{W}x{H} (one chunk of the frame): {ms:.3f} ms [{card}]")
+    return ms
+
+
+def _film_small_checks(state, state_cpu, dev):
+    """Each sensor kind (a filter each, in turn) at FILM_SMALL^2 x
+    FILM_SMALL_SPP, depth 2, the film frame's scene and SRF film: the
+    card's render() against the CPU's, >= 99.9% of pixels within 1e-3."""
+    import torch
+    from tpusky_torch.render import film as F
+    from tpusky_torch.render import integrator
+    filters = F.FILTERS
+    sensors_k, sensors_c = _small_sensors(dev), _small_sensors("cpu")
+    scene_k, _ = _film_scene(state, dev)
+    scene_c, _ = _film_scene(state_cpu, "cpu")
+    for i, name in enumerate(sensors_k):
+        rf = filters[i % len(filters)]
+        film = F.Film(FILM_SMALL, FILM_SMALL, 4, rf, srfs=_film_srfs())
+        imgs = [integrator.render(sc, se, film, SEED, spp=FILM_SMALL_SPP,
+                                  max_depth=2, mode="spectral",
+                                  sampler_kind="multijitter").cpu()
+                for sc, se in ((scene_k, sensors_k[name]),
+                               (scene_c, sensors_c[name]))]
+        share, worst = _lanes_share(imgs[0].reshape(-1, 4),
+                                    imgs[1].reshape(-1, 4))
+        print(f"check {name} sensor, {rf} filter ({FILM_SMALL}x{FILM_SMALL}"
+              f"x{FILM_SMALL_SPP}, depth 2, SRF film): card vs CPU "
+              f"{share:.2e} of pixels outside 1e-3 (bar 1e-3), max "
+              f"{worst:.2e}; mean {float(imgs[1].mean()):.4f}")
+        if not (share <= 1e-3 and bool(torch.isfinite(imgs[0]).all())):
+            raise AssertionError(f"{name} sensor: card and CPU disagree")
+
+
+def _film_grad_check(dev, card):
+    """fwd+bwd of the film frame's scene at FILM_GRAD^2 x 4, depth 2,
+    mean(img^2) to the turbidity (through precompute) and to the area
+    radiance (through the rgb2spec fit): K10-K13 launch, and both
+    gradients agree with the plain path's on the card within the bars of
+    bench_spectral_grad (1e-3)."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky.model import precompute
+    from tpusky_torch.render import film as F
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.bsdf import table_kinds
+    tables = tt.load_tables("spectral", device=dev)
+    film = F.Film(FILM_GRAD, FILM_GRAD, 4, "mitchell", srfs=_film_srfs())
+
+    def case(plain):
+        t = torch.tensor(3.0, device=dev, requires_grad=True)
+        p = tt.make_params(turbidity=t, albedo=0.3, sun_direction=SUN,
+                           mode="spectral", device=dev)
+        scene, sensor = _film_scene(precompute(tables, p, "spectral"), dev)
+        rad = scene.area_radiance.clone().requires_grad_()
+        im = F.develop(integrator.render_rows(
+            scene._replace(area_radiance=rad), sensor, film, SEED, 4, 2,
+            1000, "spectral", 0, FILM_GRAD, sampler_kind="multijitter",
+            kinds=table_kinds(scene.bsdfs), plain=plain))
+        return torch.autograd.grad((im ** 2).mean(), [t, rad])
+    grads_k, launches = _counted(lambda: case(False))
+    _require(launches, ("sunsky_hit_spec", "sunsky_nee_spec",
+                        "sunsky_hit_spec_bwd", "sunsky_nee_spec_bwd"),
+             "the film frame's gradient")
+    grads_p = case(True)
+    for name, a, b in zip(("turbidity", "area_radiance"), grads_k, grads_p):
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0):
+            raise AssertionError(f"film gradient d{name}: zero or not finite")
+        _check_scale(f"film frame gradient d{name} ({FILM_GRAD}x{FILM_GRAD}"
+                     f"x4, depth 2): kernels vs plain on the card", a, b,
+                     1e-3)
+    ms, plain_ms = _pair_ms(lambda: case(False), lambda: case(True), reps=2)
+    print(f"time film frame fwd+bwd ({FILM_GRAD}x{FILM_GRAD}x4, depth 2, "
+          f"precompute and fit included): kernels {ms:.2f} ms, plain "
+          f"{plain_ms:.2f} ms; launches {launches} [{card}]")
+
+
+def _film_envmap_check(dev):
+    """A spectral envmap (FILM_ENV texels, each fitted on the host) over
+    the film frame's ground at FILM_ENV_RES^2 x 4, depth 2: the card's
+    lanes against the CPU's, >= 99.9% within 1e-3."""
+    import torch
+    from tpusky_torch.render import film as F
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.emitters import make_envmap
+    h, w = FILM_ENV
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2.0 * np.pi
+    up = np.clip(np.cos(theta), 0.0, 1.0)[:, None, None]
+    bitmap = ((np.array([0.9, 0.8, 0.6]) * (1.0 - up)
+               + np.array([0.2, 0.4, 0.9]) * up)
+              * (1.0 + 0.5 * np.cos(phi))[None, :, None]).astype(np.float32)
+    t0 = time.perf_counter()
+    env_k = make_envmap(bitmap, spectral=True, device=dev)
+    fit_s = time.perf_counter() - t0
+    env_c = make_envmap(bitmap, spectral=True, device="cpu")
+    film = F.Film(FILM_ENV_RES, FILM_ENV_RES, 3)
+    lanes = []
+    for env, device in ((env_k, dev), (env_c, "cpu")):
+        scene, sensor = _film_scene(None, device)
+        scene = scene._replace(env=env)
+        with torch.no_grad():
+            lanes.append(integrator._lane_radiance(
+                scene, sensor, film, SEED, 4, 0, 4, 2, 1000, "spectral", 0,
+                FILM_ENV_RES).cpu())
+    share, worst = _lanes_share(*lanes)
+    print(f"check spectral envmap frame ({w}x{h} texels fitted on the host "
+          f"in {fit_s:.2f} s, {FILM_ENV_RES}x{FILM_ENV_RES}x4, depth 2): "
+          f"card vs CPU {share:.2e} of lanes outside 1e-3 (bar 1e-3), max "
+          f"{worst:.2e}; mean {float(lanes[1].mean()):.4f}")
+    if not (share <= 1e-3 and float(lanes[1].mean()) > 0.0):
+        raise AssertionError("the spectral envmap frame disagrees")
+
+
+def spectral_film_phase(dev, card):
+    """Phase 18: the spectral film frame at full width (H x W x FILM_SPP,
+    depth FILM_DEPTH): bench_spectral's scene plus an RGB area panel and
+    point light (rgb2spec), a thin lens, a 4-channel SRF specfilm, the
+    mitchell filter and the multijitter sampler, through render(): K10 and
+    K11 launch, K4 not; its lanes within 1e-3 of the plain path's on >=
+    99.9%; two render() calls bitwise equal; no synchronisation; wall
+    time in turns with the plain path, launches, busy share, the fit's
+    launches and the splat's time. Then the smaller checks: samplers,
+    splats, each sensor and filter, a gradient, a spectral envmap."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import film as F
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.scene import with_emitter_coeffs
+    t_phase = time.perf_counter()
+
+    def state_on(device):
+        return tt.sunsky_precompute(tt.make_params(
+            turbidity=3.0, albedo=0.3, sun_direction=SUN, mode="spectral",
+            device=device), mode="spectral")
+    state = state_on(dev)
+    scene, sensor = _film_scene(state, dev)
+    film = F.Film(H, W, 4, "mitchell", srfs=_film_srfs())
+    kinds = B.table_kinds(scene.bsdfs)
+
+    def frame():
+        return integrator.render(scene, sensor, film, SEED, spp=FILM_SPP,
+                                 max_depth=FILM_DEPTH, mode="spectral",
+                                 sampler_kind="multijitter")
+
+    def plain_frame():
+        return integrator.render_rows(
+            scene, sensor, film, SEED, FILM_SPP, FILM_DEPTH, 1000,
+            "spectral", 0, H, sampler_kind="multijitter", kinds=kinds,
+            plain=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    print(f"spectral film frame: {time.perf_counter() - t0:.2f} s (first "
+          f"call), launches {launches}")
+    _require(launches, ("sunsky_hit_spec", "sunsky_nee_spec"),
+             "the spectral film frame")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError("the spectral film frame went through K4")
+    if not (img.shape == (H, W, 4) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError("spectral film frame: image not finite, "
+                             "shaped or lit")
+    if not torch.equal(frame(), img):
+        raise AssertionError("two render() calls of the spectral film "
+                             "frame differ")
+    _no_sync(frame, "the spectral film frame's render()")
+    with torch.no_grad():
+        lanes_k, lanes_p = (integrator._lane_radiance(
+            scene, sensor, film, SEED, FILM_SPP, 0, FILM_SPP, FILM_DEPTH,
+            1000, "spectral", 0, H, "multijitter", kinds, plain)
+            for plain in (False, True))
+        share, worst = _lanes_share(lanes_k, lanes_p)
+    print(f"check spectral film frame lanes: {share:.2e} of "
+          f"{lanes_p.shape[0]} lanes outside 1e-3 of the plain path (bar "
+          f"1e-3), max {worst:.3e}; two render() calls bitwise equal; "
+          f"image mean {[round(float(x), 5) for x in img.mean((0, 1))]}")
+    if not share <= 1e-3:
+        raise AssertionError("the spectral film frame disagrees with the "
+                             "plain path")
+    del lanes_k, lanes_p
+    ms, plain_ms, runs, plain_runs = _turns(frame, plain_frame, FILM_TURNS)
+    busy = _profile_window("spectral film frame", frame, card, iters=1,
+                           focus=(("K10", "hit_spec_kernel"),
+                                  ("K11", "nee_spec_kernel")))
+    fit_busy = _profile_window("rgb2spec fit of the frame's emitters",
+                               lambda: with_emitter_coeffs(scene), card,
+                               iters=1, focus=())
+    print(f"time spectral film frame ({W}x{H}x{FILM_SPP}, depth "
+          f"{FILM_DEPTH}, SRF film of 4 channels, mitchell, multijitter, "
+          f"thin lens): render() {ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in runs)}), plain path "
+          f"{plain_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in plain_runs)}), in turns; "
+          f"{launches['sunsky_hit_spec']} K10 and "
+          f"{launches['sunsky_nee_spec']} K11 launches a render(); device "
+          f"busy {100 * busy:.1f}% (the fit alone {100 * fit_busy:.1f}%) "
+          f"[{card}]")
+    print(f"phase 18 frame: {time.perf_counter() - t_phase:.1f} s")
+
+    _film_sampler_checks(dev)
+    _film_splat_checks(dev, card)
+    _film_small_checks(state, state_on("cpu"), dev)
+    _film_grad_check(dev, card)
+    _film_envmap_check(dev)
+
+
 START = time.perf_counter()
 
 
@@ -3350,7 +3754,12 @@ def main():
     material_frame_phase(dev, card)
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 18. bounds and results ----
+    # ---- 18. the spectral film frame ----
+    t0 = time.perf_counter()
+    spectral_film_phase(dev, card)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 19. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))

@@ -1,8 +1,8 @@
 """What the path tracer's breadth may not reach: the megakernel K4's gate
 refuses every new feature (the reference's rules,
 tpusky/render/integrator.py:955-968, with the shape kinds pinned to the
-sphere, rectangle and disk), and spectral mode refuses the emitters that
-need the reference's rgb2spec upsampling, which is not ported.
+sphere, rectangle and disk), and spectral mode renders the emitters that
+need the reference's rgb2spec upsampling and refuses what is not ported.
 
 At most 3 items, so that pytest-xdist's `--dist loadfile` hands this
 file out after tests/test_multihost.py and it adds nothing to the wall.
@@ -16,7 +16,7 @@ import tpusky_torch as tt
 from tpusky_torch.render import emitters as TE
 from tpusky_torch.render import film as TF
 from tpusky_torch.render import integrator as TI
-from tpusky_torch.render.scene import make_scene
+from tpusky_torch.render.scene import make_scene, with_emitter_coeffs
 from tpusky_torch.render.sensors import make_perspective
 
 # pytest's workers already share the cores: one torch thread each keeps
@@ -70,8 +70,13 @@ def test_megakernel_rules_refuse_breadth():
 
 
 def test_spectral_refuses_rgb2spec_emitters():
-    """A ConstantEnv, area emitters and delta lights in spectral mode name
-    rgb2spec; a UniformEnv and no environment render."""
+    """A ConstantEnv, area emitters and delta lights render in spectral
+    mode, upsampled by rgb2spec (once a render: `with_emitter_coeffs`),
+    as do a UniformEnv and no environment; the fitted coefficients follow
+    the emitters they were fitted from (refitted after an emitter tensor
+    is replaced or changed in place); what spectral mode still refuses is
+    a polarized material (NotImplementedError) and an unknown sensor
+    (TypeError)."""
     sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
                               device="cpu")
     film = TF.Film(4, 4, 3)
@@ -80,10 +85,33 @@ def test_spectral_refuses_rgb2spec_emitters():
     panel = dict(kind=1, to_world=np.eye(4), bsdf_idx=0, emitter_idx=0)
     for scene in (_scene(TE.ConstantEnv(torch.ones(3))),
                   _scene(None, SHAPES + [panel], area_radiance=rad),
-                  _scene(None, point_lights=[[0, 0, 3, 1, 1, 1]])):
-        with pytest.raises(NotImplementedError, match="rgb2spec"):
-            TI.render(scene, sensor, film, 1, spp=1, mode="spectral")
-    for env in (TE.UniformEnv(torch.ones(3)), None):
-        img = TI.render(_scene(env), sensor, film, 1, spp=1,
-                        mode="spectral")
+                  _scene(None, point_lights=[[0, 0, 3, 1, 1, 1]]),
+                  _scene(TE.UniformEnv(torch.ones(3))), _scene(None)):
+        img = TI.render(scene, sensor, film, 1, spp=1, mode="spectral")
         assert bool(torch.isfinite(img).all())
+    sc = _scene(None, point_lights=[[0, 0, 3, 1, 1, 1]])
+    white = TE.ConstantEnv(torch.ones(3))
+    fit = with_emitter_coeffs(sc._replace(
+        env=white, point_lights=sc.point_lights.clone()))
+    assert with_emitter_coeffs(fit) is fit
+    red = torch.tensor([[0, 0, 3, 2.0, 0.2, 0.1]])
+    want = with_emitter_coeffs(sc._replace(env=white, point_lights=red))
+    assert not torch.equal(want.emitter_coeffs.point, fit.emitter_coeffs.point)
+    replaced = fit._replace(point_lights=red.clone())
+    fit.point_lights.copy_(red)                 # changed in place
+    for stale in (replaced, fit):
+        assert torch.equal(with_emitter_coeffs(stale).emitter_coeffs.point,
+                           want.emitter_coeffs.point)
+    with torch.inference_mode():
+        frozen = with_emitter_coeffs(_scene(
+            None, point_lights=[[0, 0, 3, 1, 1, 1]]))
+        assert with_emitter_coeffs(frozen) is frozen
+    blue = fit._replace(env=fit.env._replace(radiance=torch.tensor(
+        [0.1, 0.2, 2.0])))
+    assert not torch.equal(with_emitter_coeffs(blue).env.coeff,
+                           fit.env.coeff)
+    with pytest.raises(NotImplementedError):
+        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 11))),
+                  sensor, film, 1, spp=1, mode="spectral")
+    with pytest.raises(TypeError, match="unknown sensor"):
+        TI.render(sc, object(), film, 1, spp=1, mode="spectral")

@@ -71,8 +71,9 @@ def test_envmap_matches_jax():
     larger of the value and 1. The rotated directions differ from the
     reference's by an ulp (its einsum rounds otherwise), which the bright
     patch's edges would amplify past the bar, so the env_* checks use the
-    map without it. make_envmap(spectral=True) and an envmap with
-    rgb2spec coefficients raise, naming rgb2spec."""
+    map without it. make_envmap(spectral=True) fits the reference's
+    rgb2spec coefficients, which convert carries; another environment
+    type raises."""
     bm = _bitmap()
     ej = JE.make_envmap(bm, scale=1.5)
     own = TE.make_envmap(bm, scale=1.5, device="cpu")
@@ -120,11 +121,17 @@ def test_envmap_matches_jax():
                     JE.env_sample_direction(ej, rj, jnp.asarray(u))):
         _close(a, b, "env_sample_direction")
 
-    with pytest.raises(NotImplementedError, match="rgb2spec"):
-        TE.make_envmap(bm, spectral=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="rgb2spec"):
-        convert.environment(jax.tree.map(np.asarray, JE.make_envmap(
-            bm[:4, :8], spectral=True)), device="cpu")
+    # spectral=True fits each texel on the host, as the reference does,
+    # and convert carries an envmap's coefficients; an environment of
+    # another type is still refused
+    ej_s = JE.make_envmap(bm[:4, :8], spectral=True)
+    own_s = TE.make_envmap(bm[:4, :8], spectral=True, device="cpu")
+    np.testing.assert_allclose(own_s.coeff.numpy(), np.asarray(ej_s.coeff),
+                               rtol=0, atol=1e-6)
+    conv = convert.environment(jax.tree.map(np.asarray, ej_s), device="cpu")
+    np.testing.assert_array_equal(conv.coeff.numpy(), np.asarray(ej_s.coeff))
+    with pytest.raises(NotImplementedError):
+        convert.environment(object(), device="cpu")
 
 
 def test_envmap_bitmap_gradient():

@@ -1,4 +1,7 @@
-"""The port's optimizers and training step against the JAX package.
+"""The port's optimizers and training step against the JAX package (the
+steps themselves, one JAX compile a loss kind, are in
+tests/test_torch_train_step.py and tests/test_torch_train_losses.py,
+files of 3 items that run beside tests/test_multihost.py).
 
 The optimizers run on numpy-seeded parameters and gradients beside
 `tpusky.ad.optimizers`; the training step (`tpusky_torch.parallel.render.
@@ -21,8 +24,6 @@ from tpusky_torch import convert
 from tpusky_torch.ad import optimizers as TO
 from tpusky_torch.parallel import render as TP
 from tpusky_torch.render import film as TF
-
-import torch_train_case as case
 
 # pytest's workers already share the cores: one torch thread each keeps
 # the many small CPU ops from contending with the other workers
@@ -109,20 +110,6 @@ def test_optimizer_step_and_init_match_jax():
 # ---------------------------------------------------------------------------
 # the training step (bench.py::bench_train's step, cut to 16x16 at 2 spp)
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module")
-def setup():
-    return case.make_setup()
-
-
-# each loss kind is a JAX compile of its own (~10 s here): this file runs
-# the kind bench_train uses, plain l2 and the tuple form;
-# tests/test_torch_train_losses.py runs rel_l2, log_l2 and log_l2_nodisc
-@pytest.mark.parametrize("loss", ["log_l2_blur", "l2",
-                                  ("log_l2_blur", 2.0, 4.0)], ids=str)
-def test_train_step_matches_jax(setup, loss):
-    case.check_one_step(setup, loss)
 
 
 def test_train_step_refuses_unknown_losses():

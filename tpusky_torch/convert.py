@@ -7,8 +7,8 @@ and returns the port's counterpart as float32/int64 tensors on `device`
 Nothing here imports jax or tpusky: the objects are read by field name
 (and an environment by its type's name). Parts the port does not have
 yet raise NotImplementedError: the polarized, hair and measured material
-kinds, textures, media, SDFs, curves, an envmap with rgb2spec spectra,
-and an area emitter on a cube (R8).
+kinds, textures, media, SDFs, curves and an area emitter on a cube
+(R8).
 """
 
 from __future__ import annotations
@@ -24,8 +24,15 @@ from .render.bsdf import MaterialTable, check_kinds
 from .render.emitters import ConstantEnv, EnvMapState, SpotLight, UniformEnv
 from .render.mesh import MeshTable
 from .render.scene import Scene
+from .render import sensors as sensors_mod
 from .render.sensors import Perspective
 from .render.shapes import KINDS, ShapeTable, check_emitters
+
+
+_SENSORS = {k.__name__: k for k in (
+    sensors_mod.Perspective, sensors_mod.Spherical, sensors_mod.ThinLens,
+    sensors_mod.Orthographic, sensors_mod.Distant, sensors_mod.RadianceMeter,
+    sensors_mod.IrradianceMeter)}
 
 
 def _f32(a, device):
@@ -133,13 +140,12 @@ def environment(env, device="cuda"):
         kind = ConstantEnv if name == "ConstantEnv" else UniformEnv
         return kind(_f32(env.radiance, device))
     if name == "EnvMapState":
-        if env.coeff is not None:
-            raise NotImplementedError("an envmap's rgb2spec spectra need "
-                                      "ops/rgb2spec.py, not ported yet")
         return EnvMapState(_f32(env.bitmap, device),
                            Bilinear2D(*(_f32(getattr(env.warp, f), device)
                                         for f in Bilinear2D._fields)),
-                           _f32(env.scale, device))
+                           _f32(env.scale, device),
+                           None if env.coeff is None
+                           else _f32(env.coeff, device))
     if hasattr(env, "gaussian_distr"):
         return sunsky_state(env, device)
     raise NotImplementedError(f"environment {name}")
@@ -183,6 +189,18 @@ def scene(sc, device="cuda") -> Scene:
 def perspective(s, device="cuda") -> Perspective:
     return Perspective(_f32(s.to_world, device), _f32(s.fov_x_deg, device),
                        _f32(s.aspect, device), _f32(s.near, device))
+
+
+def sensor(s, device="cuda"):
+    """A `tpusky` sensor of any kind -> the port's, told apart by its
+    type's name; a Batch's sub-sensors converted in turn."""
+    name = type(s).__name__
+    if name == "Batch":
+        return sensors_mod.Batch(tuple(sensor(x, device) for x in s.sensors))
+    kind = _SENSORS.get(name)
+    if kind is None:
+        raise TypeError(f"unknown sensor {name}")
+    return kind(*(_f32(getattr(s, f), device) for f in kind._fields))
 
 
 def adam_state(s, device="cuda") -> dict:

@@ -9,10 +9,10 @@ reference's (`wavelengths`, then `mode`, then `pdf_detached`); in
 spectral mode every call takes the lanes' hero `wavelengths` (..., W) in
 nm. `plain=True` runs the sunsky model's plain versions instead of
 kernels K1-K3 (K9-K11 in spectral mode), the reference the kernels and
-the megakernel are held against. A `ConstantEnv` in spectral mode, and
-an envmap with per-texel spectra, need the reference's rgb2spec
-upsampling, which is not ported; an envmap without them shows its
-channels' mean at every wavelength, as the reference's does.
+the megakernel are held against. In spectral mode a `ConstantEnv`'s
+RGB and an envmap's texels are upsampled with rgb2spec (`ops/rgb2spec`,
+the emitter convention: times D65); an envmap without per-texel spectra
+shows its channels' mean at every wavelength, as the reference's does.
 """
 
 from __future__ import annotations
@@ -27,13 +27,19 @@ from ..ops import warp
 from ..ops.distr2d import (Bilinear2D, bilinear_pdf, bilinear_sample,
                            make_bilinear_2d)
 from ..ops.math import PI, mat3_apply, mat3_apply_t, safe_acos
+from ..ops.rgb2spec import (emitter_coeffs, eval_emitter_coeff_spectrum,
+                            fit_sigmoid_coeffs_torch)
 from .shapes import sample_position
 
 
 class ConstantEnv(NamedTuple):
     """Uniform environment radiance from an RGB colour (`constant.cpp`
-    with an srgb_d65 radiance)."""
+    with an srgb_d65 radiance): in spectral mode its rgb2spec spectrum
+    times D65, from `coeff` where a render fitted it (`scene.
+    with_emitter_coeffs`), else fitted at the call."""
     radiance: torch.Tensor       # (C,)
+    # internal: (4,) rgb2spec coefficients, set by `with_emitter_coeffs`
+    coeff: Optional[torch.Tensor] = None
 
 
 class UniformEnv(NamedTuple):
@@ -43,15 +49,14 @@ class UniformEnv(NamedTuple):
     radiance: torch.Tensor       # (C,) equal channels
 
 
-_RGB2SPEC = "ops/rgb2spec.py, which is not ported"
-
-
 def _flat(env, d_world, wavelengths):
     """The radiance of a ConstantEnv or UniformEnv toward d_world."""
     if wavelengths is not None:
         if isinstance(env, ConstantEnv):
-            raise NotImplementedError(
-                f"a ConstantEnv in spectral mode needs {_RGB2SPEC}")
+            coeff = (fit_sigmoid_coeffs_torch(env.radiance)
+                     if env.coeff is None else env.coeff)
+            return eval_emitter_coeff_spectrum(coeff, wavelengths).expand(
+                wavelengths.shape)
         return env.radiance.mean().expand(wavelengths.shape)
     return env.radiance.expand(d_world.shape[:-1] + env.radiance.shape)
 
@@ -70,13 +75,13 @@ def env_eval(env, d_world, env_to_world, wavelengths=None, mode="rgb",
         return sunsky.eval(env, mat3_apply_t(env_to_world, d_world),
                            wavelengths, mode, plain=plain)
     if isinstance(env, EnvMapState):
-        rgb = envmap_eval(env, mat3_apply_t(env_to_world, d_world))
+        d_local = mat3_apply_t(env_to_world, d_world)
         if wavelengths is None:
-            return rgb
+            return envmap_eval(env, d_local)
         if env.coeff is not None:
-            raise NotImplementedError(
-                f"an envmap's per-texel spectra need {_RGB2SPEC}")
-        return rgb.mean(-1, keepdim=True).expand(wavelengths.shape)
+            return envmap_spectrum(env, d_local, wavelengths)
+        return envmap_eval(env, d_local).mean(-1, keepdim=True).expand(
+            wavelengths.shape)
     return _flat(env, d_world, wavelengths)
 
 
@@ -162,12 +167,11 @@ def make_envmap(bitmap, scale=1.0, spectral=False,
     """An envmap emitter from an (H, W, 3) radiance bitmap, its warp built
     on `device` (`tpusky/render/emitters.py:307-335`). u = phi / 2pi
     (the x axis at u = 0), v = theta / pi (the zenith at v = 0).
-    `spectral=True` upsamples every texel with rgb2spec in the reference,
-    which is not ported: it raises."""
-    if spectral:
-        raise NotImplementedError(
-            f"make_envmap(spectral=True) needs {_RGB2SPEC}")
-    bm = torch.tensor(np.asarray(bitmap, np.float32), device=device)
+    `spectral=True` fits every texel's rgb2spec coefficients on the host
+    (float64 numpy, about 10 s a megatexel), so that spectral mode shows
+    each texel's spectrum rather than the channels' mean."""
+    host = np.asarray(bitmap, np.float32)
+    bm = torch.tensor(host, device=device)
     h = bm.shape[0]
     lum = (0.212671 * bm[..., 0] + 0.715160 * bm[..., 1]
            + 0.072169 * bm[..., 2])
@@ -181,9 +185,13 @@ def make_envmap(bitmap, scale=1.0, spectral=False,
     vtx = torch.cat([vx, vx[:, :1]], 1)                 # u = 1 is u = 0
     theta_v = torch.arange(h + 1, device=device) / h * PI
     vtx = vtx * torch.sin(theta_v)[:, None]
+    coeff = None
+    if spectral:
+        coeff = torch.tensor(emitter_coeffs(host).astype(np.float32),
+                             device=device)
     return EnvMapState(bm, make_bilinear_2d(vtx),
                        torch.tensor(scale, dtype=torch.float32,
-                                    device=device))
+                                    device=device), coeff)
 
 
 def _envmap_uv(d):
@@ -211,6 +219,17 @@ def envmap_eval(env: EnvMapState, d):
     top = c00 * (1 - tx) + c10 * tx
     bot = c01 * (1 - tx) + c11 * tx
     return env.scale * (top * (1 - ty) + bot * ty)
+
+
+def envmap_spectrum(env: EnvMapState, d, wavelengths):
+    """The nearest texel's rgb2spec spectrum (times D65 and the scale)
+    toward local direction d at the hero wavelengths -> (..., W)."""
+    h, w = env.bitmap.shape[:2]
+    u, v = _envmap_uv(d)
+    col = (u * w).to(torch.int64).clamp(0, w - 1)
+    row = (v * h).to(torch.int64).clamp(0, h - 1)
+    cf = env.coeff.reshape(-1, 4)[row * w + col]
+    return env.scale * eval_emitter_coeff_spectrum(cf, wavelengths)
 
 
 def envmap_sample_direction(env: EnvMapState, sample2):

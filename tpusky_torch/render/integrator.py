@@ -14,17 +14,23 @@ The environments and the lobes enter the path only through
 reference. Up to two delta lights are each connected at every
 vertex; more are sampled one a vertex by their weights
 (`scene.cpp:100-119`). Spectral mode is hero-wavelength transport: 4
-wavelengths per path from `sample_rgb_spectrum`, developed to sRGB per
-lane (the specfilm branches are not ported); a `ConstantEnv`, an
-envmap's per-texel spectra, area and delta lights need the reference's
-rgb2spec upsampling there, which is not ported. Anything else raises
-NotImplementedError.
+wavelengths per path, from `sample_rgb_spectrum` and developed to sRGB
+per lane, or for a specfilm (`film.bands` or `film.srfs`) drawn over the
+bands or from the combined sensor responses and accumulated into the
+film's channels; the RGB emitters (area, point, directional, spot, a
+ConstantEnv) are upsampled with rgb2spec, fitted once a render
+(`scene.with_emitter_coeffs`), and an envmap shows its texels' fitted
+spectra. Every sensor, sampler and reconstruction filter of the
+reference is here. Anything else raises NotImplementedError.
 
 The whole wavefront (H * W * spp lanes) is one set of tensors and the
 bounce loop is a Python loop with per-lane active masks. Uniforms come
-from the counter-hash sampler keyed on the global lane index, so an image
-does not depend on spp chunking. `render(passes=n)` folds the pass index
-into the reference's threefry key on the host (`sampler.fold_in`).
+from the sampler (`render/sampler.py`) keyed on the global lane index, so
+an image does not depend on spp chunking. `render(passes=n)` folds the
+pass index into the reference's threefry key on the host
+(`sampler.fold_in`). A filter other than the box splats the lanes into
+the film without atomics (`film.splat`), so every image is bitwise
+reproducible.
 
 `_render_impl` runs an eligible scene on the card through the fused
 megakernel K4 (`ops/cuda/megakernel.py`), and every other scene through
@@ -55,14 +61,16 @@ from ..models.sunsky.model import SunskyState
 from ..ops import spectrum
 from ..ops.distr import discrete_sample_reuse, make_discrete
 from ..ops.math import Frame, dot, norm
+from ..ops.rgb2spec import eval_emitter_coeff_spectrum
 from . import bsdf as bsdf_mod
 from . import emitters as em
 from . import film as film_mod
 from . import sensors as sensors_mod
+from . import spectra
 from .mesh import mesh_intersect
-from .sampler import fold_in, lane_samples
+from .sampler import fold_in, key_seed, lane_samples
 from .scene import (Scene, n_delta_lights, scene_occluded, table_len,
-                    with_mesh_tables)
+                    with_emitter_coeffs, with_mesh_tables)
 from .shapes import DISK, RECTANGLE, SPHERE, ray_intersect
 
 _SHADOW_EPS = 1e-3
@@ -80,17 +88,18 @@ def _mis_weight(pdf_a, pdf_b):
 
 
 class _SamplerCtx:
-    """Per-render sampler context bound to lane identities."""
+    """Per-render sampler context bound to lane identities; `key` an
+    integer seed or the pass key's two uint32 words."""
 
-    def __init__(self, kind, seed, pixel_idx, sample_idx, spp):
+    def __init__(self, kind, key, pixel_idx, sample_idx, spp):
         self.kind = kind
-        self.seed = seed
+        self.key = key
         self.pixel_idx = pixel_idx
         self.sample_idx = sample_idx
         self.spp = spp
 
     def next(self, dim, n):
-        return lane_samples(self.kind, self.seed, self.pixel_idx,
+        return lane_samples(self.kind, self.key, self.pixel_idx,
                             self.sample_idx, self.spp, dim, n)
 
 
@@ -105,15 +114,6 @@ def _check_slice(scene: Scene, max_depth, rr_depth, mode, kinds):
             and (mode == "spectral") != (env.sun_ld is not None)):
         raise ValueError(f"a {mode} render needs a sunsky state "
                          f"precomputed in {mode} mode")
-    if mode == "spectral":
-        for what, present in (
-                ("a ConstantEnv", isinstance(env, em.ConstantEnv)),
-                ("area emitters", scene.area_radiance is not None),
-                ("delta lights", n_delta_lights(scene) > 0)):
-            if present:
-                raise NotImplementedError(
-                    f"{what} in spectral mode need ops/rgb2spec.py (the "
-                    "reference's emitter upsampling), which is not ported")
     if max_depth < 1:
         raise NotImplementedError(f"max_depth {max_depth}")
     if kinds is not None:
@@ -160,16 +160,25 @@ def _light_rows(x, device):
     return torch.zeros((0, 6), device=device) if x is None else x
 
 
+def _spot_ratio(light, fall):
+    """A spot's falloff and texture as a scalar on its spectrum
+    (`tpusky/render/integrator.py:585-589`)."""
+    return fall.sum(-1) / light.intensity.sum().clamp(min=1e-12)
+
+
 def _delta_lights_unrolled(scene, p, ng, frame, wi_local, mat_idx,
-                           throughput, active, kinds, plain):
+                           throughput, active, kinds, plain, wavelengths):
     """Each delta light connected at every vertex (at most 2 lights;
-    `tpusky/render/integrator.py:523-600`)."""
+    `tpusky/render/integrator.py:523-600`); in spectral mode each
+    emits its rgb2spec spectrum."""
     acc = torch.zeros_like(throughput)
+    cf = scene.emitter_coeffs
 
     def connect(d_l, maxt):
         """(f cos toward d_l, lanes the light reaches)."""
         f_l, _ = bsdf_mod.eval_pdf(scene.bsdfs, mat_idx, wi_local,
-                                   frame.to_local(d_l), kinds=kinds)
+                                   frame.to_local(d_l), wavelengths,
+                                   kinds=kinds)
         occ = scene_occluded(scene, _offset(p, ng, d_l), d_l, maxt,
                              plain=plain)
         return f_l, (active & ~occ)[..., None]
@@ -184,24 +193,32 @@ def _delta_lights_unrolled(scene, p, ng, frame, wi_local, mat_idx,
     for li in range(pl.shape[0]):
         d_l, dist, dist2 = toward(pl[li, :3])
         f_l, ok = connect(d_l, dist * (1 - 1e-3))
-        acc = acc + torch.where(ok, throughput * f_l * pl[li, 3:] / dist2,
-                                0.0)
+        i_l = (pl[li, 3:] if wavelengths is None else
+               eval_emitter_coeff_spectrum(cf.point[li], wavelengths))
+        acc = acc + torch.where(ok, throughput * f_l * i_l / dist2, 0.0)
     dl = _light_rows(scene.directional_lights, p.device)
     for li in range(dl.shape[0]):
         d_l = -dl[li, :3]
         d_l = (d_l / norm(d_l)).expand(p.shape)
         f_l, ok = connect(d_l, torch.inf)
-        acc = acc + torch.where(ok, throughput * f_l * dl[li, 3:], 0.0)
-    for light in scene.spot_lights:
+        e_l = (dl[li, 3:] if wavelengths is None else
+               eval_emitter_coeff_spectrum(cf.directional[li],
+                                           wavelengths))
+        acc = acc + torch.where(ok, throughput * f_l * e_l, 0.0)
+    for si, light in enumerate(scene.spot_lights):
         d_l, dist, dist2 = toward(light.position)
         f_l, ok = connect(d_l, dist * (1 - 1e-3))
-        acc = acc + torch.where(
-            ok, throughput * f_l * em.spot_falloff(light, -d_l) / dist2, 0.0)
+        i_l = em.spot_falloff(light, -d_l)
+        if wavelengths is not None:
+            i_l = (eval_emitter_coeff_spectrum(cf.spot[si], wavelengths)
+                   * _spot_ratio(light, i_l)[..., None])
+        acc = acc + torch.where(ok, throughput * f_l * i_l / dist2, 0.0)
     return acc
 
 
 def _delta_lights_single_sample(scene, u_pick, p, ng, frame, wi_local,
-                                mat_idx, throughput, active, kinds, plain):
+                                mat_idx, throughput, active, kinds, plain,
+                                wavelengths):
     """One delta light a vertex, picked by its sampling weight (the
     reference's DiscreteDistribution over `sampling_weight()`,
     `scene.cpp:100-119, 295-345`; `tpusky/render/integrator.py:109-215`):
@@ -240,13 +257,25 @@ def _delta_lights_single_sample(scene, u_pick, p, ng, frame, wi_local,
     d_l = torch.where(is_dir[..., None], d_dirn, d_pos)
     maxt = torch.where(is_dir, torch.inf, dist * (1.0 - 1e-3))
     f_l, _ = bsdf_mod.eval_pdf(scene.bsdfs, mat_idx, wi_local,
-                               frame.to_local(d_l), kinds=kinds)
+                               frame.to_local(d_l), wavelengths, kinds=kinds)
     occ = scene_occluded(scene, _offset(p, ng, d_l), d_l, maxt, plain=plain)
     fall = intensity
+    ratio = torch.ones_like(dist)
     for si, light in enumerate(spots):
-        fall = torch.where((idx == n_pt + n_dir + si)[..., None],
-                           em.spot_falloff(light, -d_l), fall)
-    intensity = torch.where(is_spot[..., None], fall, intensity)
+        pick = idx == n_pt + n_dir + si
+        f_s = em.spot_falloff(light, -d_l)
+        fall = torch.where(pick[..., None], f_s, fall)
+        ratio = torch.where(pick, _spot_ratio(light, f_s), ratio)
+    if wavelengths is None:
+        intensity = torch.where(is_spot[..., None], fall, intensity)
+    else:
+        cf = scene.emitter_coeffs
+        cf_rows = torch.cat([torch.zeros((n, 4), device=dev) if t is None
+                             else t for t, n in ((cf.point, n_pt),
+                                                 (cf.directional, n_dir),
+                                                 (cf.spot, len(spots)))], 0)
+        intensity = (eval_emitter_coeff_spectrum(cf_rows[idx], wavelengths)
+                     * torch.where(is_spot, ratio, 1.0)[..., None])
     geo = torch.where(is_dir, 1.0, 1.0 / dist2.clamp(min=1e-12))
     contrib = (throughput * f_l * intensity
                * (geo / pmf_sel.clamp(min=1e-12))[..., None])
@@ -269,6 +298,8 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
     `rr_log` receives, at each depth that plays Russian roulette, the
     lanes it ends."""
     _check_slice(scene, max_depth, rr_depth, mode, kinds)
+    if wavelengths is not None:
+        scene = with_emitter_coeffs(scene)
     n = o.shape[0]
     dev = o.device
     env, env_to_world = scene.env, scene.env_to_world
@@ -300,7 +331,15 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
                 escaped[..., None], throughput * env_l * mis_em[..., None],
                 0.0)
         if scene.area_radiance is not None:
-            contrib = throughput * scene.area_radiance[shape_idx.clamp(min=0)]
+            rows = shape_idx.clamp(min=0)
+            if wavelengths is None:
+                area_l = scene.area_radiance[rows]
+            elif n_area > 0:        # rgb2spec spectra (:383, :770-778)
+                area_l = eval_emitter_coeff_spectrum(
+                    scene.emitter_coeffs.area[rows], wavelengths)
+            else:
+                area_l = scene.area_radiance[rows].mean(-1, keepdim=True)
+            contrib = throughput * area_l
             if n_area > 0:
                 area_pdf = em.area_pdf_direction(scene, o, p, ng,
                                                  shape_idx.clamp(min=0))
@@ -342,9 +381,12 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
         # ---- next-event estimation toward the area emitters ----
         if n_area > 0:
             u_area = smp.next(3 * depth + 3, 3).detach()     # :490
-            d_a, dist_a, pdf_a, l_a, _, _ = em.area_sample_direction(
+            d_a, dist_a, pdf_a, l_a, _, emit_a = em.area_sample_direction(
                 scene, p, u_area[..., :2], u_area[..., 2])
             d_a, pdf_a = d_a.detach(), pdf_a.detach()         # :494-495
+            if wavelengths is not None:                       # :496-497
+                l_a = eval_emitter_coeff_spectrum(
+                    scene.emitter_coeffs.area[emit_a], wavelengths)
             f_a, pdf_b_a = bsdf_mod.eval_pdf(
                 scene.bsdfs, mat_idx, wi_local, frame.to_local(d_a),
                 wavelengths, kinds=kinds)
@@ -366,11 +408,11 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
             u_pick = smp.next(300_000 + depth, 1)[..., 0].detach()  # :610
             result = result + _delta_lights_single_sample(
                 scene, u_pick, p, ng, frame, wi_local, mat_idx, throughput,
-                active, kinds, plain)
+                active, kinds, plain, wavelengths)
         elif n_delta > 0:
             result = result + _delta_lights_unrolled(
                 scene, p, ng, frame, wi_local, mat_idx, throughput, active,
-                kinds, plain)
+                kinds, plain, wavelengths)
 
         # ---- BSDF sampling for the next bounce ----
         u_bsdf = smp.next(3 * depth + 1, 3).detach()         # :618
@@ -406,11 +448,15 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
 def _lane_radiance(scene, sensor, film_cfg, seed, spp, spp0, spp_chunk,
                    max_depth, rr_depth, mode, row0, n_rows,
                    sampler_kind="independent", kinds=None, plain=False,
-                   rr_log=None):
-    """Per-lane radiance (n_rows * W * spp_chunk, 3) of `spp_chunk` of the
-    `spp` samples for a block of film rows, lanes pixel-ordered; in
-    spectral mode the lanes' spectral radiance developed to linear sRGB.
-    Non-finite values are zeroed. `rr_log` as in `_path_sample`."""
+                   rr_log=None, film_uv=False):
+    """Per-lane radiance (n_rows * W * spp_chunk, C) of `spp_chunk` of the
+    `spp` samples for a block of film rows, lanes pixel-ordered: the
+    film's C channels, linear sRGB or, in spectral mode with a specfilm,
+    its sensor responses or bands (`tpusky/render/integrator.py:
+    816-892`). `seed` is the pass key (an integer seed or two uint32
+    words). Non-finite values are zeroed. `rr_log` as in `_path_sample`;
+    `film_uv=True` also returns the lanes' film positions (N, 2) in
+    full-film pixels."""
     h, w = film_cfg.height, film_cfg.width
     cx0, cy0, cw, _ch = film_mod.crop_extent(film_cfg)
     dev = scene.shapes.to_world.device
@@ -425,38 +471,68 @@ def _lane_radiance(scene, sensor, film_cfg, seed, spp, spp0, spp_chunk,
 
     smp = _SamplerCtx(sampler_kind, seed, pixel, sample_idx, spp)
     u_pos = smp.next(10_000, 2)
-    uv = torch.stack([(px_full.float() + u_pos[:, 0]) / w,
-                      (py_full.float() + u_pos[:, 1]) / h], -1)
-    o, d = sensors_mod.sample_ray(sensor, uv)
-    if mode == "spectral":
-        # hero-wavelength transport (tpusky/render/integrator.py:862-876)
-        u_wl = smp.next(20_000, 1)[..., 0]
-        wavelengths, wl_weight = spectrum.sample_rgb_spectrum(
-            spectrum.sample_shifted(u_wl, _N_HERO))
-        spec = _path_sample(scene, o, d, smp, max_depth, rr_depth, mode,
+    # the lens draw only where the sensor reads it: each dim has its own
+    # stream, so skipping it moves no other sample
+    u_lens = (smp.next(10_001, 2) if sensors_mod.takes_lens_sample(sensor)
+              else None)
+    pix = torch.stack([px_full.float() + u_pos[:, 0],
+                       py_full.float() + u_pos[:, 1]], -1)
+    o, d = sensors_mod.sample_ray(sensor, torch.stack(
+        [pix[:, 0] / w, pix[:, 1] / h], -1), u_lens)
+
+    def trace(wavelengths):
+        return _path_sample(scene, o, d, smp, max_depth, rr_depth, mode,
                             kinds=kinds, plain=plain,
                             wavelengths=wavelengths, rr_log=rr_log)
-        radiance = spectrum.spectrum_to_srgb(spec * wl_weight, wavelengths)
+    if mode != "spectral":
+        radiance = trace(None)
     else:
-        radiance = _path_sample(scene, o, d, smp, max_depth, rr_depth, mode,
-                                kinds=kinds, plain=plain, rr_log=rr_log)
-    return torch.where(torch.isfinite(radiance), radiance, 0.0)
+        u_wl = smp.next(20_000, 1)[..., 0]
+        if film_cfg.srfs is not None:
+            # wavelengths from the combined sensor response, each channel
+            # weighted by its own (`specfilm.cpp`; :827-841)
+            wavelengths, wl_pdf = spectra.srf_sample_wavelengths(
+                film_cfg.srfs, u_wl, _N_HERO)
+            radiance = spectra.srf_accumulate(
+                film_cfg.srfs, wavelengths,
+                trace(wavelengths) / wl_pdf.clamp(min=1e-12))
+        elif film_cfg.bands is not None:
+            # uniform over the bands' range, each sample in its band,
+            # per unit wavelength (:842-861)
+            lo, hi = float(film_cfg.bands[0]), float(film_cfg.bands[-1])
+            wavelengths = lo + (hi - lo) * spectrum.sample_shifted(
+                u_wl, _N_HERO)
+            edges = film_mod.band_edges(film_cfg.bands, o.device)
+            radiance = film_mod.spectral_band_accumulate(
+                wavelengths, trace(wavelengths) * (hi - lo),
+                film_cfg.bands) / (edges[1:] - edges[:-1])
+        else:
+            # hero-wavelength transport developed to sRGB (:862-876)
+            wavelengths, wl_weight = spectrum.sample_rgb_spectrum(
+                spectrum.sample_shifted(u_wl, _N_HERO))
+            radiance = spectrum.spectrum_to_srgb(
+                trace(wavelengths) * wl_weight, wavelengths)
+    radiance = torch.where(torch.isfinite(radiance), radiance, 0.0)
+    return (radiance, pix) if film_uv else radiance
 
 
 def _render_rows_chunk(scene, sensor, film_cfg, seed, spp, spp0, spp_chunk,
                        max_depth, rr_depth, mode, row0, n_rows,
                        sampler_kind="independent", kinds=None, plain=False):
     """Render `spp_chunk` of `spp` samples for a block of film rows ->
-    accumulation block (n_rows, W, 4)."""
-    if film_cfg.rfilter != "box" or film_cfg.n_channels != 3:
-        raise NotImplementedError(f"film {film_cfg.rfilter!r} with "
-                                  f"{film_cfg.n_channels} channels")
-    radiance = _lane_radiance(scene, sensor, film_cfg, seed, spp, spp0,
-                              spp_chunk, max_depth, rr_depth, mode, row0,
-                              n_rows, sampler_kind, kinds, plain)
-    block = film_mod.Film(n_rows, film_mod.crop_extent(film_cfg)[2],
-                          film_cfg.n_channels)
-    return film_mod.splat_ordered(block, radiance, spp_chunk)
+    accumulation block (n_rows, W, C+1), through the film's filter."""
+    radiance, pix = _lane_radiance(
+        scene, sensor, film_cfg, seed, spp, spp0, spp_chunk, max_depth,
+        rr_depth, mode, row0, n_rows, sampler_kind, kinds, plain,
+        film_uv=True)
+    cx0, cy0, cw, _ = film_mod.crop_extent(film_cfg)
+    block = film_mod.Film(n_rows, cw, film_cfg.n_channels, film_cfg.rfilter)
+    if film_cfg.rfilter == "box":
+        return film_mod.splat_ordered(block, radiance, spp_chunk)
+    # the block's own coordinates (:886-892); the lanes stay in pixel order
+    local = torch.stack([pix[:, 0] - float(cx0),
+                         pix[:, 1] - float(cy0 + row0)], -1)
+    return film_mod.splat(block, local, radiance, spp=spp_chunk)
 
 
 def _spp_chunk(film_cfg, spp, n_rows, max_lanes):
@@ -473,8 +549,11 @@ def render_rows(scene, sensor, film_cfg, seed, spp, max_depth, rr_depth,
     """Render a block of film rows -> (n_rows, W, 4), bounding the live
     wavefront to `max_lanes` lanes by looping over spp chunks (the
     reference bounds it the same way, `integrator.cpp:247-265`). On the
-    card K14's mesh tables are built once for all its queries."""
+    card K14's mesh tables are built once for all its queries; in
+    spectral mode the emitters' rgb2spec coefficients are fitted once."""
     scene = with_mesh_tables(scene, plain)
+    if mode == "spectral":
+        scene = with_emitter_coeffs(scene)
     spp_chunk = _spp_chunk(film_cfg, spp, n_rows, max_lanes)
     accum = None
     for spp0 in range(0, spp, spp_chunk):
@@ -576,8 +655,9 @@ class _Megakernel(torch.autograd.Function):
         ctx.save_for_backward(*leaves)
         scene, sensor = _unflatten(struct, [t.detach() for t in leaves])
         film_cfg, seed, spp = cfg[:3]
-        return direct_rgb_megakernel(scene, sensor, scene.env, seed, spp,
-                                     film_cfg.width, film_cfg.height)
+        return direct_rgb_megakernel(scene, sensor, scene.env,
+                                     key_seed(seed), spp, film_cfg.width,
+                                     film_cfg.height)
 
     @staticmethod
     def backward(ctx, g_accum):
@@ -614,38 +694,43 @@ def _render_impl(scene, sensor, film_cfg, seed, spp, max_depth, rr_depth,
                        sampler_kind=sampler_kind, kinds=kinds)
 
 
-def _pass_seeds(key, passes: int):
-    """The sampler's seed for each pass. `key` is an integer seed, the
+def _pass_keys(key, passes: int):
+    """The sampler's key for each pass. `key` is an integer seed, the
     seed of one pass, or the two uint32 words of the reference package's
     threefry key (`np.asarray(jax.random.key_data(key))`), whose pass p
-    the reference keys on `key_data(fold_in(key, p))[-1]`
-    (`tpusky/render/integrator.py:1103-1108`, `render/sampler.py:133`)."""
+    the reference keys on `fold_in(key, p)` (its seed `key_data(...)[-1]`;
+    `tpusky/render/integrator.py:1103-1108`, `render/sampler.py:133`)."""
     if isinstance(key, (int, np.integer)):
         if passes != 1:
             raise ValueError("render(passes > 1) takes the key's two uint32 "
                              "words, not an integer seed")
         return [int(key)]
     words = np.asarray(key, np.uint32).reshape(2)
-    return [int(fold_in(words, p)[-1]) for p in range(passes)]
+    return [fold_in(words, p) for p in range(passes)]
 
 
 def render(scene: Scene, sensor, film: film_mod.Film, key, spp: int = 16,
            max_depth: int = 2, rr_depth: int = 1000, mode: str = "rgb",
            passes: int = 1, sampler_kind: str = "independent"):
-    """Render an image -> (H, W, 3) linear sRGB, in RGB mode or, with a
-    sunsky state precomputed in spectral mode (or a UniformEnv or no
-    environment), hero-wavelength spectral mode. The arguments bind
-    positionally as the reference package's `render`.
+    """Render an image -> (H, W, C): linear sRGB in RGB mode or, with a
+    sunsky state precomputed in spectral mode (or another environment or
+    none), hero-wavelength spectral mode, developed to sRGB or to a
+    specfilm's channels. The arguments bind positionally as the reference
+    package's `render`; `sampler_kind` is one of `sampler.VALID_KINDS`.
 
     `key` is an integer seed (one pass: the reference's
     `key_data(fold_in(key, 0))[-1]`) or the reference key's two uint32
-    words, with which the image is the reference's lane for lane;
-    `passes` splits spp into passes of spp // passes samples, each keyed
-    on `fold_in(key, pass)`, accumulated in one film. `max_depth` counts
-    vertices excluding the camera (2 = direct illumination)."""
+    words, with which the image is the reference's lane for lane (and
+    which the `threefry` sampler needs); `passes` splits spp into passes
+    of spp // passes samples, each keyed on `fold_in(key, pass)`,
+    accumulated in one film. `max_depth` counts vertices excluding the
+    camera (2 = direct illumination). In spectral mode the RGB emitters
+    are fitted once for all passes."""
     kinds = bsdf_mod.table_kinds(scene.bsdfs)
+    if mode == "spectral":
+        scene = with_emitter_coeffs(scene)
     accum = None
-    for seed in _pass_seeds(key, passes):
+    for seed in _pass_keys(key, passes):
         a = _render_impl(scene, sensor, film, seed, spp // passes, max_depth,
                          rr_depth, mode, sampler_kind, kinds)
         accum = a if accum is None else accum + a
@@ -662,12 +747,15 @@ def render_moments(scene: Scene, sensor, film: film_mod.Film, key,
     The wavefront path's lanes (K2/K3 on the card, K10/K11 in spectral
     mode) are accumulated with their squares into a box film of 2C
     channels, in the spp chunks `render_rows` takes, so the mean is
-    bitwise the developed `render_rows` image at the same seed. `key` as
-    in `render` (one pass: the reference's `render_moments(..., key)`
-    uses `key_data(fold_in(key, 0))[-1]`)."""
-    seed = _pass_seeds(key, 1)[0]
+    bitwise the developed `render_rows` image of a box film at the same
+    seed. As the reference's (`tpusky/render/integrator.py:1036-1070`),
+    it is box-filtered and, in spectral mode, sRGB whatever the film's
+    filter and specfilm. `key` as in `render` (one pass: the reference's
+    `render_moments(..., key)` uses `key_data(fold_in(key, 0))[-1]`)."""
+    seed = _pass_keys(key, 1)[0]
     kinds = bsdf_mod.table_kinds(scene.bsdfs)
     scene = with_mesh_tables(scene, False)
+    film = film._replace(rfilter="box", bands=None, srfs=None)
     n_rows = film_mod.crop_extent(film)[3]
     spp_chunk = _spp_chunk(film, spp, n_rows, 1 << 20)
     c = film.n_channels

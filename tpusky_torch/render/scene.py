@@ -13,7 +13,9 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.rgb2spec import fit_sigmoid_coeffs_torch
 from .bsdf import MaterialTable, make_material_table
+from .emitters import ConstantEnv
 from .mesh import MeshTable, make_mesh_table, mesh_test
 from .shapes import ShapeTable, make_shape_table, ray_test
 
@@ -36,6 +38,22 @@ class Scene(NamedTuple):
     # (Np + Nd + Nspot,) each delta light's sampling weight
     # (`scene.cpp:100-119`); None: uniform
     delta_light_weights: Optional[torch.Tensor] = None
+    # internal: the RGB emitters' rgb2spec coefficients for spectral mode,
+    # set by `with_emitter_coeffs`
+    emitter_coeffs: Optional["EmitterCoeffs"] = None
+
+
+class EmitterCoeffs(NamedTuple):
+    """rgb2spec coefficients (c0, c1, c2, scale) of a scene's RGB
+    emitters, one (N, 4) table a kind (None where the scene has none):
+    every shape's area radiance (where some shape is an area emitter),
+    the point and directional lights and the spot lights. `sources`
+    stamps what they were fitted from (`_emitter_stamp`)."""
+    area: Optional[torch.Tensor]
+    point: Optional[torch.Tensor]
+    directional: Optional[torch.Tensor]
+    spot: Optional[torch.Tensor]
+    sources: tuple = ()
 
 
 def table_len(x) -> int:
@@ -57,6 +75,74 @@ def with_mesh_tables(scene: Scene, plain: bool = False) -> Scene:
         return scene
     from ..ops.cuda.mesh_kernel import mesh_tables
     return scene._replace(mesh_tables=mesh_tables(scene.mesh))
+
+
+def _version(o):
+    """A tensor's version counter, which an in-place change moves; None
+    for anything else and for an inference tensor, which keeps none (so
+    only its replacement is seen)."""
+    if isinstance(o, torch.Tensor) and not o.is_inference():
+        return o._version
+    return None
+
+
+def _emitter_stamp(scene: Scene) -> tuple:
+    """What the emitter fit reads, each object with its `_version`: the
+    area radiance and emitter shapes, the point and directional lights,
+    each spot's intensity, and the environment with a ConstantEnv's
+    radiance."""
+    env = scene.env
+    objs = (scene.area_radiance, scene.area_emitter_shapes,
+            scene.point_lights, scene.directional_lights,
+            *(s.intensity for s in scene.spot_lights), env,
+            env.radiance if isinstance(env, ConstantEnv) else None)
+    return tuple((o, _version(o)) for o in objs)
+
+
+def _coeffs_current(scene: Scene) -> bool:
+    """Whether the scene's coefficients were fitted from its emitters as
+    they stand: the same objects, no tensor changed in place since."""
+    cf = scene.emitter_coeffs
+    if cf is None:
+        return False
+    now = _emitter_stamp(scene)
+    return len(now) == len(cf.sources) and all(
+        a is b and va == vb for (a, va), (b, vb) in zip(now, cf.sources))
+
+
+def with_emitter_coeffs(scene: Scene) -> Scene:
+    """The scene with its RGB emitters' rgb2spec coefficients for a
+    spectral render: every RGB row (area radiance, point, directional and
+    spot intensities, a ConstantEnv's radiance) fitted in one batch, each
+    row alone (`ops/rgb2spec.fit_sigmoid_coeffs_torch`). The scene as it
+    is if its coefficients were fitted from its emitters as they stand;
+    refitted if an emitter tensor was replaced or changed in place since.
+    The reference fits each group inside every trace
+    (`tpusky/render/integrator.py:238-254`)."""
+    if _coeffs_current(scene):
+        return scene
+    env = scene.env
+    fit_env = isinstance(env, ConstantEnv)
+    groups = [scene.area_radiance if table_len(scene.area_emitter_shapes)
+              else None,
+              (None if scene.point_lights is None
+               else scene.point_lights[:, 3:]),
+              (None if scene.directional_lights is None
+               else scene.directional_lights[:, 3:]),
+              (torch.stack([s.intensity.reshape(-1).expand(3)
+                            for s in scene.spot_lights])
+               if scene.spot_lights else None),
+              env.radiance.reshape(1, 3) if fit_env else None]
+    rows = [g for g in groups if g is not None]
+    fitted = iter(fit_sigmoid_coeffs_torch(torch.cat(rows, 0)).split(
+        [r.shape[0] for r in rows], 0) if rows else ())
+    area, point, directional, spot, env_cf = (
+        None if g is None else next(fitted) for g in groups)
+    if fit_env:
+        env = env._replace(coeff=env_cf[0])
+    scene = scene._replace(env=env)
+    return scene._replace(emitter_coeffs=EmitterCoeffs(
+        area, point, directional, spot, _emitter_stamp(scene)))
 
 
 def scene_occluded(scene: Scene, o, d, maxt, plain: bool = False):

@@ -11,6 +11,7 @@ area emitter (`emitter_idx >= 0`), sampled uniformly in area by
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -106,12 +107,19 @@ def _rows(m, v, transpose=False):
             + v[..., 2:3] * a[..., :, 2])
 
 
+@lru_cache(maxsize=None)
+def _kinds_on(kinds: tuple, device: torch.device) -> torch.Tensor:
+    """A table's shape kinds as an int64 tensor on a device, copied once
+    (a render then makes no host-device copy for them)."""
+    return torch.tensor(kinds, dtype=torch.int64, device=device)
+
+
 def sample_position(table: ShapeTable, shape_idx, u2):
     """Uniform-area sample on the lanes' shapes -> (p_world, n_world,
     pdf_area = 1 / area). shape_idx (...,) int64, u2 (..., 2). Rectangle,
     disk, sphere and cylinder; each lane gathers its shape's rows (the
     tables refuse a cube emitter, `check_emitters`)."""
-    kind = torch.tensor(table.kind, device=u2.device)[shape_idx]
+    kind = _kinds_on(tuple(table.kind), u2.device)[shape_idx]
     t2w = table.to_world[shape_idx]
     t2o = table.to_object[shape_idx]
     inv_area = 1.0 / table.area[shape_idx]
