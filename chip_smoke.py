@@ -165,12 +165,27 @@ Phases, each of which raises (exit code != 0) on failure:
    (>= 99.9% of pixels within 1e-3), the fwd+bwd of a 128x128x4 frame to
    the turbidity and the area radiance (K10-K13) against the plain path
    (1e-3), and a spectral envmap of 64x128 texels against the CPU;
-19. one JSON line of kernel results, then the device line, last.
+19. textures and mesh attributes at full width: scene_mesh_gi's
+   geometry (81,920 triangles, 512x512x8, depth 3, the headline sunsky)
+   with a 2048x2048 bitmap on the uv-mapped icosphere, a checkerboard and
+   a 512x512 normal map on a rough-plastic ground, a 64^3 volume texture
+   on a principled sphere and vertex colours through a mesh attribute on
+   a second mesh, through `render` in RGB (K2, K3, K14) and in spectral
+   mode (K10, K11, K14; every texel fitted on the card, held against the
+   host fit): K4 refused, two renders bitwise equal, no synchronisation,
+   every lane within 1e-3 of the plain path with K14's hits on >= 99.9%
+   and a band of rows of the fully plain path too, a crop against the
+   CPU (RGB), the wall time in turns, launches and busy share; then the
+   fwd+bwd at 256x256x4 to the atlas, the checker colours and the
+   turbidity (K5, K6) against the plain path, and `render_aovs` at
+   512x512 through K14 against the plain mesh intersection;
+20. one JSON line of kernel results, then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -3241,6 +3256,371 @@ def spectral_film_phase(dev, card):
     _film_envmap_check(dev)
 
 
+# phase 19: textures and mesh attributes at full width
+TEX_SIZE = 2048             # the icosphere's bitmap, TEX_SIZE^2 texels
+NMAP_SIZE = 512             # the ground's normal map
+VOL_SIZE = 64               # the principled sphere's volume texture
+TEX_TURNS = 2
+TEX_BAND = (240, 16)        # rows held against the fully plain path
+TEX_CROP = (352, 240, 8, 8)         # x0, y0, width, height (CPU check)
+TEX_CROP_SPP = 2
+TEX_GRAD = 256              # the gradient frame: 256x256x4
+TEX_GRAD_SPP = 4
+TEX_AOV = 512               # the AOVs at 512x512
+TEX_FIT_CHECK = 1 << 14     # texels whose device fit is held to the host's
+
+
+def _textured_scene(state, device, spectral=False):
+    """scene_mesh_gi's geometry (`_mesh_scene` at FRAME_SUBDIV) textured:
+    the icosphere with per-vertex spherical uv and a diffuse material
+    under a TEX_SIZE^2 bitmap (repeat), the ground a rough plastic with a
+    checkerboard (`to_uv` x 8) and a NMAP_SIZE^2 normal map, a principled
+    sphere under a VOL_SIZE^3 volume texture, and an icosphere(2) of
+    random vertex colours read through a mesh attribute; texels made
+    from a seed. In spectral mode every texel's coefficients are fitted
+    on `device` when the table is built."""
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    from tpusky_torch.utils.meshio import icosphere
+    rng = np.random.default_rng(19)
+    pos, idx = icosphere(FRAME_SUBDIV)
+    uvs = np.stack([np.arctan2(pos[:, 1], pos[:, 0]) / (2 * np.pi) + 0.5,
+                    np.arccos(np.clip(pos[:, 2], -1, 1)) / np.pi],
+                   -1).astype(np.float32)
+    pos2, idx2 = icosphere(2)
+    cols = rng.uniform(0.1, 0.9, size=(len(pos2), 3)).astype(np.float32)
+    bitmap = rng.uniform(size=(TEX_SIZE, TEX_SIZE, 3)).astype(np.float32)
+    tilt = rng.uniform(-0.15, 0.15, size=(NMAP_SIZE, NMAP_SIZE, 2))
+    nmap = np.concatenate([0.5 + tilt, np.full((NMAP_SIZE, NMAP_SIZE, 1),
+                                               0.95)], -1).astype(np.float32)
+    grid = rng.uniform(size=(VOL_SIZE,) * 3 + (3,)).astype(np.float32)
+
+    def at(scale, xyz):
+        m = np.diag(list(scale) + [1.0]).astype(np.float32)
+        m[:3, 3] = xyz
+        return m
+    textures = [dict(kind="bitmap", data=bitmap, wrap="repeat"),
+                dict(kind="checkerboard", color0=[0.8, 0.7, 0.6],
+                     color1=[0.15, 0.2, 0.3], to_uv=np.diag([8.0, 8.0, 1.0])),
+                dict(kind="bitmap", data=nmap, wrap="repeat"),
+                dict(kind="volume", grid=grid,
+                     to_world=at([1.0] * 3, [1.0, -0.3, 0.0])),
+                dict(kind="mesh_attribute", scale=1.0)]
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=at([10.0, 10.0, 1.0], [0, 0, 0]),
+                     bsdf_idx=0),
+                dict(kind=0, to_world=at([0.5] * 3, [1.5, 0.2, 0.5]),
+                     bsdf_idx=2)],
+        bsdf_albedos=[[0.5] * 3, [0.3, 0.5, 0.7], [0.6, 0.5, 0.4],
+                      [0.5] * 3],
+        bsdf_kinds=[8, 0, 9, 0], bsdf_alphas=[0.25, 0.1, 0.35, 0.1],
+        bsdf_tex_indices=[1, 0, 3, 4], bsdf_normal_tex_indices=[2, -1, -1, -1],
+        textures=textures, spectral_textures=spectral,
+        meshes=[dict(positions=pos, indices=idx, normals=pos.copy(), uvs=uvs,
+                     to_world=at([1.0] * 3, [0, 0, 1.0]), bsdf_idx=1),
+                dict(positions=pos2, indices=idx2, normals=pos2.copy(),
+                     colors=cols, to_world=at([0.4] * 3, [-1.3, -1.0, 0.4]),
+                     bsdf_idx=3)], env=state, device=device)
+    sensor = make_perspective([3.5, -3.5, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+@contextlib.contextmanager
+def _k14_as_plain_mesh(tables):
+    """The plain path with K14's hits: inside, the plain version's mesh
+    queries run K14 (with the wavefront sort), whose hits are the plain
+    version's exactly (phase 9; `_textured_frame`'s band), so a full
+    textured frame is held against the plain sunsky and texture path
+    without the dense plain intersection (17 s a million rays)."""
+    import torch
+    from tpusky_torch.render import mesh as TM
+    saved = TM._closest_plain, TM._occluded_plain
+    closest = TM._closest
+
+    def closest_k14(mesh, o, d):
+        return closest(mesh, o, d, False, tables)
+
+    def occluded_k14(mesh, o, d, maxt):
+        t, _, _, tri = closest(mesh, o, d, False, tables)
+        return torch.isfinite(t) & (tri >= 0) & (t < maxt)
+    TM._closest_plain, TM._occluded_plain = closest_k14, occluded_k14
+    try:
+        yield
+    finally:
+        TM._closest_plain, TM._occluded_plain = saved
+
+
+def _textured_frame(label, scene, sensor, mode, card, crop=None):
+    """The textured frame (H x W x SPP, depth MESH_DEPTH) through render()
+    in `mode`: the mode's sunsky kernels and K14 launch, K4 not; two calls
+    bitwise equal; no synchronisation; all its lanes within 1e-3 of the
+    plain path with K14's hits (`_k14_as_plain_mesh`) on >= 99.9%, and
+    the TEX_BAND rows of the fully plain path (the dense mesh
+    intersection) too; render()'s wall time in turns with that plain
+    path's, the launches and the busy share; with `crop` (a CPU scene
+    and sensor), a TEX_CROP crop against the CPU's plain render."""
+    import torch
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.scene import with_mesh_tables
+    film = Film(H, W, 3)
+    kinds = B.table_kinds(scene.bsdfs)
+    scene_k = with_mesh_tables(scene)
+    sky = (("sunsky_hit_rgb", "sunsky_nee_rgb") if mode == "rgb"
+           else ("sunsky_hit_spec", "sunsky_nee_spec"))
+    focus = ((("K2", "hit_kernel"), ("K3", "nee_kernel")) if mode == "rgb"
+             else (("K10", "hit_spec_kernel"), ("K11", "nee_spec_kernel")))
+
+    def frame():
+        return integrator.render(scene, sensor, film, SEED, spp=SPP,
+                                 max_depth=MESH_DEPTH, mode=mode)
+
+    def plain_frame():
+        with _k14_as_plain_mesh(scene_k.mesh_tables):
+            return integrator.render_rows(
+                scene, sensor, film, SEED, SPP, MESH_DEPTH, 1000, mode, 0,
+                H, kinds=kinds, plain=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    print(f"{label}: {time.perf_counter() - t0:.2f} s (first call), kinds "
+          f"{kinds}, launches {launches}")
+    _require(launches, sky + ("mesh_intersect",), f"the {label}")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError(f"the {label} went through K4")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError(f"{label}: image not finite, shaped or lit")
+    if not torch.equal(frame(), img):
+        raise AssertionError(f"two render() calls of the {label} differ")
+    _no_sync(frame, f"the {label}'s render()")
+    with torch.no_grad():
+        lanes_k = integrator._lane_radiance(
+            scene_k, sensor, film, SEED, SPP, 0, SPP, MESH_DEPTH, 1000, mode,
+            0, H, kinds=kinds)
+        with _k14_as_plain_mesh(scene_k.mesh_tables):
+            lanes_p = integrator._lane_radiance(
+                scene, sensor, film, SEED, SPP, 0, SPP, MESH_DEPTH, 1000,
+                mode, 0, H, kinds=kinds, plain=True)
+        share, worst = _lanes_share(lanes_k, lanes_p)
+        row0, n_rows = TEX_BAND
+        band = slice(row0 * W * SPP, (row0 + n_rows) * W * SPP)
+        band_p = integrator._lane_radiance(
+            scene, sensor, film, SEED, SPP, 0, SPP, MESH_DEPTH, 1000, mode,
+            row0, n_rows, kinds=kinds, plain=True)
+        band_share, band_worst = _lanes_share(lanes_k[band], band_p)
+    print(f"check {label} lanes: {share:.2e} of {lanes_p.shape[0]} lanes "
+          f"outside 1e-3 of the plain path with K14's hits (bar 1e-3), max "
+          f"{worst:.3e}; rows {row0}-{row0 + n_rows} against the fully "
+          f"plain path (dense mesh): {band_share:.2e} of {band_p.shape[0]} "
+          f"outside, max {band_worst:.3e}; two render() calls bitwise "
+          f"equal; image mean {float(img.mean()):.5f} max "
+          f"{float(img.max()):.3f}")
+    if not (share <= 1e-3 and band_share <= 1e-3):
+        raise AssertionError(f"the {label} disagrees with the plain path")
+    del lanes_k, lanes_p, band_p
+    if crop is not None:
+        x0, y0, cw, ch = TEX_CROP
+        cfilm = Film(H, W, 3, crop_offset=(x0, y0), crop_size=(cw, ch))
+        img_k = integrator.render(scene, sensor, cfilm, SEED,
+                                  spp=TEX_CROP_SPP, max_depth=MESH_DEPTH,
+                                  mode=mode).cpu()
+        t0 = time.perf_counter()
+        img_c = integrator.render(*crop, cfilm, SEED, spp=TEX_CROP_SPP,
+                                  max_depth=MESH_DEPTH, mode=mode)
+        share_c, worst_c = _lanes_share(img_k.reshape(-1, 3),
+                                        img_c.reshape(-1, 3))
+        print(f"check {label} vs CPU plain, crop {TEX_CROP} at "
+              f"{TEX_CROP_SPP} spp: {share_c:.2e} of pixels outside 1e-3 "
+              f"(bar 1e-3), max {worst_c:.3e} (the CPU took "
+              f"{time.perf_counter() - t0:.1f} s)")
+        if not (share_c <= 1e-3 and float(img_c.max()) > 0):
+            raise AssertionError(f"the {label} disagrees with the CPU")
+    plain_frame()
+    ms, plain_ms, runs, plain_runs = _turns(frame, plain_frame, TEX_TURNS)
+    busy = _profile_window(label, frame, card, iters=1,
+                           focus=(("K14", "mesh_isect_kernel"),) + focus)
+    print(f"time {label} ({W}x{H}x{SPP}, depth {MESH_DEPTH}, "
+          f"{int(scene.mesh.valid.sum())} triangles, {mode}): render() "
+          f"{ms:.3f} ms (runs {', '.join(f'{t:.2f}' for t in runs)}), plain "
+          f"path with K14's hits {plain_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in plain_runs)}), in turns; "
+          f"{launches[sky[0]]} {sky[0]}, {launches[sky[1]]} {sky[1]} and "
+          f"{launches['mesh_intersect']} K14 launches a render(); device "
+          f"busy {100 * busy:.1f}% [{card}]")
+
+
+def _texel_fit_check(dev, card):
+    """The spectral table's texel fit on the card (`fit_sigmoid_coeffs_f64`,
+    the host rule) against the host fit (`fit_sigmoid_coeffs`) on
+    TEX_FIT_CHECK of the bitmap's texels: spectra within 1e-6; its wall
+    time on the card for the whole 2048^2 bitmap."""
+    import torch
+    from tpusky_torch.ops.rgb2spec import (eval_sigmoid_spectrum,
+                                           fit_sigmoid_coeffs,
+                                           fit_sigmoid_coeffs_f64)
+    rgb = np.random.default_rng(19).uniform(
+        size=(TEX_SIZE * TEX_SIZE, 3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_c = fit_sigmoid_coeffs_f64(torch.tensor(rgb, device=dev))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = fit_sigmoid_coeffs(rgb[:TEX_FIT_CHECK])
+    host_s = time.perf_counter() - t0
+    wl = np.linspace(360.0, 830.0, 95)
+    err = np.abs(eval_sigmoid_spectrum(host, wl) - eval_sigmoid_spectrum(
+        dev_c[:TEX_FIT_CHECK].cpu().numpy(), wl)).max()
+    print(f"check texel fit on the card vs the host fit, {TEX_FIT_CHECK} "
+          f"texels: spectra within {err:.2e} (bar 1e-6); time {TEX_SIZE}^2 "
+          f"texels on the card {1e3 * fit_s:.1f} ms, the host fit "
+          f"{1e3 * host_s:.1f} ms for {TEX_FIT_CHECK} [{card}]")
+    if not err <= 1e-6:
+        raise AssertionError("the texel fit on the card disagrees with the "
+                             "host fit")
+
+
+def _textured_grad_check(dev, card):
+    """fwd+bwd of the textured frame at TEX_GRAD^2 x TEX_GRAD_SPP, depth
+    MESH_DEPTH, mean(img^2) to the 2048^2 atlas, the checker's colours
+    and the turbidity (through precompute, so the sky's adjoints run):
+    K2, K3, K5, K6 and K14 launch; each gradient of the kernel path within
+    1e-3 of the plain path's (with K14's hits, which has no adjoint)
+    scale."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky.model import precompute
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film, develop
+    from tpusky_torch.render.scene import with_mesh_tables
+    tables = tt.load_tables("rgb", device=dev)
+    scene, sensor = _textured_scene(None, dev)
+    scene = with_mesh_tables(scene)
+    film = Film(TEX_GRAD, TEX_GRAD, 3)
+    kinds = B.table_kinds(scene.bsdfs)
+    names = ("atlas", "color0", "color1", "turbidity")
+
+    def case(plain):
+        leaves = [getattr(scene.textures, f).clone().requires_grad_()
+                  for f in names[:3]]
+        t = torch.tensor(3.0, device=dev, requires_grad=True)
+        p = tt.make_params(turbidity=t, albedo=0.3, sun_direction=SUN,
+                           device=dev)
+        sc = scene._replace(env=precompute(tables, p), textures=(
+            scene.textures._replace(**dict(zip(names, leaves)))))
+        img = develop(integrator.render_rows(
+            sc, sensor, film, SEED, TEX_GRAD_SPP, MESH_DEPTH, 1000, "rgb",
+            0, TEX_GRAD, kinds=kinds, plain=plain))
+        return torch.autograd.grad((img ** 2).mean(), leaves + [t])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads_k, launches = _counted(lambda: case(False))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb", "mesh_intersect",
+                        "sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd"),
+             "the textured frame's gradient")
+    t0 = time.perf_counter()
+    with _k14_as_plain_mesh(scene.mesh_tables):
+        grads_p = case(True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for name, a, b in zip(names, grads_k, grads_p):
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0):
+            raise AssertionError(f"textured gradient d{name}: zero or not "
+                                 "finite")
+        _check_scale(f"textured frame gradient d{name} ({TEX_GRAD}x"
+                     f"{TEX_GRAD}x{TEX_GRAD_SPP}, depth {MESH_DEPTH}): "
+                     "kernels vs plain on the card", a, b, 1e-3)
+    print(f"time textured frame fwd+bwd ({TEX_GRAD}x{TEX_GRAD}x"
+          f"{TEX_GRAD_SPP}, depth {MESH_DEPTH}, to the atlas, the checker "
+          f"colours and the turbidity, precompute included; one call "
+          f"each, the host clock): kernels {ms:.2f} ms, plain with K14's "
+          f"hits {plain_ms:.2f} ms; launches {launches} [{card}]")
+
+
+def _textured_aov_check(dev, card):
+    """`render_aovs` of the textured scene at TEX_AOV^2 through K14
+    against the plain mesh intersection: prim_index equal but on lanes
+    whose two hits tie in t (counted), every other channel within 1e-5 of
+    its scale; K14 launches once."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.render.aov import render_aovs
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
+    scene, sensor = _textured_scene(state, dev)
+    out_k, launches = _counted(lambda: render_aovs(scene, sensor, TEX_AOV,
+                                                   TEX_AOV))
+    if launches["mesh_intersect"] != 1:
+        raise AssertionError(f"render_aovs launched K14 "
+                             f"{launches['mesh_intersect']} times, not once")
+    t0 = time.perf_counter()
+    out_p = render_aovs(scene, sensor, TEX_AOV, TEX_AOV, plain=True)
+    plain_s = time.perf_counter() - t0
+    differ = out_k["prim_index"] != out_p["prim_index"]
+    ties = differ & (out_k["depth"] == out_p["depth"])
+    n_differ, n_ties = int(differ.sum()), int(ties.sum())
+    errs = {k: _scale_err(out_k[k].float(), out_p[k].float())
+            for k in ("depth", "position", "uv", "normal", "sh_normal",
+                      "geo_normal", "albedo")}
+    mesh_share = float((out_k["shape_idx"] == -2).float().mean())
+    same_shape = bool(torch.equal(out_k["shape_idx"], out_p["shape_idx"]))
+    print(f"check render_aovs {TEX_AOV}x{TEX_AOV}, K14 vs plain: prim_index "
+          f"differs on {n_differ} lanes, {n_ties} of them ties in t; "
+          f"shape_idx equal {same_shape}; "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" of scale (bar 1e-5); {mesh_share:.3f} of the pixels on the "
+          f"mesh; the plain version took {plain_s:.1f} s [{card}]")
+    if n_differ != n_ties or n_ties > 1e-4 * TEX_AOV * TEX_AOV:
+        raise AssertionError("render_aovs: K14's primitives disagree")
+    if not (all(v <= 1e-5 for v in errs.values()) and mesh_share > 0.05
+            and same_shape):
+        raise AssertionError("render_aovs: K14's channels disagree")
+    ms = _time_ms(lambda: render_aovs(scene, sensor, TEX_AOV, TEX_AOV), 3,
+                  1)
+    print(f"time render_aovs {TEX_AOV}x{TEX_AOV} (K14): {ms:.3f} ms "
+          f"[{card}]")
+
+
+def textured_frame_phase(dev, card):
+    """Phase 19: the textured frame at full width, RGB and spectral, its
+    gradient and its AOVs (see the module docstring)."""
+    import torch
+    import tpusky_torch as tt
+    t_phase = time.perf_counter()
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
+    scene, sensor = _textured_scene(state, dev)
+    crop = _textured_scene(tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device="cpu")), "cpu")
+    _textured_frame("textured frame", scene, sensor, "rgb", card, crop=crop)
+    del scene, crop
+    print(f"phase 19 RGB frame: {time.perf_counter() - t_phase:.1f} s")
+
+    state_s = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, mode="spectral",
+        device=dev), mode="spectral")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene_s, sensor = _textured_scene(state_s, dev, spectral=True)
+    torch.cuda.synchronize()
+    print(f"time textured spectral scene build ({TEX_SIZE}^2 + "
+          f"{NMAP_SIZE}^2 + {VOL_SIZE}^3 texels fitted on the card): "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    _texel_fit_check(dev, card)
+    _textured_frame("textured spectral frame", scene_s, sensor, "spectral",
+                    card)
+    del scene_s
+    _textured_grad_check(dev, card)
+    _textured_aov_check(dev, card)
+
+
 START = time.perf_counter()
 
 
@@ -3759,7 +4139,12 @@ def main():
     spectral_film_phase(dev, card)
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 19. bounds and results ----
+    # ---- 19. textures and mesh attributes ----
+    t0 = time.perf_counter()
+    textured_frame_phase(dev, card)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 20. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))

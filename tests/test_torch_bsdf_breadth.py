@@ -150,7 +150,8 @@ def test_tables_refusals_and_convert():
     """`convert.material_table` carries every column of the reference's
     table, equal to the port's own `make_material_table` (the host copies
     of the kinds and the mask flag included); kinds 11-14, 16, 17 and 18
-    and textured materials raise, naming the module they wait for."""
+    raise, naming the module they wait for; a textured material carries
+    its texture and normal-map columns over (render/texture.py)."""
     cols = _columns(True)
     jt = JB.make_material_table(**cols)
     tt = TB.make_material_table(device="cpu", **cols)
@@ -169,6 +170,16 @@ def test_tables_refusals_and_convert():
         with pytest.raises(NotImplementedError, match=module):
             convert.material_table(jax.tree.map(np.asarray, jt._replace(
                 kind=jt.kind.at[0].set(kind))), device="cpu")
-    with pytest.raises(NotImplementedError, match="texture"):
-        convert.material_table(jax.tree.map(np.asarray, jt._replace(
-            tex_idx=jt.tex_idx.at[0].set(0))), device="cpu")
+    m = jt.kind.shape[0]
+    tex, nrm = np.full(m, -1), np.full(m, -1)
+    tex[0], nrm[-1] = 0, 1
+    textured = convert.material_table(jax.tree.map(np.asarray, jt._replace(
+        tex_idx=jnp.asarray(tex, jnp.int32),
+        normal_tex_idx=jnp.asarray(nrm, jnp.int32))), device="cpu")
+    own = TB.make_material_table(device="cpu", tex_indices=tex,
+                                 normal_tex_indices=nrm, **cols)
+    assert textured.tex_idx.tolist() == own.tex_idx.tolist() == tex.tolist()
+    assert (textured.normal_tex_idx.tolist() == own.normal_tex_idx.tolist()
+            == nrm.tolist())
+    assert textured.host_normal_maps and own.host_normal_maps
+    assert not tt.host_normal_maps and TB.table_normal_maps(textured)

@@ -7,8 +7,7 @@ and returns the port's counterpart as float32/int64 tensors on `device`
 Nothing here imports jax or tpusky: the objects are read by field name
 (and an environment by its type's name). Parts the port does not have
 yet raise NotImplementedError: the polarized, hair and measured material
-kinds, textures, media, SDFs, curves and an area emitter on a cube
-(R8).
+kinds, media, SDFs, curves and an area emitter on a cube (R8).
 """
 
 from __future__ import annotations
@@ -27,6 +26,9 @@ from .render.scene import Scene
 from .render import sensors as sensors_mod
 from .render.sensors import Perspective
 from .render.shapes import KINDS, ShapeTable, check_emitters
+from .render.texture import TextureTable
+
+_TEXTURE_INTS = ("kind", "wrap", "offset", "width", "height", "depth")
 
 
 _SENSORS = {k.__name__: k for k in (
@@ -100,11 +102,11 @@ def material_table(t, device="cuda") -> MaterialTable:
     int64."""
     kinds = np.asarray(t.kind)
     check_kinds(kinds)
-    for field in ("tex_idx", "normal_tex_idx"):
-        idx = getattr(t, field)
-        if idx is not None and (np.asarray(idx) >= 0).any():
-            raise NotImplementedError("textured materials need "
-                                      "render/texture.py, not ported yet")
+    m = kinds.shape[0]
+
+    def column(idx):
+        return np.full((m,), -1) if idx is None else np.asarray(idx)
+    tex_idx, nrm_idx = column(t.tex_idx), column(t.normal_tex_idx)
     opacity = np.asarray(t.opacity, np.float32)
     return MaterialTable(_i64(kinds, device), _f32(t.albedo, device),
                          torch.tensor(np.asarray(t.twosided, bool),
@@ -115,7 +117,17 @@ def material_table(t, device="cuda") -> MaterialTable:
                          _i64(t.blend_a, device), _i64(t.blend_b, device),
                          _f32(t.blend_w, device),
                          tuple(int(k) for k in kinds),
-                         bool((opacity < 1.0).any()))
+                         bool((opacity < 1.0).any()), _i64(tex_idx, device),
+                         _i64(nrm_idx, device), bool((nrm_idx >= 0).any()))
+
+
+def texture_table(t, device="cuda") -> TextureTable:
+    """A `tpusky` TextureTable -> TextureTable (indices as int64), its
+    spectral coefficients as the reference fitted them."""
+    return TextureTable(*(
+        (_i64 if f in _TEXTURE_INTS else _f32)(getattr(t, f), device)
+        for f in TextureTable._fields[:-1]),
+        tuple(int(k) for k in np.asarray(t.kind)))
 
 
 def mesh_table(m, device="cuda") -> MeshTable:
@@ -159,11 +171,11 @@ def spot_light(light, device="cuda") -> SpotLight:
 
 def scene(sc, device="cuda") -> Scene:
     """A `tpusky` Scene of analytic shapes, triangle meshes, the ported
-    materials, a sunsky, constant, uniform, envmap or no environment and
-    area, point, directional and spot emitters -> Scene. Where no shape
-    emits and none is an emitter, `area_radiance` is None; empty light
-    tables are None."""
-    for field in ("textures", "medium", "sdf", "curve"):
+    materials and their textures, a sunsky, constant, uniform, envmap or
+    no environment and area, point, directional and spot emitters ->
+    Scene. Where no shape emits and none is an emitter, `area_radiance`
+    is None; empty light tables are None."""
+    for field in ("medium", "sdf", "curve"):
         if getattr(sc, field) is not None:
             raise NotImplementedError(f"scene.{field}")
 
@@ -183,7 +195,9 @@ def scene(sc, device="cuda") -> Scene:
                  rows(sc.point_lights), rows(sc.directional_lights),
                  tuple(spot_light(s, device) for s in sc.spot_lights),
                  (None if sc.delta_light_weights is None
-                  else _f32(sc.delta_light_weights, device)))
+                  else _f32(sc.delta_light_weights, device)),
+                 (None if sc.textures is None
+                  else texture_table(sc.textures, device)))
 
 
 def perspective(s, device="cuda") -> Perspective:

@@ -98,6 +98,43 @@ def fit_sigmoid_coeffs(rgb, iters: int = 64):
     return c
 
 
+def fit_sigmoid_coeffs_f64(rgb, iters: int = 64, chunk: int = 1 << 20):
+    """`fit_sigmoid_coeffs` on a float64 tensor (M, 3) on its device ->
+    (M, 3) float64: the host fit's rule step for step (a flat start,
+    per-row Levenberg-Marquardt damping and accept test, `iters`
+    iterations, the stop once every row's error is below 1e-16), over
+    chunks of `chunk` rows, each with its own stop. For texture tables at
+    build time: it reads the stop on the host once an iteration."""
+    a_np, basis_np, _ = _solver_tables()
+    a = torch.tensor(a_np, dtype=torch.float64, device=rgb.device)
+    basis = torch.tensor(basis_np, dtype=torch.float64, device=rgb.device)
+    eye = torch.eye(3, dtype=torch.float64, device=rgb.device)
+    out = []
+    for target in rgb.reshape(-1, 3).split(chunk):
+        m = target.mean(-1).clamp(1e-4, 1.0 - 1e-4)
+        t0 = (2.0 * m - 1.0) / torch.sqrt(
+            (1.0 - (2.0 * m - 1.0) ** 2).clamp(min=1e-12))
+        c = torch.cat([torch.zeros_like(target[:, :2]), t0[:, None]], -1)
+        lm = torch.full_like(m, 1e-4)
+        for _ in range(iters):
+            p = c @ basis.T
+            r = _sig(p) @ a.T - target
+            err = (r * r).sum(-1)
+            jac = (a[None] * _dsig(p)[:, None, :]) @ basis
+            jtj = jac.transpose(1, 2) @ jac + lm[:, None, None] * eye
+            jtr = (jac * r[..., None]).sum(1)
+            c_new = c - torch.linalg.solve_ex(jtj, jtr[..., None])[0][..., 0]
+            r_new = _sig(c_new @ basis.T) @ a.T - target
+            err_new = (r_new * r_new).sum(-1)
+            improved = err_new <= err
+            c = torch.where(improved[:, None], c_new, c)
+            lm = torch.where(improved, lm * 0.5, lm * 4.0)
+            if bool(err_new.max() < 1e-16):
+                break
+        out.append(c)
+    return torch.cat(out, 0) if out else rgb.new_zeros((0, 3))
+
+
 def eval_sigmoid_spectrum(coeffs, wavelengths):
     """Fitted spectra (M, 3) at `wavelengths` (nm), on the host ->
     (M, W)."""

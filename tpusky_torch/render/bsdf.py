@@ -29,10 +29,15 @@ Kinds (the reference package's numbering):
                     spec_tint, -, -]
 
 Every row also carries an `opacity`: a lane passes through unscattered
-with probability 1 - opacity (the flattened `mask.cpp`). Kinds 11-14
-(polarized) wait for `render/polarized.py`, 16 (hair) for
-`render/curve.py`, 17 and 18 (measured) for `render/measured.py`, and
-textures for `render/texture.py`: they raise.
+with probability 1 - opacity (the flattened `mask.cpp`), and may carry a
+reflectance texture (`tex_idx`) and a normal map (`normal_tex_idx`) into
+the scene's `render/texture.py` table (-1: none). The integrator
+evaluates the texture once a vertex and hands it to every query there as
+`refl_tex`, which replaces the reflectance of the Lambertian lobe of
+kinds 0, 4, 8, 9 and of kind 15 (the reference's `_apply_tex`), not a
+conductor's tint. Kinds 11-14 (polarized) wait for
+`render/polarized.py`, 16 (hair) for `render/curve.py`, 17 and 18
+(measured) for `render/measured.py`: they raise.
 
 Kinds 0-2, 4, 8 and 9 sit behind the `twosided.cpp` adapter; the
 dielectrics, null and principledthin are two-sided by construction and
@@ -96,6 +101,10 @@ class MaterialTable(NamedTuple):
     # (`table_kinds`) never waits for the device
     host_kind: Optional[tuple] = None
     host_mask: Optional[bool] = None
+    tex_idx: Optional[torch.Tensor] = None         # (M,) int64, -1: none
+    normal_tex_idx: Optional[torch.Tensor] = None  # (M,) int64, -1: none
+    # whether any row has a normal map, on the host (`table_normal_maps`)
+    host_normal_maps: Optional[bool] = None
 
 
 def check_kinds(kinds):
@@ -113,12 +122,13 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
                         twosided=None, spectral_albedos=None, alphas=None,
                         etas=None, ks=None, iors=None, opacities=None,
                         extras=None, blend_children=None, blend_weights=None,
+                        tex_indices=None, normal_tex_indices=None,
                         device="cuda") -> MaterialTable:
     """Host-side description -> table, with the reference package's
     defaults: the spectral albedo repeats the RGB mean, alpha 0.1, a
     gold-like conductor IOR, a dielectric IOR of 1.5046, opacity 1,
     `extra` [0, 0.5, 0, 0, 0, 0, 0, 0], blend children (0, 0) of weight
-    0."""
+    0, no texture and no normal map (-1)."""
     a = np.atleast_2d(np.asarray(albedos, np.float32))
     m = a.shape[0]
     kinds = (np.zeros((m,), np.int64) if kinds is None
@@ -145,6 +155,11 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
                       else np.asarray(blend_children, np.int64).reshape(m, 2))
     blend_weights = (np.zeros((m,), np.float32) if blend_weights is None
                      else np.asarray(blend_weights, np.float32))
+    tex_indices = (np.full((m,), -1, np.int64) if tex_indices is None
+                   else np.asarray(tex_indices, np.int64))
+    normal_tex_indices = (np.full((m,), -1, np.int64)
+                          if normal_tex_indices is None
+                          else np.asarray(normal_tex_indices, np.int64))
 
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
@@ -156,7 +171,9 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
                          f32(ks), f32(iors), f32(opacities), f32(extras),
                          i64(blend_children[:, 0]), i64(blend_children[:, 1]),
                          f32(blend_weights), tuple(int(k) for k in kinds),
-                         bool((opacities < 1.0).any()))
+                         bool((opacities < 1.0).any()), i64(tex_indices),
+                         i64(normal_tex_indices),
+                         bool((normal_tex_indices >= 0).any()))
 
 
 def make_diffuse_table(albedos, twosided=None,
@@ -181,12 +198,32 @@ def table_kinds(table: MaterialTable):
     return tuple(sorted(set(int(k) for k in ks))), mask
 
 
-def _reflectance(table: MaterialTable, mat_idx, wavelengths):
-    """Per-lane reflectance: (..., 3) RGB, or (..., W) at the hero
-    wavelengths, the 11-channel spectrum lerped and clamped to its ends."""
-    if wavelengths is None:
-        return table.albedo[mat_idx]
-    spec = table.albedo_spec[mat_idx]                       # (..., 11)
+def table_normal_maps(table: MaterialTable) -> bool:
+    """Whether any row carries a normal map, from the table's host flag
+    (or from `normal_tex_idx` itself where it lies on the CPU)."""
+    if table.host_normal_maps is not None:
+        return table.host_normal_maps
+    if table.normal_tex_idx is None:
+        return False
+    if table.normal_tex_idx.device.type != "cpu":
+        raise ValueError("table_normal_maps: the table has no host flag "
+                         "(build it with make_material_table or pass "
+                         "host_normal_maps)")
+    return bool((table.normal_tex_idx >= 0).any())
+
+
+def _apply_tex(albedo, refl_tex):
+    """The textured reflectance where a lane has a texture: refl_tex is
+    None or (value (..., C), has (...,)) from `texture.eval_texture`."""
+    if refl_tex is None:
+        return albedo
+    val, has = refl_tex
+    return torch.where(has[..., None], val, albedo)
+
+
+def spec_lerp(spec, wavelengths):
+    """Spectra (..., 11) on the 320..720 nm grid at (..., W) wavelengths
+    -> (..., W), lerped and clamped to the grid's ends."""
     norm = ((wavelengths - 320.0) / 40.0).clamp(0.0, 10.0)
     lo = torch.floor(norm).long().clamp(0, 9)
     t = norm - lo
@@ -195,6 +232,14 @@ def _reflectance(table: MaterialTable, mat_idx, wavelengths):
     lo = lo.expand(batch + lo.shape[-1:])
     return ((1.0 - t) * torch.gather(spec, -1, lo)
             + t * torch.gather(spec, -1, lo + 1))
+
+
+def _reflectance(table: MaterialTable, mat_idx, wavelengths):
+    """Per-lane reflectance: (..., 3) RGB, or (..., W) at the hero
+    wavelengths, the 11-channel spectrum lerped (`spec_lerp`)."""
+    if wavelengths is None:
+        return table.albedo[mat_idx]
+    return spec_lerp(table.albedo_spec[mat_idx], wavelengths)
 
 
 # ---------------------------------------------------------------------------
@@ -536,27 +581,28 @@ def _blend(table, mat_idx):
 
 
 def eval_pdf(table: MaterialTable, mat_idx, wi, wo, wavelengths=None,
-             kinds=None):
+             kinds=None, refl_tex=None):
     """(f * cos(theta_o) (..., C), pdf (...,)) of the lanes' materials, C
     = 3 or W; 0 for the delta lobes. `kinds` is `table_kinds(table)`
     (read here when None). A blend row evaluates both children and lerps
-    them by `blend_w` (`tpusky/render/bsdf.py:892-915`)."""
+    them by `blend_w` (`tpusky/render/bsdf.py:892-915`), both with the
+    vertex's `refl_tex`."""
     present, any_mask = table_kinds(table) if kinds is None else kinds
     check_kinds(present)
     if BLEND not in present:
         return _eval_pdf_core(table, mat_idx, wi, wo, wavelengths, present,
-                              any_mask)
+                              any_mask, refl_tex)
     _, w, idx_a, idx_b = _blend(table, mat_idx)
     va, pa = _eval_pdf_core(table, idx_a, wi, wo, wavelengths, present,
-                            any_mask)
+                            any_mask, refl_tex)
     vb, pb = _eval_pdf_core(table, idx_b, wi, wo, wavelengths, present,
-                            any_mask)
+                            any_mask, refl_tex)
     return ((1.0 - w)[..., None] * va + w[..., None] * vb,
             (1.0 - w) * pa + w * pb)
 
 
 def sample(table: MaterialTable, mat_idx, wi, sample2, sample1,
-           wavelengths=None, kinds=None):
+           wavelengths=None, kinds=None, refl_tex=None):
     """Sample an outgoing direction -> (wo, weight = f cos / pdf, pdf,
     is_delta). `sample1` picks among discrete lobes and the mask's
     pass-through. A blend row samples child b with probability `blend_w`
@@ -567,7 +613,7 @@ def sample(table: MaterialTable, mat_idx, wi, sample2, sample1,
     check_kinds(present)
     if BLEND not in present:
         return _sample_core(table, mat_idx, wi, sample2, sample1,
-                            wavelengths, present, any_mask)
+                            wavelengths, present, any_mask, refl_tex)
     is_blend, w, idx_a, idx_b = _blend(table, mat_idx)
     pick_b = is_blend & (sample1 < w)
     s1 = torch.where(pick_b, sample1 / w.clamp(min=1e-6),
@@ -576,9 +622,10 @@ def sample(table: MaterialTable, mat_idx, wi, sample2, sample1,
     idx_sel = torch.where(pick_b, idx_b, idx_a)
     idx_oth = torch.where(pick_b, idx_a, idx_b)
     wo, wt, pdf, is_delta = _sample_core(table, idx_sel, wi, sample2, s1,
-                                         wavelengths, present, any_mask)
+                                         wavelengths, present, any_mask,
+                                         refl_tex)
     v_oth, p_oth = _eval_pdf_core(table, idx_oth, wi, wo, wavelengths,
-                                  present, any_mask)
+                                  present, any_mask, refl_tex)
     w_sel = torch.where(pick_b, w, 1.0 - w)
     w_oth = 1.0 - w_sel
     num = w_sel[..., None] * wt * pdf[..., None] + w_oth[..., None] * v_oth
@@ -590,7 +637,7 @@ def sample(table: MaterialTable, mat_idx, wi, sample2, sample1,
 
 
 def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
-                   present, any_mask):
+                   present, any_mask, refl_tex):
     """`eval_pdf` of non-blend rows (`_eval_pdf_core` of the reference
     package): the lobes of the kinds in `present`, each selected per lane
     by kind, then the mask's opacity."""
@@ -605,6 +652,8 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
                         device=wi.device)
     pdf = torch.zeros(cos_i.shape, device=wi.device)
     refl = _reflectance(table, mat_idx, wavelengths)
+    # the Lambertian reflectance, textured; a conductor's tint is not
+    albedo = _apply_tex(refl, refl_tex)
     if any(k in present for k in (PLASTIC, ROUGH_DIELECTRIC,
                                   ROUGH_PLASTIC)):
         ior = table.ior[mat_idx]
@@ -612,7 +661,7 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
     if DIFFUSE in present:
         diff_pdf = warp.INV_PI * cos_o.clamp(min=0.0)
         is_diff = kind == DIFFUSE
-        value = _select(is_diff, refl * diff_pdf[..., None], value)
+        value = _select(is_diff, albedo * diff_pdf[..., None], value)
         pdf = _select(is_diff, diff_pdf, pdf)
 
     if ROUGH_CONDUCTOR in present:
@@ -631,14 +680,14 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
         pdf = _select(is_rough, rough_pdf, pdf)
 
     if ROUGH_PLASTIC in present:
-        rp_val, rp_pdf = _rough_plastic_eval(refl, table.alpha[mat_idx], ior,
-                                             wi_l, wo_l)
+        rp_val, rp_pdf = _rough_plastic_eval(albedo, table.alpha[mat_idx],
+                                             ior, wi_l, wo_l)
         is_rp = kind == ROUGH_PLASTIC
         value = _select(is_rp, rp_val, value)
         pdf = _select(is_rp, rp_pdf, pdf)
 
     if PRINCIPLED in present:
-        pr_val, pr_pdf = _principled_eval(refl, table.alpha[mat_idx],
+        pr_val, pr_pdf = _principled_eval(albedo, table.alpha[mat_idx],
                                           table.extra[mat_idx], wi_l, wo_l)
         is_pr = kind == PRINCIPLED
         value = _select(is_pr, pr_val, value)
@@ -651,7 +700,7 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
         f_o, _, _ = fresnel_dielectric(cos_o.clamp(min=0.0), ior)
         pl_pdf = (1.0 - f_i) * warp.INV_PI * cos_o.clamp(min=0.0)
         is_pl = kind == PLASTIC
-        value = _select(is_pl, _plastic_base(refl, ior, f_o)
+        value = _select(is_pl, _plastic_base(albedo, ior, f_o)
                         * pl_pdf[..., None], value)
         pdf = _select(is_pl, pl_pdf, pdf)
 
@@ -695,7 +744,7 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
 
     if PRINCIPLED_THIN in present:
         pt_val, pt_pdf = _principledthin_eval(
-            refl, table.alpha[mat_idx], table.ior[mat_idx],
+            albedo, table.alpha[mat_idx], table.ior[mat_idx],
             table.extra[mat_idx], wi, wo)
         is_pt = kind == PRINCIPLED_THIN
         value = _select(is_pt, pt_val, value)
@@ -710,7 +759,7 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
 
 
 def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
-                 wavelengths, present, any_mask):
+                 wavelengths, present, any_mask, refl_tex):
     """`sample` of non-blend rows (`_sample_core` of the reference
     package). The two-sided adapter's lobes are sampled in the flipped
     frame and flipped back; the dielectrics, null and principledthin
@@ -727,6 +776,7 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
     is_delta = torch.zeros(cos_i.shape, dtype=torch.bool, device=wi.device)
     geom_frame = torch.zeros(cos_i.shape, dtype=torch.bool, device=wi.device)
     refl = _reflectance(table, mat_idx, wavelengths)
+    albedo = _apply_tex(refl, refl_tex)
     if any_mask:
         # the mask (`mask.cpp`): pass through with probability 1 -
         # opacity; the lanes that interact reuse sample1 renormalised
@@ -752,7 +802,7 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
     if DIFFUSE in present:
         is_diff = kind == DIFFUSE
         wo = _select(is_diff, wo_diff, wo)
-        weight = _select(is_diff, refl, weight)
+        weight = _select(is_diff, albedo, weight)
         pdf = _select(is_diff, pdf_diff, pdf)
 
     if ROUGH_CONDUCTOR in present:
@@ -801,7 +851,7 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
             (sample1 < t1)[..., None], wo_diff,
             torch.where((sample1 < t2)[..., None], _reflect(wi_l, m_sp),
                         _reflect(wi_l, m_cc)))
-        pr_val, pr_pdf = _principled_eval(refl, rough, extra, wi_l, wo_pr)
+        pr_val, pr_pdf = _principled_eval(albedo, rough, extra, wi_l, wo_pr)
         wo, weight, pdf = through_eval(kind == PRINCIPLED, wo_pr, pr_val,
                                        pr_pdf, wo_pr[..., 2] > 0.0)
 
@@ -812,7 +862,7 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
         m_rp = _ggx_sample(alpha_rp.clamp(min=1e-3), sample2)
         wo_rp = torch.where((sample1 < f_i_rp)[..., None],
                             _reflect(wi_l, m_rp), wo_diff)
-        rp_val, rp_pdf = _rough_plastic_eval(refl, alpha_rp, ior, wi_l,
+        rp_val, rp_pdf = _rough_plastic_eval(albedo, alpha_rp, ior, wi_l,
                                              wo_rp)
         wo, weight, pdf = through_eval(kind == ROUGH_PLASTIC, wo_rp, rp_val,
                                        rp_pdf, wo_rp[..., 2] > 0.0)
@@ -848,7 +898,7 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
         wo = _select(is_pl, torch.where(pl_spec[..., None], wo_mirr,
                                         wo_diff), wo)
         weight = _select(is_pl, torch.where(
-            pl_spec[..., None], 1.0, _plastic_base(refl, ior, f_o_pl)),
+            pl_spec[..., None], 1.0, _plastic_base(albedo, ior, f_o_pl)),
             weight)
         pdf = _select(is_pl, torch.where(pl_spec, f_i_pl,
                                          (1.0 - f_i_pl) * pdf_diff), pdf)
@@ -937,8 +987,8 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
             torch.where((sample1 < t2)[..., None], wo_st,
                         torch.where((sample1 < t3)[..., None], wo_diff,
                                     -wo_diff))) * sgn[..., None]
-        pt_val, pt_pdf = _principledthin_eval(refl, rough, ior_pt, extra, wi,
-                                              wo_pt)
+        pt_val, pt_pdf = _principledthin_eval(albedo, rough, ior_pt, extra,
+                                              wi, wo_pt)
         # a specular sample on the wrong side of its microfacet is
         # rejected, as the reference's (`principledthin.cpp:345-352,
         # 385-390`), rather than aliased into another lobe

@@ -5,10 +5,12 @@ shapes (sphere, rectangle, disk, cube, cylinder), triangle meshes
 (kernel K14 on the card), every non-polarized material kind but hair
 and the measured ones (diffuse, rough conductor, conductor, dielectric,
 plastic, rough dielectric, null, thin dielectric, rough plastic,
-principled, blend, principledthin) with opacity masks, the sunsky,
-constant, uniform and bitmap (envmap) environments or none, area
-emitters, point, directional and spot lights, NEE + MIS (power
-heuristic, beta = 2, reference `path.cpp:321`) and Russian roulette.
+principled, blend, principledthin) with opacity masks, textures and
+normal maps (`render/texture.py`: uv at analytic and mesh hits, vertex
+colours), the sunsky, constant, uniform and bitmap (envmap) environments
+or none, area emitters, point, directional and spot lights, NEE + MIS
+(power heuristic, beta = 2, reference `path.cpp:321`) and Russian
+roulette.
 The environments and the lobes enter the path only through
 `emitters.env_*` and `bsdf.eval_pdf` / `bsdf.sample`, as in the
 reference. Up to two delta lights are each connected at every
@@ -67,11 +69,12 @@ from . import emitters as em
 from . import film as film_mod
 from . import sensors as sensors_mod
 from . import spectra
-from .mesh import mesh_intersect
+from .mesh import mesh_interp_color, mesh_interp_uv, mesh_intersect
 from .sampler import fold_in, key_seed, lane_samples
 from .scene import (Scene, n_delta_lights, scene_occluded, table_len,
                     with_emitter_coeffs, with_mesh_tables)
 from .shapes import DISK, RECTANGLE, SPHERE, ray_intersect
+from .texture import eval_texture, table_texture_kinds
 
 _SHADOW_EPS = 1e-3
 _DIFFUSE_ONLY = ((bsdf_mod.DIFFUSE,), False)
@@ -120,24 +123,43 @@ def _check_slice(scene: Scene, max_depth, rr_depth, mode, kinds):
         bsdf_mod.check_kinds(kinds[0])
 
 
-def _scene_hit(scene: Scene, o, d, plain: bool):
+def _scene_hit(scene: Scene, o, d, plain: bool, textured: bool = False):
     """Closest hit over the analytic shapes and the mesh -> (t, p, ng,
-    shape index (-2 on a mesh hit), material index, hit). A mesh hit
-    closer than the shapes' takes the hit point o + t d, the interpolated
-    shading normal as ng and the triangle's material
-    (`tpusky/render/integrator.py:274-289, 410-411`)."""
-    t, p, ng, shape_idx, hit = ray_intersect(scene.shapes, o, d)
+    shape index (-2 on a mesh hit), material index, hit); with `textured`
+    also the hit's uv (..., 2) and vertex colour (..., 3) (None where the
+    mesh has none, 0 off the mesh). A mesh hit closer than the shapes'
+    takes the hit point o + t d, the interpolated shading normal as ng,
+    the triangle's material, uv and colour
+    (`tpusky/render/integrator.py:274-298, 410-411`)."""
+    if textured:
+        t, p, ng, uv, shape_idx, hit = ray_intersect(scene.shapes, o, d,
+                                                     uv=True)
+    else:
+        t, p, ng, shape_idx, hit = ray_intersect(scene.shapes, o, d)
     mat_idx = scene.shapes.bsdf_idx[shape_idx.clamp(min=0)]
+    attr = None
     if scene.mesh is not None:
-        tm, nm, matm, _, _, _, hitm = mesh_intersect(
+        tm, nm, matm, b1, b2, tri, hitm = mesh_intersect(
             scene.mesh, o, d, plain=plain, tables=scene.mesh_tables)
         use_mesh = hitm & (tm < t)
         t = torch.where(use_mesh, tm, t)
-        p = torch.where(use_mesh[..., None], o + tm[..., None] * d, p)
+        # a finite t off the mesh: o + inf * d would make the direction's
+        # gradient 0 * inf = NaN there (the reference's analytic shapes do
+        # the same, `tpusky/render/shapes.py:224-227`; R12)
+        p = torch.where(use_mesh[..., None],
+                        o + torch.where(use_mesh, tm, 0.0)[..., None] * d, p)
         ng = torch.where(use_mesh[..., None], nm, ng)
         shape_idx = torch.where(use_mesh, -2, shape_idx)
         mat_idx = torch.where(use_mesh, matm, mat_idx)
         hit = hit | hitm
+        if textured:
+            uv = torch.where(use_mesh[..., None],
+                             mesh_interp_uv(scene.mesh, tri, b1, b2), uv)
+            if scene.mesh.col is not None:
+                attr = torch.where(use_mesh[..., None], mesh_interp_color(
+                    scene.mesh, tri, b1, b2), 0.0)
+    if textured:
+        return t, p, ng, shape_idx, mat_idx, hit, uv, attr
     return t, p, ng, shape_idx, mat_idx, hit
 
 
@@ -167,7 +189,8 @@ def _spot_ratio(light, fall):
 
 
 def _delta_lights_unrolled(scene, p, ng, frame, wi_local, mat_idx,
-                           throughput, active, kinds, plain, wavelengths):
+                           throughput, active, kinds, plain, wavelengths,
+                           refl_tex):
     """Each delta light connected at every vertex (at most 2 lights;
     `tpusky/render/integrator.py:523-600`); in spectral mode each
     emits its rgb2spec spectrum."""
@@ -178,7 +201,7 @@ def _delta_lights_unrolled(scene, p, ng, frame, wi_local, mat_idx,
         """(f cos toward d_l, lanes the light reaches)."""
         f_l, _ = bsdf_mod.eval_pdf(scene.bsdfs, mat_idx, wi_local,
                                    frame.to_local(d_l), wavelengths,
-                                   kinds=kinds)
+                                   kinds=kinds, refl_tex=refl_tex)
         occ = scene_occluded(scene, _offset(p, ng, d_l), d_l, maxt,
                              plain=plain)
         return f_l, (active & ~occ)[..., None]
@@ -218,7 +241,7 @@ def _delta_lights_unrolled(scene, p, ng, frame, wi_local, mat_idx,
 
 def _delta_lights_single_sample(scene, u_pick, p, ng, frame, wi_local,
                                 mat_idx, throughput, active, kinds, plain,
-                                wavelengths):
+                                wavelengths, refl_tex):
     """One delta light a vertex, picked by its sampling weight (the
     reference's DiscreteDistribution over `sampling_weight()`,
     `scene.cpp:100-119, 295-345`; `tpusky/render/integrator.py:109-215`):
@@ -257,7 +280,8 @@ def _delta_lights_single_sample(scene, u_pick, p, ng, frame, wi_local,
     d_l = torch.where(is_dir[..., None], d_dirn, d_pos)
     maxt = torch.where(is_dir, torch.inf, dist * (1.0 - 1e-3))
     f_l, _ = bsdf_mod.eval_pdf(scene.bsdfs, mat_idx, wi_local,
-                               frame.to_local(d_l), wavelengths, kinds=kinds)
+                               frame.to_local(d_l), wavelengths, kinds=kinds,
+                               refl_tex=refl_tex)
     occ = scene_occluded(scene, _offset(p, ng, d_l), d_l, maxt, plain=plain)
     fall = intensity
     ratio = torch.ones_like(dist)
@@ -311,14 +335,19 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     prev_bsdf_pdf = torch.ones((n,), device=dev)
     prev_bsdf_delta = torch.ones((n,), dtype=torch.bool, device=dev)
+    # textures: the kinds present and whether a row has a normal map, from
+    # the tables' host copies (`tpusky/render/integrator.py:1098-1101`)
+    textured = scene.textures is not None
+    tkinds = table_texture_kinds(scene.textures)
+    nmaps = textured and bsdf_mod.table_normal_maps(scene.bsdfs)
 
     def emitter_hits(result, active, o, d, throughput, prev_bsdf_pdf,
-                     prev_bsdf_delta):
+                     prev_bsdf_delta, textured=False):
         """(hit geometry, result plus the escaped lanes' environment
         radiance and the area emitters' radiance at hits, each weighted
         by MIS against the previous BSDF sample)."""
-        geo = _scene_hit(scene, o, d, plain)
-        _, p, ng, shape_idx, _, hit = geo
+        geo = _scene_hit(scene, o, d, plain, textured)
+        p, ng, shape_idx, hit = geo[1], geo[2], geo[3], geo[5]
         if env is not None:
             env_l, em_pdf = em.env_eval_pdf(env, d, env_to_world,
                                             wavelengths, mode,
@@ -353,11 +382,37 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
         return geo, result
 
     for depth in range(max_depth - 1):
-        (_, p, ng, _, mat_idx, hit), result = emitter_hits(
-            result, active, o, d, throughput, prev_bsdf_pdf,
-            prev_bsdf_delta)
+        geo, result = emitter_hits(result, active, o, d, throughput,
+                                   prev_bsdf_pdf, prev_bsdf_delta, textured)
+        p, ng, mat_idx, hit = geo[1], geo[2], geo[4], geo[5]
         active = active & hit
-        frame = Frame(ng)
+        frame = place = Frame(ng)
+        # the textured reflectance, once a vertex, for every BSDF query
+        # there (:417-424)
+        refl_tex = None
+        if textured:
+            uv, attr = geo[6], geo[7]
+            refl_tex = eval_texture(scene.textures,
+                                    scene.bsdfs.tex_idx[mat_idx], uv,
+                                    wavelengths, p=p, attr=attr,
+                                    tkinds=tkinds)
+        if nmaps:
+            # the normal-mapped shading frame; ng still sets the offsets
+            # and the facing tests (:428-444, `normalmap.cpp`)
+            n_rgb, n_has = eval_texture(scene.textures,
+                                        scene.bsdfs.normal_tex_idx[mat_idx],
+                                        uv, None, p=p, attr=attr,
+                                        tkinds=tkinds)
+            n_loc = 2.0 * n_rgb - 1.0
+            n_loc = n_loc / norm(n_loc, keepdim=True).clamp(min=1e-6)
+            frame = Frame(torch.where(n_has[..., None],
+                                      place.to_world(n_loc), ng))
+            # the continuation's frame: the map places the sample, so its
+            # gradient stops there, as the sample's does (R12: Mitsuba's
+            # PRB detaches the whole ray; through the reference's it
+            # reaches the next hit, NaN at o + inf * d on a mesh miss)
+            place = Frame(torch.where(n_has[..., None],
+                                      place.to_world(n_loc.detach()), ng))
         wi_local = frame.to_local(-d)
 
         # ---- next-event estimation toward the environment ----
@@ -369,7 +424,7 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
             pdf_e = pdf_e.detach()                            # :470
             f_val, pdf_b = bsdf_mod.eval_pdf(
                 scene.bsdfs, mat_idx, wi_local, frame.to_local(d_e),
-                wavelengths, kinds=kinds)
+                wavelengths, kinds=kinds, refl_tex=refl_tex)
             occluded = scene_occluded(scene, _offset(p, ng, d_e), d_e,
                                       torch.inf, plain=plain)
             mis_nee = _mis_weight(pdf_e, pdf_b.detach())      # :480
@@ -389,7 +444,7 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
                     scene.emitter_coeffs.area[emit_a], wavelengths)
             f_a, pdf_b_a = bsdf_mod.eval_pdf(
                 scene.bsdfs, mat_idx, wi_local, frame.to_local(d_a),
-                wavelengths, kinds=kinds)
+                wavelengths, kinds=kinds, refl_tex=refl_tex)
             # the shadow ray starts along itself (the reference's
             # spawn_ray_to): an offset along the normal would shorten the
             # distance to the emitter point unboundedly at grazing angles
@@ -408,18 +463,18 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
             u_pick = smp.next(300_000 + depth, 1)[..., 0].detach()  # :610
             result = result + _delta_lights_single_sample(
                 scene, u_pick, p, ng, frame, wi_local, mat_idx, throughput,
-                active, kinds, plain, wavelengths)
+                active, kinds, plain, wavelengths, refl_tex)
         elif n_delta > 0:
             result = result + _delta_lights_unrolled(
                 scene, p, ng, frame, wi_local, mat_idx, throughput, active,
-                kinds, plain, wavelengths)
+                kinds, plain, wavelengths, refl_tex)
 
         # ---- BSDF sampling for the next bounce ----
         u_bsdf = smp.next(3 * depth + 1, 3).detach()         # :618
         wo_local, weight, pdf_b, is_delta = bsdf_mod.sample(
             scene.bsdfs, mat_idx, wi_local, u_bsdf[..., :2], u_bsdf[..., 2],
-            wavelengths, kinds=kinds)
-        d_next = frame.to_world(wo_local.detach())            # :622
+            wavelengths, kinds=kinds, refl_tex=refl_tex)
+        d_next = place.to_world(wo_local.detach())            # :622
         thr_next = throughput * weight
         active = active & (pdf_b > 0.0)
         if depth + 1 >= rr_depth:
@@ -578,8 +633,9 @@ def _megakernel_rules(scene, sensor, film_cfg, spp, max_depth, mode,
     """The reference package's static eligibility rules
     (`tpusky/render/integrator.py:955-968`; its backend test is the device
     test in `_megakernel_ok`). K4 draws spheres, rectangles and disks lit
-    by the sunsky alone; it also refuses a scene whose shapes emit
-    without an area emitter, which the reference lets through."""
+    by the sunsky alone, untextured (:955-958); it also refuses a scene
+    whose shapes emit without an area emitter, which the reference lets
+    through."""
     if not (mode == "rgb" and max_depth == 2
             and sampler_kind == "independent"
             and film_cfg.rfilter == "box" and film_cfg.n_channels == 3
@@ -590,7 +646,8 @@ def _megakernel_rules(scene, sensor, film_cfg, spp, max_depth, mode,
         return False
     if not isinstance(scene.env, SunskyState):
         return False
-    if scene.mesh is not None or scene.spot_lights:
+    if (scene.mesh is not None or scene.spot_lights
+            or scene.textures is not None):
         return False
     if kinds != _DIFFUSE_ONLY:
         return False

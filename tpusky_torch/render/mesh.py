@@ -17,8 +17,8 @@ multiple (`make_mesh_table`, numpy, bitwise the reference's tables).
   wavefront is reordered by direction octant and origin Morton code unless
   the mesh is small and the wavefront already coherent.
 
-Per-corner uv and colour tables are carried; their interpolation waits
-for textures.
+`mesh_interp_uv` and `mesh_interp_color` interpolate the per-corner uv
+and vertex colours at a hit, for textured scenes (`render/texture.py`).
 """
 
 from __future__ import annotations
@@ -340,3 +340,22 @@ def mesh_test(mesh: MeshTable, o, d, maxt, plain: bool = False,
     t, _, _, tri = _closest(mesh, o, d, plain, tables)
     t, tri = t.reshape(batch), tri.reshape(batch)
     return torch.isfinite(t) & (tri >= 0) & (t < maxt)
+
+
+def _interp_corners(corners, tri, b1, b2):
+    """Barycentric interpolation of per-corner rows (T, 3, k) at hits
+    (`tpusky/render/mesh.py:169-185`); a miss reads triangle 0."""
+    c = corners[tri.clamp(min=0)]
+    return ((1.0 - b1 - b2)[..., None] * c[..., 0, :]
+            + b1[..., None] * c[..., 1, :] + b2[..., None] * c[..., 2, :])
+
+
+def mesh_interp_uv(mesh: MeshTable, tri, b1, b2):
+    """Texture coordinates at hits -> (..., 2)."""
+    return _interp_corners(mesh.uv, tri, b1, b2)
+
+
+def mesh_interp_color(mesh: MeshTable, tri, b1, b2):
+    """Vertex colours at hits -> (..., 3) (the data `mesh_attribute.cpp`
+    reads)."""
+    return _interp_corners(mesh.col, tri, b1, b2)

@@ -1,9 +1,10 @@
-"""Scene: analytic shapes, triangle meshes, a material table, the
-environment (sunsky, constant, uniform, envmap or none) and the area, point,
-directional and spot emitters (`tpusky/render/scene.py`).
+"""Scene: analytic shapes, triangle meshes, a material table, its
+textures, the environment (sunsky, constant, uniform, envmap or none) and
+the area, point, directional and spot emitters (`tpusky/render/scene.py`).
 
-Media, SDFs, curves and textures are not ported yet, so a Scene here
-cannot hold them. An emitter field left None holds no emitter.
+Media, SDFs and curves are not ported yet, so a Scene here cannot hold
+them. An emitter field left None holds no emitter; `textures` None, no
+texture (the material table's texture columns are then not read).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .bsdf import MaterialTable, make_material_table
 from .emitters import ConstantEnv
 from .mesh import MeshTable, make_mesh_table, mesh_test
 from .shapes import ShapeTable, make_shape_table, ray_test
+from .texture import make_texture_table
 
 
 class Scene(NamedTuple):
@@ -38,6 +40,7 @@ class Scene(NamedTuple):
     # (Np + Nd + Nspot,) each delta light's sampling weight
     # (`scene.cpp:100-119`); None: uniform
     delta_light_weights: Optional[torch.Tensor] = None
+    textures: Any = None        # texture.TextureTable | None
     # internal: the RGB emitters' rgb2spec coefficients for spectral mode,
     # set by `with_emitter_coeffs`
     emitter_coeffs: Optional["EmitterCoeffs"] = None
@@ -164,6 +167,8 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                delta_light_weights=None, bsdf_iors=None,
                bsdf_opacities=None, bsdf_extras=None,
                bsdf_blend_children=None, bsdf_blend_weights=None,
+               bsdf_tex_indices=None, bsdf_normal_tex_indices=None,
+               textures=None, spectral_textures=False,
                device="cuda") -> Scene:
     """Assemble a scene from host-side descriptions: shapes are dicts
     accepted by `make_shape_table`; the bsdf_* lists are the columns of
@@ -172,7 +177,11 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
     `area_radiance` (n_shapes, 3) is what a hit on each shape emits, a
     shape with `emitter_idx >= 0` being sampled by NEE; point and
     directional lights are (N, 6) rows [position or direction,
-    intensity or irradiance]; `spot_lights` are `emitters.SpotLight`s."""
+    intensity or irradiance]; `spot_lights` are `emitters.SpotLight`s.
+    `textures` is a list of dicts accepted by `make_texture_table` (its
+    texels' spectra fitted when `spectral_textures`), indexed by the
+    bsdf_tex_indices (reflectance) and bsdf_normal_tex_indices (normal
+    map) columns, -1 for none."""
     if len(shapes) == 0:
         # a never-hit placeholder keeps the table non-empty
         ph = np.eye(4)
@@ -197,7 +206,10 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                      alphas=bsdf_alphas, etas=bsdf_etas, ks=bsdf_ks,
                      iors=bsdf_iors, opacities=bsdf_opacities,
                      extras=bsdf_extras, blend_children=bsdf_blend_children,
-                     blend_weights=bsdf_blend_weights, device=device),
+                     blend_weights=bsdf_blend_weights,
+                     tex_indices=bsdf_tex_indices,
+                     normal_tex_indices=bsdf_normal_tex_indices,
+                     device=device),
                  env, f32(env_to_world),
                  make_mesh_table(meshes, device=device) if meshes else None,
                  None,
@@ -208,4 +220,6 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                   else f32(directional_lights, 6)),
                  tuple(spot_lights),
                  (None if delta_light_weights is None
-                  else f32(delta_light_weights)))
+                  else f32(delta_light_weights)),
+                 (make_texture_table(textures, spectral_textures, device)
+                  if textures else None))

@@ -17,7 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.math import PI, dot, mat3_apply, mat3_apply_t, normalize, safe_sqrt
+from ..ops.math import (PI, dot, mat3_apply, mat3_apply_t, normalize,
+                        safe_acos, safe_sqrt)
 
 SPHERE, RECTANGLE, DISK, CUBE, CYLINDER = 0, 1, 2, 3, 4
 KINDS = (SPHERE, RECTANGLE, DISK, CUBE, CYLINDER)
@@ -244,12 +245,31 @@ def _to_local(shapes: ShapeTable, s: int, o, d):
     return lin, mat3_apply(lin, o) + m[:3, 3], mat3_apply(lin, d)
 
 
-def ray_intersect(shapes: ShapeTable, o, d):
+def _local_uv(kind: int, pp):
+    """Texture coordinates at a local hit point pp (..., 3), the
+    reference's convention for each kind (`tpusky/render/shapes.py:
+    228-231, 247, 271-274, 290`): a sphere's longitude and colatitude, a
+    rectangle's or disk's (x, y) mapped to [0, 1], a cylinder's longitude
+    and height; a cube has none (zeros)."""
+    if kind in (SPHERE, CYLINDER):
+        u = torch.atan2(pp[..., 1], pp[..., 0]) / (2 * PI) + 0.5
+        v = (safe_acos(pp[..., 2]) / PI if kind == SPHERE
+             else pp[..., 2].clamp(0.0, 1.0))
+        return torch.stack([u, v], -1)
+    if kind in (RECTANGLE, DISK):
+        return 0.5 * (pp[..., :2] + 1.0)
+    return torch.zeros_like(pp[..., :2])
+
+
+def ray_intersect(shapes: ShapeTable, o, d, uv: bool = False):
     """Closest-hit intersection of world rays against every shape.
-    o, d: (..., 3) -> (t, p, n (unit, world), shape_idx, hit)."""
+    o, d: (..., 3) -> (t, p, n (unit, world), shape_idx, hit); with `uv`,
+    (t, p, n, uv (..., 2), shape_idx, hit), uv 0 on a miss, as the
+    reference's. Only a textured scene asks for uv."""
     batch = o.shape[:-1]
     best_t = torch.full(batch, torch.inf, device=o.device)
     best_n = torch.zeros(batch + (3,), device=o.device)
+    best_uv = torch.zeros(batch + (2,), device=o.device) if uv else None
     best_idx = torch.full(batch, -1, dtype=torch.long, device=o.device)
     for s, kind in enumerate(shapes.kind):
         lin, o_l, d_l = _to_local(shapes, s, o, d)
@@ -260,6 +280,10 @@ def ray_intersect(shapes: ShapeTable, o, d):
         best_t = torch.where(closer, t, best_t)
         best_n = torch.where(closer[..., None], n_w, best_n)
         best_idx = torch.where(closer, s, best_idx)
+        if uv:
+            pp = o_l + torch.where(hit, t, 0.0)[..., None] * d_l
+            best_uv = torch.where(closer[..., None], _local_uv(kind, pp),
+                                  best_uv)
 
     valid = torch.isfinite(best_t) & (best_idx >= 0)
     # made on the device: torch.tensor of Python numbers (or an item set
@@ -267,6 +291,8 @@ def ray_intersect(shapes: ShapeTable, o, d):
     up = torch.eye(3, device=o.device)[2]
     best_n = normalize(torch.where(valid[..., None], best_n, up))
     p = o + torch.where(valid, best_t, 0.0)[..., None] * d
+    if uv:
+        return best_t, p, best_n, best_uv, best_idx, valid
     return best_t, p, best_n, best_idx, valid
 
 
