@@ -104,13 +104,14 @@ Phases, each of which raises (exit code != 0) on failure:
    configurations, N = 1e8 over 430 x 215 cells, the pdf integrated at
    64 x 64 points a cell): directions from K3, the pdf through K2, and
    one configuration through the plain sampler; each p >= 0.01;
-13. the port's 48x48, 64-spp renders of nine scene goldens Z-tested
+13. the port's 48x48, 64-spp renders of ten scene goldens Z-tested
    against tests/golden/scene_goldens.npz (`tools/torch_scene_goldens.
    py`): sunsky_sphere and sky_only through K4, rough_conductor (depth
    4, K2/K3), spectral_plane (K10/K11), mesh_gi (K14), and
    constant_cube_gi (a cube under a ConstantEnv, depth 4), area_light
    and dielectric_sphere (area emitters, a smooth dielectric, depth 6)
-   and envmap_lit (a 16x32 bitmap sky), whose wavefront is plain ops on
+   envmap_lit (a 16x32 bitmap sky) and medium_sphere (a homogeneous
+   Henyey-Greenstein medium, depth 6), whose wavefront is plain ops on
    the card and launches no kernel;
    render_moments' mean equal to render_rows' image bitwise;
 14. inverse rendering: bench_train's evaluation loss through K4 against
@@ -179,7 +180,29 @@ Phases, each of which raises (exit code != 0) on failure:
    fwd+bwd at 256x256x4 to the atlas, the checker colours and the
    turbidity (K5, K6) against the plain path, and `render_aovs` at
    512x512 through K14 against the plain mesh intersection;
-20. one JSON line of kernel results, then the device line, last.
+20. participating media at full width: the headline scene in two
+   regions of fog, a homogeneous Henyey-Greenstein sphere about the
+   sphere and a cube of ground fog holding a 64^3 density grid (64 march
+   steps, Rayleigh, spectral-MIS free flight), 512x512x8, depth 6,
+   Russian roulette from depth 3, through `render` in RGB (K2, K3) and in
+   spectral mode with one-channel regions (K10, K11): K4 refused, two
+   renders bitwise equal, no synchronisation, >= 99.9% of the lanes
+   within 1e-3 of the plain path on the card and of a band of rows of
+   the CPU's, the wall time in turns, launches, peak memory, busy share
+   and the gathers' share of the device time; then the fwd+bwd at
+   256x256x4, depth 4, to the grid, the sphere region's sigma_t and the
+   turbidity (K5, K6) against the plain path (1e-3 of scale), with its
+   time and peak memory;
+21. the light-traced frame: `render_ptracer` of scene_mesh_gi's geometry
+   (81,920 triangles) under the headline sunsky with an area panel and a
+   spot light, 512x512 from 4,194,304 particles, depth 4, in RGB (K1,
+   K14) and spectral mode (K9, K14): two calls bitwise equal, >= 99.9% of
+   the pixels within 1e-3 of the plain path with K14's hits, the mean
+   over lit pixels within 3% of `render`'s (512x512x8, depth 4), the
+   wall time in turns, launches and busy share;
+22. one JSON line of kernel results (each kernel's launches summed over
+   the main paths, the fog and light-traced frames' included), then the
+   device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -2020,8 +2043,9 @@ def _profile_window(name, fn, card, iters=2,
                     focus=(("K14", "mesh_isect_kernel"),)):
     """Where one call of fn spends the card's time: a torch.profiler window
     of iters calls after a warm-up; prints the wall time, the device's
-    busy share, the device time of each (label, kernel name) in `focus`
-    and the 12 largest device-time entries. Returns the busy share."""
+    busy share, the device time of each (label, kernel name pattern) in
+    `focus` with its share of the busy time, and the 12 largest
+    device-time entries. Returns the busy share."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2046,8 +2070,10 @@ def _profile_window(name, fn, card, iters=2,
         pattern = re.compile(rf"\b{kernel}\b")
         return sum(e.device_time_total for e in kernels
                    if pattern.search(e.name)) / iters / 1e3
-    parts = ", ".join(f"{label} {kernel_ms(kernel):.3f} ms"
-                      for label, kernel in focus)
+    parts = ", ".join(
+        f"{label} {kernel_ms(kernel):.3f} ms "
+        f"({100 * 1e3 * kernel_ms(kernel) / max(busy_us, 1e-9):.1f}% of "
+        "the busy time)" for label, kernel in focus)
     print(f"profile {name}: wall {wall_us / 1e3:.2f} ms a call, device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), of "
           f"which {parts}; {len(kernels) // iters} kernel launches a call "
@@ -2333,12 +2359,13 @@ def chi2_phase(dev, card):
 
 
 def golden_ztest_phase(dev):
-    """The port's 48x48 renders at 64 spp of eight scene goldens
+    """The port's 48x48 renders at 64 spp of the ten scene goldens
     (`tools/torch_scene_goldens.py`) Z-tested against
     tests/golden/scene_goldens.npz: sunsky_sphere and sky_only through
     render() (K4), rough_conductor (depth 4, the wavefront: K2, K3),
     spectral_plane (K10, K11), mesh_gi (K14), and constant_cube_gi,
-    area_light, dielectric_sphere and envmap_lit, which have no sunsky:
+    area_light, dielectric_sphere, envmap_lit and medium_sphere (a
+    homogeneous medium, depth 6), which have no sunsky:
     their wavefront is plain ops on the card and launches no kernel; then
     render_moments' mean against render_rows' image at the same seed,
     bitwise."""
@@ -2353,7 +2380,8 @@ def golden_ztest_phase(dev):
                "spectral_plane": ("sunsky_hit_spec", "sunsky_nee_spec"),
                "mesh_gi": ("mesh_intersect",),
                "constant_cube_gi": (), "area_light": (),
-               "dielectric_sphere": (), "envmap_lit": ()}
+               "dielectric_sphere": (), "envmap_lit": (),
+               "medium_sphere": ()}
     for name in SCENES:
         scene, sensor, depth, mode = build(name, dev)
         mean, var, size, gold_depth = golden(name)
@@ -3621,6 +3649,382 @@ def textured_frame_phase(dev, card):
     _textured_aov_check(dev, card)
 
 
+# phase 20: participating media at full width
+FOG_DEPTH = 6
+FOG_RR = 3
+FOG_TURNS = 2
+FOG_GRID = 64               # region (b)'s density grid, FOG_GRID^3
+FOG_STEPS = 64              # its march steps
+FOG_BAND = (256, 2)         # rows held against the CPU's plain lanes
+FOG_GRAD = 256              # the gradient frame: 256x256x4, depth 4
+FOG_GRAD_SPP = 4
+FOG_GRAD_DEPTH = 4
+# torch's gather and advanced-indexing kernels: the grid's corner lookups
+# (and the scene's few table rows)
+GATHERS = ("(?:index_elementwise_kernel|vectorized_gather_kernel"
+           "|_scatter_gather_elementwise_kernel)")
+
+
+def _fog_scene(state, device, spectral=False):
+    """The headline scene (a diffuse sphere on a diffuse ground, the
+    headline camera) in two regions of fog: (a) medium_sphere's
+    homogeneous Henyey-Greenstein sphere (sigma_t [0.8, 1.2, 1.6], albedo
+    0.7, g 0.3, `tools/gen_scene_goldens.py:145-157`) of radius 1.4 about
+    the sphere, and (b) a cube over the ground (8 x 8 x 1, z in [0, 1])
+    holding a FOG_GRID^3 density grid made from a seed, FOG_STEPS march
+    steps, Rayleigh phase, spectral-MIS free flight. In spectral mode each
+    region has one channel (R14)."""
+    from tpusky_torch.render.medium import make_medium
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    rng = np.random.default_rng(20)
+    grid = (0.2 + 1.6 * rng.random((FOG_GRID,) * 3)).astype(np.float32)
+
+    def at(scale, xyz):
+        m = np.diag(list(scale) + [1.0]).astype(np.float32)
+        m[:3, 3] = xyz
+        return m
+    halo = make_medium([1.2] if spectral else [0.8, 1.2, 1.6],
+                       [0.7] if spectral else [0.7] * 3, g=0.3,
+                       kind="sphere", to_world=at([1.4] * 3, [0, 0, 1.0]),
+                       device=device)
+    ground_fog = make_medium(
+        [0.6] if spectral else [0.5, 0.6, 0.8],
+        [0.85] if spectral else [0.9, 0.85, 0.8], kind="cube",
+        to_world=at([4.0, 4.0, 0.5], [0, 0, 0.5]), density=grid,
+        n_steps=FOG_STEPS, phase="rayleigh", channel_mis=True, device=device)
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=at([10.0, 10.0, 1.0], [0, 0, 0]),
+                     bsdf_idx=0),
+                dict(kind=0, to_world=at([1.0] * 3, [0, 0, 1.0]),
+                     bsdf_idx=1)],
+        bsdf_albedos=[[0.4, 0.4, 0.4], [0.6, 0.2, 0.2]], env=state,
+        medium=(halo, ground_fog), device=device)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+def _fog_frame(label, scene, sensor, mode, card, cpu):
+    """A fog frame (H x W x SPP, depth FOG_DEPTH, Russian roulette from
+    FOG_RR) through render() in `mode`: the mode's sunsky kernels launch,
+    K4 not; two calls bitwise equal; no synchronisation; all its lanes
+    within 1e-3 of the plain path on the card on >= 99.9% (the share of
+    lanes whose Russian-roulette decision differs printed), the FOG_BAND
+    rows against the CPU's plain lanes (`cpu`: the scene and sensor on
+    the CPU) too; render()'s wall time in turns with the plain path's,
+    the launches, the peak memory, the busy share and the gathers' share
+    of the device time. Returns the launches of one render()."""
+    import torch
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    film = Film(H, W, 3)
+    kinds = B.table_kinds(scene.bsdfs)
+    sky = (("sunsky_hit_rgb", "sunsky_nee_rgb") if mode == "rgb"
+           else ("sunsky_hit_spec", "sunsky_nee_spec"))
+    focus = ((("K2", "hit_kernel"), ("K3", "nee_kernel")) if mode == "rgb"
+             else (("K10", "hit_spec_kernel"), ("K11", "nee_spec_kernel")))
+
+    def frame():
+        return integrator.render(scene, sensor, film, SEED, spp=SPP,
+                                 max_depth=FOG_DEPTH, rr_depth=FOG_RR,
+                                 mode=mode)
+
+    def plain_frame():
+        return integrator.render_rows(scene, sensor, film, SEED, SPP,
+                                      FOG_DEPTH, FOG_RR, mode, 0, H,
+                                      kinds=kinds, plain=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: {first_s:.2f} s (first call), kinds {kinds}, launches "
+          f"{launches}, peak memory {peak_gib:.2f} GiB")
+    _require(launches, sky, f"the {label}")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError(f"the {label} went through K4")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError(f"{label}: image not finite, shaped or lit")
+    if not torch.equal(frame(), img):
+        raise AssertionError(f"two render() calls of the {label} differ")
+    _no_sync(frame, f"the {label}'s render()")
+    logs = ([], [])
+    with torch.no_grad():
+        lanes_k, lanes_p = (integrator._lane_radiance(
+            scene, sensor, film, SEED, SPP, 0, SPP, FOG_DEPTH, FOG_RR, mode,
+            0, H, kinds=kinds, plain=plain, rr_log=log)
+            for plain, log in ((False, logs[0]), (True, logs[1])))
+        share, worst = _lanes_share(lanes_k, lanes_p)
+        rr_diff = torch.zeros_like(logs[0][0])
+        for a, b in zip(*logs):
+            rr_diff |= a != b
+        rr_share = float(rr_diff.float().mean())
+        del lanes_p, logs, rr_diff
+        row0, n_rows = FOG_BAND
+        band = slice(row0 * W * SPP, (row0 + n_rows) * W * SPP)
+        t0 = time.perf_counter()
+        band_c = integrator._lane_radiance(
+            *cpu, film, SEED, SPP, 0, SPP, FOG_DEPTH, FOG_RR, mode, row0,
+            n_rows, kinds=kinds)
+        cpu_s = time.perf_counter() - t0
+        band_share, band_worst = _lanes_share(lanes_k[band].cpu(), band_c)
+    print(f"check {label} lanes: {share:.2e} of {lanes_k.shape[0]} lanes "
+          f"outside 1e-3 of the plain path (bar 1e-3), max {worst:.3e}; "
+          f"Russian roulette's decision differs on {rr_share:.2e} of the "
+          f"lanes; rows {row0}-{row0 + n_rows} against the CPU's plain "
+          f"lanes: {band_share:.2e} of {band_c.shape[0]} outside, max "
+          f"{band_worst:.3e} (the CPU took {cpu_s:.1f} s); two render() "
+          f"calls bitwise equal; image mean {float(img.mean()):.5f} max "
+          f"{float(img.max()):.3f}")
+    if not (share <= 1e-3 and band_share <= 1e-3):
+        raise AssertionError(f"the {label} disagrees with the plain path")
+    del lanes_k, band_c
+    plain_frame()
+    ms, plain_ms, runs, plain_runs = _turns(frame, plain_frame, FOG_TURNS)
+    busy = _profile_window(label, frame, card, iters=1,
+                           focus=focus + (("gathers", GATHERS),))
+    print(f"time {label} ({W}x{H}x{SPP}, depth {FOG_DEPTH}, Russian "
+          f"roulette from {FOG_RR}, {len(scene.medium)} regions, a "
+          f"{FOG_GRID}^3 grid at {FOG_STEPS} steps, {mode}): render() "
+          f"{ms:.3f} ms (runs {', '.join(f'{t:.2f}' for t in runs)}), plain "
+          f"path {plain_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in plain_runs)}), in turns; "
+          f"{launches[sky[0]]} {sky[0]} and {launches[sky[1]]} {sky[1]} "
+          f"launches a render(); peak memory {peak_gib:.2f} GiB; device "
+          f"busy {100 * busy:.1f}% [{card}]")
+    return launches
+
+
+def _fog_grad_check(dev, card):
+    """fwd+bwd of the fog frame at FOG_GRAD^2 x FOG_GRAD_SPP, depth
+    FOG_GRAD_DEPTH, mean(img^2) to region (b)'s density grid, region
+    (a)'s sigma_t and the turbidity (through precompute, so the sky's
+    adjoints run): K2, K3, K5 and K6 launch; each gradient within 1e-3
+    of the plain path's scale; the time and the peak memory (the grid's
+    marches rematerialised in the backward). Returns the launches."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky.model import precompute
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film, develop
+    tables = tt.load_tables("rgb", device=dev)
+    scene, sensor = _fog_scene(None, dev)
+    film = Film(FOG_GRAD, FOG_GRAD, 3)
+    kinds = B.table_kinds(scene.bsdfs)
+    names = ("grid", "sigma_t", "turbidity")
+
+    def case(plain):
+        halo, fog = scene.medium
+        leaves = [fog.density.clone().requires_grad_(),
+                  halo.sigma_t.clone().requires_grad_(),
+                  torch.full((), 3.0, device=dev, requires_grad=True)]
+        p = tt.make_params(turbidity=leaves[2], albedo=0.3,
+                           sun_direction=SUN, device=dev)
+        sc = scene._replace(env=precompute(tables, p), medium=(
+            halo._replace(sigma_t=leaves[1]),
+            fog._replace(density=leaves[0])))
+        img = develop(integrator.render_rows(
+            sc, sensor, film, SEED, FOG_GRAD_SPP, FOG_GRAD_DEPTH, 1000, "rgb",
+            0, FOG_GRAD, kinds=kinds, plain=plain))
+        return torch.autograd.grad((img ** 2).mean(), leaves)
+    case(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads_k, launches = _counted(lambda: case(False))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb",
+                        "sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd"),
+             "the fog frame's gradient")
+    t0 = time.perf_counter()
+    grads_p = case(True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for name, a, b in zip(names, grads_k, grads_p):
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0):
+            raise AssertionError(f"fog gradient d{name}: zero or not finite")
+        _check_scale(f"fog frame gradient d{name} ({FOG_GRAD}x{FOG_GRAD}x"
+                     f"{FOG_GRAD_SPP}, depth {FOG_GRAD_DEPTH}): kernels vs "
+                     "plain on the card", a, b, 1e-3)
+    print(f"time fog frame fwd+bwd ({FOG_GRAD}x{FOG_GRAD}x{FOG_GRAD_SPP}, "
+          f"depth {FOG_GRAD_DEPTH}, to the {FOG_GRID}^3 grid, the halo's "
+          f"sigma_t and the turbidity, precompute included; one call each, "
+          f"the host clock): kernels {ms:.2f} ms, plain {plain_ms:.2f} ms; "
+          f"peak memory {peak_gib:.2f} GiB; launches {launches} [{card}]")
+    return launches
+
+
+def fog_frame_phase(dev, card):
+    """Phase 20: the fog frame at full width, RGB and spectral, and its
+    gradient (see the module docstring). Returns each run's launches."""
+    import tpusky_torch as tt
+    out = {}
+    for mode in ("rgb", "spectral"):
+        t0 = time.perf_counter()
+
+        def state(device, mode=mode):
+            return tt.sunsky_precompute(tt.make_params(
+                turbidity=3.0, albedo=0.3, sun_direction=SUN, mode=mode,
+                device=device), mode=mode)
+        spectral = mode == "spectral"
+        scene, sensor = _fog_scene(state(dev), dev, spectral)
+        cpu = _fog_scene(state("cpu"), "cpu", spectral)
+        out[mode] = _fog_frame(f"fog frame ({mode})", scene, sensor, mode,
+                               card, cpu)
+        del scene, cpu
+        print(f"phase 20 {mode}: {time.perf_counter() - t0:.1f} s")
+    out["gradient"] = _fog_grad_check(dev, card)
+    return out
+
+
+# phase 21: the light-traced frame
+PT_PARTICLES = 1 << 22
+PT_DEPTH = 4
+PT_TURNS = 2
+PT_LIT = 0.05               # a lit pixel's mean radiance in render()'s image
+
+
+def _ptracer_scene(state, device):
+    """scene_mesh_gi's geometry (`_mesh_scene` at FRAME_SUBDIV, 81,920
+    triangles) under `state`, with a rectangle area panel facing down
+    over the ground and a spot light, so that the area, spot and
+    environment strategies all run."""
+    from tpusky_torch.render.emitters import make_spot
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    from tpusky_torch.utils.meshio import icosphere
+    pos, idx = icosphere(FRAME_SUBDIV)
+    mesh_t2w = np.eye(4, dtype=np.float32)
+    mesh_t2w[2, 3] = 1.0
+    panel = np.diag([0.6, 0.6, 1.0, 1.0]).astype(np.float32)
+    panel[:3, 3] = [1.5, 1.0, 2.6]
+    panel[:3, :3] = panel[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+    rad = np.zeros((2, 3), np.float32)
+    rad[1] = [8.0, 7.0, 6.0]
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=np.diag([10.0, 10.0, 1.0, 1.0]),
+                     bsdf_idx=0),
+                dict(kind=1, to_world=panel, bsdf_idx=2, emitter_idx=0)],
+        bsdf_albedos=[[0.5, 0.5, 0.5], [0.3, 0.5, 0.7], [0.0, 0.0, 0.0]],
+        meshes=[dict(positions=pos, indices=idx, normals=pos.copy(),
+                     to_world=mesh_t2w, bsdf_idx=1)],
+        area_radiance=rad, env=state,
+        spot_lights=[make_spot([-2.0, -2.0, 3.5], [0.45, 0.45, -0.77],
+                               [40.0, 36.0, 32.0], cutoff_angle_deg=25.0,
+                               device=device)], device=device)
+    sensor = make_perspective([3.5, -3.5, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+def _ptracer_frame(label, scene, sensor, mode, card):
+    """`render_ptracer` at H x W with PT_PARTICLES particles, depth
+    PT_DEPTH, in `mode`: K1 (K9 in spectral mode) and K14 launch; two
+    calls bitwise equal; every pixel within 1e-3 of the plain path with
+    K14's hits (`_k14_as_plain_mesh`) on >= 99.9%; the mean over lit
+    pixels (render()'s radiance above PT_LIT where the pixel's centre
+    ray hits the scene) within 3% of render()'s at SPP, depth PT_DEPTH,
+    as tests/test_plugins_extra.py:342-354 holds the reference; the wall
+    time in turns with the plain path's, the launches and the busy
+    share. Returns the launches of one call."""
+    import torch
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.ptracer import render_ptracer
+    from tpusky_torch.render.scene import with_mesh_tables
+    from tpusky_torch.render.sensors import sample_ray
+    film = Film(H, W, 3)
+    scene_k = with_mesh_tables(scene)
+    sky = "sunsky_eval_rgb" if mode == "rgb" else "sunsky_eval_spec"
+    focus = (("K1", "eval_kernel") if mode == "rgb"
+             else ("K9", "eval_spec_kernel"))
+
+    def frame():
+        return render_ptracer(scene, sensor, film, SEED, PT_PARTICLES,
+                              PT_DEPTH, mode=mode)
+
+    def plain_frame():
+        with _k14_as_plain_mesh(scene_k.mesh_tables):
+            return render_ptracer(scene, sensor, film, SEED, PT_PARTICLES,
+                                  PT_DEPTH, mode=mode, plain=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: {first_s:.2f} s (first call), launches {launches}, "
+          f"peak memory {peak_gib:.2f} GiB")
+    _require(launches, (sky, "mesh_intersect"), f"the {label}")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError(f"{label}: image not finite, shaped or lit")
+    if not torch.equal(frame(), img):
+        raise AssertionError(f"two render_ptracer() calls of the {label} "
+                             "differ")
+    img_p = plain_frame()
+    share, worst = _lanes_share(img.reshape(-1, 3), img_p.reshape(-1, 3))
+    path = integrator.render(scene, sensor, film, SEED, spp=SPP,
+                             max_depth=PT_DEPTH, mode=mode)
+    with torch.no_grad():
+        ys, xs = torch.meshgrid(
+            (torch.arange(H, device=img.device) + 0.5) / H,
+            (torch.arange(W, device=img.device) + 0.5) / W, indexing="ij")
+        o, d = sample_ray(sensor, torch.stack([xs, ys], -1).reshape(-1, 2))
+        hit = integrator._scene_hit(scene_k, o, d, False)[5].reshape(H, W)
+        lit = hit & (path.mean(-1) > PT_LIT)
+        m_p, m_f = float(img[lit].mean()), float(path[lit].mean())
+        rel = abs(m_p - m_f) / m_f
+        n_lit = int(lit.sum())
+    print(f"check {label}: {share:.2e} of {H * W} pixels outside 1e-3 of "
+          f"the plain path with K14's hits (bar 1e-3), max {worst:.3e}; two "
+          f"calls bitwise equal; the mean over {n_lit} lit pixels {m_p:.5f} "
+          f"against render()'s {m_f:.5f} ({W}x{H}x{SPP}, depth {PT_DEPTH}): "
+          f"{100 * rel:.2f}% (bar 3%)")
+    if not (share <= 1e-3 and rel <= 0.03 and n_lit > 0.1 * H * W):
+        raise AssertionError(f"the {label} disagrees")
+    ms, plain_ms, runs, plain_runs = _turns(frame, plain_frame, PT_TURNS)
+    busy = _profile_window(label, frame, card, iters=1,
+                           focus=(focus, ("K14", "mesh_isect_kernel"),
+                                  ("sorts", "\\w*[Ss]ort\\w*")))
+    print(f"time {label} ({W}x{H}, {PT_PARTICLES} particles, depth "
+          f"{PT_DEPTH}, {int(scene.mesh.valid.sum())} triangles, {mode}): "
+          f"render_ptracer() {ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in runs)}), plain path with K14's "
+          f"hits {plain_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in plain_runs)}), in turns; "
+          f"{launches[sky]} {sky} and {launches['mesh_intersect']} K14 "
+          f"launches a call; peak memory {peak_gib:.2f} GiB; device busy "
+          f"{100 * busy:.1f}% [{card}]")
+    return launches
+
+
+def ptracer_phase(dev, card):
+    """Phase 21: the light-traced frame, RGB and spectral (see the module
+    docstring). Returns each run's launches."""
+    import tpusky_torch as tt
+    out = {}
+    for mode in ("rgb", "spectral"):
+        t0 = time.perf_counter()
+        state = tt.sunsky_precompute(tt.make_params(
+            turbidity=3.0, albedo=0.3, sun_direction=SUN, mode=mode,
+            device=dev), mode=mode)
+        scene, sensor = _ptracer_scene(state, dev)
+        out[mode] = _ptracer_frame(f"light-traced frame ({mode})", scene,
+                                   sensor, mode, card)
+        print(f"phase 21 {mode}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 START = time.perf_counter()
 
 
@@ -4144,7 +4548,17 @@ def main():
     textured_frame_phase(dev, card)
     print(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 20. bounds and results ----
+    # ---- 20. participating media ----
+    t0 = time.perf_counter()
+    fog = fog_frame_phase(dev, card)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 21. the particle tracer ----
+    t0 = time.perf_counter()
+    light_traced = ptracer_phase(dev, card)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 22. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -4207,6 +4621,18 @@ def main():
             results[key] = max(results[key], err)
     times["K14"], bounds["K14"] = mesh_times, mesh_bound
     counts["K14"], results["K14"] = mesh_launches, mesh_err
+    # the fog and light-traced frames' runs are main paths of their own:
+    # their launches add to each kernel's count
+    new_paths = {f"fog {k}": v for k, v in fog.items()}
+    new_paths.update({f"light-traced {k}": v
+                      for k, v in light_traced.items()})
+    for path, runs in new_paths.items():
+        print(f"launches on the {path} path: "
+              + ", ".join(f"{key} {runs[KERNELS[key][0]]}"
+                          for key in sorted(KERNELS, key=lambda k: int(k[1:]))
+                          if runs[KERNELS[key][0]]))
+        for key in counts:
+            counts[key] += runs[KERNELS[key][0]]
     for key, (ms, by) in bounds.items():
         print(f"bound {key}: {ms:.4f} ms ({by}); measured "
               f"{times[key][0]:.4f} ms, {100 * ms / times[key][0]:.1f}% of "

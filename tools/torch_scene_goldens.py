@@ -6,11 +6,11 @@ Each scene function mirrors its namesake in
 emitters, camera and depth);
 `tests/golden/scene_goldens.npz` holds their reference means and
 per-sample variances for the per-pixel Z-test
-(`tpusky_torch.utils.ztest.z_test`). chip_smoke.py Z-tests all nine on
+(`tpusky_torch.utils.ztest.z_test`). chip_smoke.py Z-tests all ten on
 the card; tests/test_torch_moments.py Z-tests `sunsky_sphere`,
 tests/test_torch_breadth_goldens.py the three lit by constant and area
-emitters and tests/test_torch_envmap_golden.py `envmap_lit` on the
-CPU.
+emitters, tests/test_torch_envmap_golden.py `envmap_lit` and
+tests/test_torch_medium_golden.py `medium_sphere` on the CPU.
 
     from tools.torch_scene_goldens import build
     scene, sensor, depth, mode = build("sunsky_sphere", device="cuda")
@@ -24,6 +24,7 @@ import torch
 import tpusky_torch as tt
 from tpusky_torch.render.bsdf import DIELECTRIC, DIFFUSE, ROUGH_CONDUCTOR
 from tpusky_torch.render.emitters import ConstantEnv, make_envmap
+from tpusky_torch.render.medium import make_medium
 from tpusky_torch.render.scene import make_scene
 from tpusky_torch.render.sensors import make_perspective
 from tpusky_torch.utils.meshio import icosphere
@@ -191,6 +192,23 @@ def scene_envmap_lit(device):
     return scene, sensor, 2, "rgb"
 
 
+def scene_medium_sphere(device):
+    """A sphere-bounded homogeneous Henyey-Greenstein medium over a
+    diffuse plane under constant light, depth 6 (free flight, the
+    medium's environment NEE, phase sampling)."""
+    med = make_medium([0.8, 1.2, 1.6], [0.7, 0.7, 0.7], g=0.3,
+                      to_world=_unit_sphere_at(1.2), kind="sphere",
+                      device=device)
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=_ground(), bsdf_idx=0)],
+        bsdf_albedos=[[0.4, 0.4, 0.4]],
+        env=ConstantEnv(torch.tensor([1.0, 0.9, 0.8], device=device)),
+        medium=med, device=device)
+    sensor = make_perspective([3.5, -3.5, 1.6], [0, 0, 1.2], fov_x_deg=45,
+                              device=device)
+    return scene, sensor, 6, "rgb"
+
+
 SCENES = {
     "sunsky_sphere": scene_sunsky_sphere,
     "sky_only": scene_sunsky_sky_only,
@@ -201,6 +219,7 @@ SCENES = {
     "area_light": scene_area_light,
     "dielectric_sphere": scene_dielectric_sphere,
     "envmap_lit": scene_envmap_lit,
+    "medium_sphere": scene_medium_sphere,
 }
 
 

@@ -7,7 +7,8 @@ and returns the port's counterpart as float32/int64 tensors on `device`
 Nothing here imports jax or tpusky: the objects are read by field name
 (and an environment by its type's name). Parts the port does not have
 yet raise NotImplementedError: the polarized, hair and measured material
-kinds, media, SDFs, curves and an area emitter on a cube (R8).
+kinds, SDFs, curves and an area emitter on a cube (R8). A medium (one
+region or a tuple) comes over with its static fields as they are.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .ops.distr import ContinuousDistribution, DiscreteDistribution
 from .ops.distr2d import Bilinear2D
 from .render.bsdf import MaterialTable, check_kinds
 from .render.emitters import ConstantEnv, EnvMapState, SpotLight, UniformEnv
+from .render.medium import Medium
 from .render.mesh import MeshTable
 from .render.scene import Scene
 from .render import sensors as sensors_mod
@@ -169,19 +171,41 @@ def spot_light(light, device="cuda") -> SpotLight:
                        for f in SpotLight._fields))
 
 
+_MEDIUM_TENSORS = Medium._fields[:9]
+
+
+def medium(m, device="cuda"):
+    """A `tpusky` Medium, or a tuple of them (regions) -> the port's, its
+    kind, march steps, phase and channel_mis as they are."""
+    if m is None:
+        return None
+    if type(m).__name__ != "Medium":
+        return tuple(medium(r, device) for r in m)
+    return Medium(*(None if getattr(m, f) is None
+                    else _f32(getattr(m, f), device)
+                    for f in _MEDIUM_TENSORS),
+                  int(m.kind), int(m.n_steps),
+                  tuple(m.phase) if isinstance(m.phase, (tuple, list))
+                  else m.phase, bool(m.channel_mis))
+
+
 def scene(sc, device="cuda") -> Scene:
     """A `tpusky` Scene of analytic shapes, triangle meshes, the ported
     materials and their textures, a sunsky, constant, uniform, envmap or
-    no environment and area, point, directional and spot emitters ->
-    Scene. Where no shape emits and none is an emitter, `area_radiance`
-    is None; empty light tables are None."""
-    for field in ("medium", "sdf", "curve"):
+    no environment, area, point, directional, spot and directional-area
+    emitters and media -> Scene, with its bounding sphere. Where no shape
+    emits and none is an emitter, `area_radiance` is None; empty light
+    tables are None, and so is an all-zero `dir_area_radiance`."""
+    for field in ("sdf", "curve"):
         if getattr(sc, field) is not None:
             raise NotImplementedError(f"scene.{field}")
 
     def rows(a):
         return None if _none_or_empty(a) else _f32(a, device)
     area = np.asarray(sc.area_radiance)
+    dir_area = (None if sc.dir_area_radiance is None
+                else np.asarray(sc.dir_area_radiance, np.float32))
+    dir_lit = bool(dir_area is not None and (dir_area > 0).any())
     emitters = (np.zeros((0,), np.int64) if sc.area_emitter_shapes is None
                 else np.asarray(sc.area_emitter_shapes).reshape(-1))
     return Scene(shape_table(sc.shapes, device),
@@ -197,7 +221,10 @@ def scene(sc, device="cuda") -> Scene:
                  (None if sc.delta_light_weights is None
                   else _f32(sc.delta_light_weights, device)),
                  (None if sc.textures is None
-                  else texture_table(sc.textures, device)))
+                  else texture_table(sc.textures, device)),
+                 medium(sc.medium, device), _f32(sc.bsphere_center, device),
+                 _f32(sc.bsphere_radius, device),
+                 _f32(dir_area, device) if dir_lit else None, dir_lit)
 
 
 def perspective(s, device="cuda") -> Perspective:

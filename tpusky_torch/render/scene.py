@@ -1,10 +1,13 @@
 """Scene: analytic shapes, triangle meshes, a material table, its
-textures, the environment (sunsky, constant, uniform, envmap or none) and
-the area, point, directional and spot emitters (`tpusky/render/scene.py`).
+textures, the environment (sunsky, constant, uniform, envmap or none),
+the area, point, directional, spot and directional-area emitters and
+participating media (`tpusky/render/scene.py`).
 
-Media, SDFs and curves are not ported yet, so a Scene here cannot hold
-them. An emitter field left None holds no emitter; `textures` None, no
-texture (the material table's texture columns are then not read).
+SDFs and curves are not ported yet, so a Scene here cannot hold them. An
+emitter field left None holds no emitter; `textures` None, no texture
+(the material table's texture columns are then not read); `medium` None,
+a vacuum. Media do not occlude: `scene_occluded` tests the geometry
+alone.
 """
 
 from __future__ import annotations
@@ -41,6 +44,17 @@ class Scene(NamedTuple):
     # (`scene.cpp:100-119`); None: uniform
     delta_light_weights: Optional[torch.Tensor] = None
     textures: Any = None        # texture.TextureTable | None
+    # medium.Medium, a tuple of them (regions, `medium.as_stack`) or None
+    medium: Any = None
+    # the scene's bounding sphere, where environment particles start
+    # (`sunsky.cpp:287-301`): (3,) centre and () radius
+    bsphere_center: Optional[torch.Tensor] = None
+    bsphere_radius: Optional[torch.Tensor] = None
+    # (n_shapes, C) directional-area radiance (`directionalarea.cpp`; only
+    # the particle tracer sees it) and whether any of it is positive, a
+    # host flag set where the table is built, so no render reads it back
+    dir_area_radiance: Optional[torch.Tensor] = None
+    dir_area_lit: bool = False
     # internal: the RGB emitters' rgb2spec coefficients for spectral mode,
     # set by `with_emitter_coeffs`
     emitter_coeffs: Optional["EmitterCoeffs"] = None
@@ -168,8 +182,8 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                bsdf_opacities=None, bsdf_extras=None,
                bsdf_blend_children=None, bsdf_blend_weights=None,
                bsdf_tex_indices=None, bsdf_normal_tex_indices=None,
-               textures=None, spectral_textures=False,
-               device="cuda") -> Scene:
+               textures=None, spectral_textures=False, medium=None,
+               dir_area_radiance=None, device="cuda") -> Scene:
     """Assemble a scene from host-side descriptions: shapes are dicts
     accepted by `make_shape_table`; the bsdf_* lists are the columns of
     `make_material_table` (the reference package's keyword names); meshes
@@ -181,7 +195,10 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
     `textures` is a list of dicts accepted by `make_texture_table` (its
     texels' spectra fitted when `spectral_textures`), indexed by the
     bsdf_tex_indices (reflectance) and bsdf_normal_tex_indices (normal
-    map) columns, -1 for none."""
+    map) columns, -1 for none. `medium` is a `medium.Medium` or a tuple
+    of them; `dir_area_radiance` (n_shapes, 3) each shape's
+    directional-area radiance. The bounding sphere is estimated from the
+    shapes' transforms, as the reference's."""
     if len(shapes) == 0:
         # a never-hit placeholder keeps the table non-empty
         ph = np.eye(4)
@@ -196,6 +213,11 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                             device=device)
     area_ids = [i for i, s in enumerate(shapes)
                 if s.get("emitter_idx", -1) >= 0]
+    center, radius = bounding_sphere(
+        np.stack([np.asarray(s.get("to_world", np.eye(4)), np.float32)
+                  for s in shapes]))
+    dir_area = (None if dir_area_radiance is None
+                else np.asarray(dir_area_radiance, np.float32))
     if area_ids and area_radiance is None:
         area_radiance = np.zeros((len(shapes), 3), np.float32)
     return Scene(make_shape_table(shapes, device=device),
@@ -222,4 +244,21 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                  (None if delta_light_weights is None
                   else f32(delta_light_weights)),
                  (make_texture_table(textures, spectral_textures, device)
-                  if textures else None))
+                  if textures else None),
+                 medium, f32(center), f32(radius),
+                 None if dir_area is None else f32(dir_area, 3),
+                 bool(dir_area is not None and (dir_area > 0).any()))
+
+
+def bounding_sphere(to_world):
+    """(centre (3,), radius) of the reference's bounding sphere over
+    (n, 4, 4) shape transforms: the mean of their origins, the largest
+    origin distance plus the linear part's Frobenius norm, enlarged by
+    1e-3 (float32, `tpusky/render/scene.py:117-124`)."""
+    t2w = np.asarray(to_world, np.float32)
+    centers = t2w[:, :3, 3]
+    scales = np.linalg.norm(t2w[:, :3, :3], axis=(1, 2))
+    center = centers.mean(axis=0) if len(centers) else np.zeros(3)
+    radius = float(np.max(np.linalg.norm(centers - center, axis=-1) + scales,
+                          initial=1e-4))
+    return center, np.float32(radius * (1.0 + 1e-3))
