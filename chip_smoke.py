@@ -200,9 +200,26 @@ Phases, each of which raises (exit code != 0) on failure:
    the pixels within 1e-3 of the plain path with K14's hits, the mean
    over lit pixels within 3% of `render`'s (512x512x8, depth 4), the
    wall time in turns, launches and busy share;
-22. one JSON line of kernel results (each kernel's launches summed over
-   the main paths, the fog and light-traced frames' included), then the
-   device line, last.
+22. polarized transport at full width: `render_stokes` of the Stokes
+   frame (the headline camera and sunsky, the sphere as a rough gold
+   conductor on a pplastic ground, phase 9's 81,920-triangle icosphere
+   as a smooth dielectric, a linear polarizer, a quarter-wave retarder
+   and a circular polarizer in front of the camera, an RGB area panel
+   and a point light; 512x512x8, depth 4) in RGB (K2, K3, K14) and
+   spectral mode (K10, K11, K14): K4 not launched, two calls bitwise
+   equal, no synchronisation, >= 99.9% of the lanes within 1e-3 of the
+   plain path with K14's hits, of a band of the fully plain path's rows
+   and of a row's first samples on the CPU, the degree of polarization
+   at most 1 + 1e-4 where S0 > 1e-3 and above 0.1 somewhere, the wall
+   time in turns, launches, peak memory and busy share; its depolarizing
+   variant's S0 against `render`'s lanes (>= 99.9% within 1e-3) with
+   S1..S3 exactly 0, in both modes; and the radiance-meter filter stacks
+   (Malus's law, a polarizer's degree of polarization, the quarter-wave
+   chain, crossed circular polarizers) against their closed forms at
+   1e-4;
+23. one JSON line of kernel results (each kernel's launches summed over
+   the main paths, the fog, light-traced and Stokes frames' included),
+   then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -4025,6 +4042,350 @@ def ptracer_phase(dev, card):
     return out
 
 
+# phase 22: the Stokes frames
+STOKES_DEPTH = 4
+STOKES_TURNS = 1
+STOKES_BAND = (256, 2)      # rows held against the fully plain path
+STOKES_CPU = (256, 224, 64)     # the row, first column and columns whose
+                                # first samples are held against the CPU
+STOKES_CHUNK = 4            # spp a lane check holds at once
+STOKES_LANES = 1 << 20      # render_stokes' live wavefront
+AU_IOR = ([0.143, 0.375, 1.442], [3.983, 2.386, 1.603])  # loader.py:419
+MALUS = (0.0, 30.0, 45.0, 60.0, 90.0)
+
+
+def _stokes_scene(state, device, depolarizing=False):
+    """The Stokes frame: the headline camera and sunsky; the sphere as a
+    rough gold conductor (alpha 0.1) on a pplastic ground (alpha 0.08,
+    reflectance [0.3, 0.2, 0.1]); phase 9's 81,920-triangle icosphere as
+    a smooth dielectric (ior 1.5) beside it; three rectangles 1.2 in
+    front of the camera, each about a sixth of the view: a linear
+    polarizer at 30 degrees, a quarter-wave retarder at 45 and a
+    right-handed circular polarizer; an area panel (RGB [5, 4, 3]) above
+    and a point light. `depolarizing`: every material diffuse, no
+    filters, no point light (the S0 check)."""
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    from tpusky_torch.utils.meshio import icosphere
+
+    def at(scale, xyz):
+        m = np.diag(list(scale) + [1.0]).astype(np.float32)
+        m[:3, 3] = xyz
+        return m
+    eye, target = np.array([4.0, -4.0, 2.0]), np.array([0.0, 0.0, 1.0])
+    f = (target - eye) / np.linalg.norm(target - eye)
+    r = np.cross(f, [0.0, 0.0, 1.0])
+    r /= np.linalg.norm(r)
+    u = np.cross(r, f)
+    panel = at([0.8, 0.8, 1.0], [0.0, 0.0, 4.0])
+    panel[:3, :3] = panel[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+    shapes = [dict(kind=1, to_world=at([10.0, 10.0, 1.0], [0, 0, 0]),
+                   bsdf_idx=0),
+              dict(kind=0, to_world=at([1.0] * 3, [0, 0, 1.0]), bsdf_idx=1),
+              dict(kind=1, to_world=panel, bsdf_idx=5, emitter_idx=0)]
+    if not depolarizing:
+        for i, (dx, dy) in enumerate(((-0.25, 0.22), (0.25, 0.22),
+                                      (0.0, -0.25))):
+            m = np.eye(4, dtype=np.float32)
+            m[:3, 0], m[:3, 1], m[:3, 2] = r * 0.2, u * 0.2, -f
+            m[:3, 3] = eye + 1.2 * f + dx * r + dy * u
+            shapes.append(dict(kind=1, to_world=m, bsdf_idx=2 + i))
+    area = np.zeros((len(shapes), 3), np.float32)
+    area[2] = [5.0, 4.0, 3.0]
+    extras = np.zeros((7, 8), np.float32)
+    extras[2, 0] = 30.0
+    extras[3, :2] = [45.0, 90.0]
+    pos, idx = icosphere(FRAME_SUBDIV)
+    scene = make_scene(
+        shapes=shapes,
+        bsdf_kinds=[0] * 7 if depolarizing else [11, 1, 12, 13, 14, 0, 3],
+        bsdf_albedos=[[0.3, 0.2, 0.1], [1.0] * 3, [1.0] * 3, [1.0] * 3,
+                      [1.0] * 3, [0.5] * 3, [1.0] * 3],
+        bsdf_alphas=[0.08] + [0.1] * 6, bsdf_etas=[AU_IOR[0]] * 7,
+        bsdf_ks=[AU_IOR[1]] * 7, bsdf_iors=[1.49] + [1.5] * 6,
+        bsdf_extras=extras, area_radiance=area,
+        point_lights=None if depolarizing else [[-2.5, -1.0, 3.5, 8.0, 8.0,
+                                                 8.0]],
+        meshes=[dict(positions=pos, indices=idx, normals=pos.copy(),
+                     to_world=at([0.7] * 3, [1.5, 1.3, 0.7]), bsdf_idx=6)],
+        env=state, device=device)
+    sensor = make_perspective(list(eye), list(target), fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+def _stokes_share(lanes_k, lanes_p):
+    """(share of Stokes lanes (N, C, 4) whose largest error, per channel
+    relative to the plain lanes' S0 there (floor 1e-3; |S1..S3| <= S0),
+    exceeds 1e-3; that error's maximum)."""
+    rel = ((lanes_k - lanes_p).abs()
+           / lanes_p[..., :1].clamp(min=1e-3)).flatten(1).amax(-1)
+    return float((rel > 1e-3).float().mean()), float(rel.max())
+
+
+def _stokes_frame(label, scene, sensor, mode, card, cpu):
+    """A Stokes frame (H x W x SPP, depth STOKES_DEPTH) through
+    render_stokes in `mode`: the mode's sunsky kernels and K14 launch, K4
+    not; two calls bitwise equal; no synchronisation; every lane within
+    1e-3 of the plain path with K14's hits on >= 99.9%, the STOKES_BAND
+    rows of the fully plain path (the dense mesh intersection) and the
+    first samples of a part of a row of the CPU's too; the degree of polarization at
+    most 1 + 1e-4 where S0 > 1e-3 and above 0.1 somewhere; the wall time
+    in turns with the plain path's, the launches, the peak memory and the
+    busy share. Returns the launches of one render_stokes."""
+    import torch
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.polarized import render_stokes, stokes_lanes
+    from tpusky_torch.render.scene import with_mesh_tables
+    film = Film(H, W, 3)
+    lanes_film = Film(H, W, 12)
+    kinds = B.table_kinds(scene.bsdfs)
+    scene_k = with_mesh_tables(scene)
+    sky = (("sunsky_hit_rgb", "sunsky_nee_rgb") if mode == "rgb"
+           else ("sunsky_hit_spec", "sunsky_nee_spec"))
+    focus = ((("K2", "hit_kernel"), ("K3", "nee_kernel")) if mode == "rgb"
+             else (("K10", "hit_spec_kernel"), ("K11", "nee_spec_kernel")))
+
+    def frame():
+        return render_stokes(scene, sensor, film, SEED, spp=SPP,
+                             max_depth=STOKES_DEPTH, mode=mode,
+                             max_lanes=STOKES_LANES)
+
+    def plain_frame():
+        with _k14_as_plain_mesh(scene_k.mesh_tables):
+            return render_stokes(scene, sensor, film, SEED, spp=SPP,
+                                 max_depth=STOKES_DEPTH, mode=mode,
+                                 max_lanes=STOKES_LANES, plain=True)
+
+    def lanes(sc, se, plain, spp0, chunk=STOKES_CHUNK, row0=0,
+              n_rows=None, col0=0, n_cols=None):
+        return stokes_lanes(sc, se, lanes_film, SEED, SPP, spp0, chunk,
+                            STOKES_DEPTH, 1000, mode, kinds=kinds,
+                            plain=plain, row0=row0, n_rows=n_rows,
+                            col0=col0, n_cols=n_cols)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: {first_s:.2f} s (first call), kinds {kinds}, launches "
+          f"{launches}, peak memory {peak_gib:.2f} GiB")
+    _require(launches, sky + ("mesh_intersect",), f"the {label}")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError(f"the {label} went through K4")
+    if not (img.shape == (H, W, 4, 3) and bool(torch.isfinite(img).all())
+            and float(img[:, :, 0].mean()) > 0.0):
+        raise AssertionError(f"{label}: image not finite, shaped or lit")
+    if not torch.equal(frame(), img):
+        raise AssertionError(f"two render_stokes calls of the {label} "
+                             "differ")
+    _no_sync(frame, f"the {label}'s render_stokes")
+    steps = [("first call, repeat, sync check", time.perf_counter() - t0)]
+    s0 = img[:, :, 0]
+    dop = img[:, :, 1:].norm(dim=2) / s0.clamp(min=1e-6)
+    lit = s0 > 1e-3
+    dop_max = float(dop[lit].max())
+    print(f"check {label} degree of polarization: max {dop_max:.6f} over "
+          f"{int(lit.sum())} lit pixel channels (bars <= 1 + 1e-4, > 0.1); "
+          f"mean S0 {float(s0.mean()):.5f}, mean |S1..S3| "
+          f"{float(img[:, :, 1:].abs().mean()):.5f}")
+    if not (dop_max <= 1.0 + 1e-4 and dop_max > 0.1):
+        raise AssertionError(f"the {label}'s degree of polarization is out "
+                             "of bounds")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        n_out, n_all, worst = 0, 0, 0.0
+        kernel_band = []
+        row0, n_rows = STOKES_BAND
+        for spp0 in range(0, SPP, STOKES_CHUNK):
+            lanes_k = lanes(scene_k, sensor, False, spp0)
+            with _k14_as_plain_mesh(scene_k.mesh_tables):
+                lanes_p = lanes(scene, sensor, True, spp0)
+            share, w = _stokes_share(lanes_k, lanes_p)
+            n_out += share * lanes_k.shape[0]
+            n_all += lanes_k.shape[0]
+            worst = max(worst, w)
+            kernel_band.append(lanes_k.reshape(
+                H, W, STOKES_CHUNK, 3, 4)[row0:row0 + n_rows])
+            del lanes_k, lanes_p
+        kernel_band = torch.cat(kernel_band, 2).reshape(-1, 3, 4)
+        steps.append(("lanes", time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        band_p = lanes(scene, sensor, True, 0, SPP, row0, n_rows)
+        band_share, band_worst = _stokes_share(kernel_band, band_p)
+        t_cpu = time.perf_counter()
+        cpu_row, col0, n_cols = STOKES_CPU
+        cpu_lanes = lanes(*cpu, True, 0, 1, cpu_row, 1, col0, n_cols)
+        cpu_s = time.perf_counter() - t_cpu
+        first = kernel_band.reshape(n_rows, W, SPP, 3, 4)[
+            cpu_row - row0, col0:col0 + n_cols, 0].cpu()
+        cpu_share, cpu_worst = _stokes_share(first, cpu_lanes)
+    steps.append(("dense band and CPU", time.perf_counter() - t0))
+    share = n_out / n_all
+    print(f"check {label} lanes: {share:.2e} of {n_all} lanes outside 1e-3 "
+          f"of the plain path with K14's hits (bar 1e-3), max {worst:.3e}; "
+          f"rows {row0}-{row0 + n_rows} against the fully plain path (dense "
+          f"mesh): {band_share:.2e} of {band_p.shape[0]} outside, max "
+          f"{band_worst:.3e}; row {cpu_row}, columns {col0}-{col0 + n_cols}"
+          f", first samples against the CPU: {cpu_share:.2e} of "
+          f"{cpu_lanes.shape[0]} outside, max "
+          f"{cpu_worst:.3e} (the CPU took {cpu_s:.1f} s); two calls "
+          f"bitwise equal")
+    if not (share <= 1e-3 and band_share <= 1e-3 and cpu_share <= 1e-3):
+        raise AssertionError(f"the {label} disagrees with the plain path")
+    del kernel_band, band_p
+    t0 = time.perf_counter()
+    plain_frame()
+    ms, plain_ms, runs, plain_runs = _turns(frame, plain_frame,
+                                            STOKES_TURNS)
+    steps.append(("turns", time.perf_counter() - t0))
+    # the profile of one chunk (half the frame's samples): its ~30K
+    # launches take the profiler's bookkeeping ~25 s, the frame's ~50 s
+    chunk_spp = min(SPP, max(1, STOKES_LANES // (H * W)))
+
+    def chunk():
+        return render_stokes(scene, sensor, film, SEED, spp=chunk_spp,
+                             max_depth=STOKES_DEPTH, mode=mode,
+                             max_lanes=STOKES_LANES)
+    t0 = time.perf_counter()
+    busy = _profile_window(f"{label}, one chunk of {STOKES_LANES} lanes",
+                           chunk, card, iters=1,
+                           focus=(("K14", "mesh_isect_kernel"),) + focus)
+    steps.append(("profile", time.perf_counter() - t0))
+    print(f"time {label} ({W}x{H}x{SPP}, depth {STOKES_DEPTH}, "
+          f"{int(scene.mesh.valid.sum())} triangles, {mode}): render_stokes "
+          f"{ms:.3f} ms (runs {', '.join(f'{t:.2f}' for t in runs)}), plain "
+          f"path with K14's hits {plain_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in plain_runs)}), in turns; "
+          f"{launches[sky[0]]} {sky[0]}, {launches[sky[1]]} {sky[1]} and "
+          f"{launches['mesh_intersect']} K14 launches a call; peak memory "
+          f"{peak_gib:.2f} GiB; device busy {100 * busy:.1f}% (one chunk) "
+          f"[{card}]")
+    print(f"{label} steps: "
+          + ", ".join(f"{name} {t:.1f} s" for name, t in steps))
+    return launches
+
+
+def _stokes_s0_check(label, scene, sensor, mode):
+    """On the depolarizing variant S0 of every lane equals the scalar
+    path's (`_lane_radiance`, the same K2/K3/K14 or K10/K11/K14 lookups)
+    within 1e-3 on >= 99.9% of the lanes, and S1..S3 are exactly 0."""
+    import torch
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.polarized import stokes_lanes
+    from tpusky_torch.render.scene import with_mesh_tables
+    kinds = B.table_kinds(scene.bsdfs)
+    scene = with_mesh_tables(scene)
+    n_out, n_all, worst, pol = 0, 0, 0.0, 0.0
+    with torch.no_grad():
+        for spp0 in range(0, SPP, STOKES_CHUNK):
+            st = stokes_lanes(scene, sensor, Film(H, W, 12), SEED, SPP,
+                              spp0, STOKES_CHUNK, STOKES_DEPTH, 1000, mode,
+                              kinds=kinds)
+            sc = integrator._lane_radiance(
+                scene, sensor, Film(H, W, 3), SEED, SPP, spp0, STOKES_CHUNK,
+                STOKES_DEPTH, 1000, mode, 0, H, kinds=kinds)
+            share, w = _lanes_share(st[..., 0], sc)
+            n_out += share * sc.shape[0]
+            n_all += sc.shape[0]
+            worst = max(worst, w)
+            pol = max(pol, float(st[..., 1:].abs().max()))
+    print(f"check {label} S0 against the scalar path: {n_out / n_all:.2e} "
+          f"of {n_all} lanes outside 1e-3 (bar 1e-3), max {worst:.3e}; "
+          f"largest |S1..S3| {pol} (bar 0)")
+    if not (n_out / n_all <= 1e-3 and pol == 0.0):
+        raise AssertionError(f"{label}: S0 differs from the scalar path or "
+                             "S1..S3 are not 0")
+
+
+def _stokes_filter_checks(dev):
+    """tests/test_polarized.py:142-184's radiance-meter stacks through
+    render_stokes on the card (plain ops: a constant white environment)
+    against their closed forms at 1e-4: Malus's law at 0, 30, 45, 60 and
+    90 degrees, one polarizer with a degree of polarization of 1, the
+    quarter-wave chain (|S3| = S0, S1 = S2 = 0) and the crossed circular
+    polarizers."""
+    import torch
+    from tpusky_torch.render.emitters import ConstantEnv
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.polarized import render_stokes
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import RadianceMeter
+    meter = RadianceMeter(torch.tensor([0.0, 0.0, 3.0], device=dev),
+                          torch.tensor([0.0, 0.0, -1.0], device=dev))
+
+    def stack(elements):
+        """(4, 3) Stokes seen through rectangles at z = 2, 1, ... (first
+        closest to the camera) of (kind, theta, delta, left-handed)."""
+        shapes, extras = [], np.zeros((len(elements), 8), np.float32)
+        for i, (_, theta, delta, left) in enumerate(elements):
+            m = np.eye(4, dtype=np.float32)
+            m[2, 3] = 2.0 - i
+            shapes.append(dict(kind=1, to_world=m, bsdf_idx=i))
+            extras[i, :3] = [theta, delta, left]
+        scene = make_scene(
+            shapes=shapes, bsdf_kinds=[e[0] for e in elements],
+            bsdf_albedos=[[1.0] * 3] * len(elements), bsdf_extras=extras,
+            env=ConstantEnv(torch.ones(3, device=dev)), device=dev)
+        return render_stokes(scene, meter, Film(2, 2, 3), SEED, spp=1,
+                             max_depth=5)[0, 0].cpu().numpy()
+    worst = 0.0
+    for t in MALUS:
+        s = stack([(12, 0.0, 0.0, 0.0), (12, t, 0.0, 0.0)])
+        worst = max(worst, abs(s[0].mean() - 0.5 * np.cos(np.deg2rad(t)) ** 2))
+    s = stack([(12, 0.0, 0.0, 0.0)])
+    dop = np.linalg.norm(s[1:], axis=0) / s[0]
+    worst = max(worst, abs(s[0].mean() - 0.5), np.abs(dop - 1.0).max())
+    s = stack([(13, 45.0, 90.0, 0.0), (12, 0.0, 0.0, 0.0)])
+    worst = max(worst, abs(s[0].mean() - 0.5),
+                np.abs(np.abs(s[3]) - s[0]).max(), np.abs(s[1:3]).max())
+    same = stack([(14, 0.0, 0.0, 0.0), (14, 0.0, 0.0, 0.0)])
+    cross = stack([(14, 0.0, 0.0, 1.0), (14, 0.0, 0.0, 0.0)])
+    worst = max(worst, abs(same[0].mean() - 0.5), abs(cross[0].mean()))
+    print(f"check Stokes filters (radiance meter, plain ops on the card): "
+          f"Malus's law at {MALUS} degrees, one polarizer's degree of "
+          f"polarization, the quarter-wave chain and the crossed circular "
+          f"polarizers against their closed forms: largest error "
+          f"{worst:.2e} (bar 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError("a filter stack misses its closed form")
+
+
+def stokes_frame_phase(dev, card):
+    """Phase 22: the Stokes frames at full width, RGB and spectral, the S0
+    check in both modes and the filter stacks (see the module docstring).
+    Returns each frame's launches."""
+    import tpusky_torch as tt
+    out = {}
+    for mode in ("rgb", "spectral"):
+        t0 = time.perf_counter()
+
+        def state(device, mode=mode):
+            return tt.sunsky_precompute(tt.make_params(
+                turbidity=3.0, albedo=0.3, sun_direction=SUN, mode=mode,
+                device=device), mode=mode)
+        st = state(dev)
+        scene, sensor = _stokes_scene(st, dev)
+        cpu = _stokes_scene(state("cpu"), "cpu")
+        print(f"phase 22 {mode}: scenes built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out[mode] = _stokes_frame(f"Stokes frame ({mode})", scene, sensor,
+                                  mode, card, cpu)
+        del scene, cpu
+        t1 = time.perf_counter()
+        _stokes_s0_check(f"depolarizing Stokes frame ({mode})",
+                         *_stokes_scene(st, dev, depolarizing=True), mode)
+        print(f"phase 22 {mode}: {time.perf_counter() - t0:.1f} s (the S0 "
+              f"check {time.perf_counter() - t1:.1f} s)")
+    _stokes_filter_checks(dev)
+    return out
+
+
 START = time.perf_counter()
 
 
@@ -4558,7 +4919,12 @@ def main():
     light_traced = ptracer_phase(dev, card)
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 22. bounds and results ----
+    # ---- 22. polarized transport ----
+    t0 = time.perf_counter()
+    stokes = stokes_frame_phase(dev, card)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 23. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -4621,11 +4987,13 @@ def main():
             results[key] = max(results[key], err)
     times["K14"], bounds["K14"] = mesh_times, mesh_bound
     counts["K14"], results["K14"] = mesh_launches, mesh_err
-    # the fog and light-traced frames' runs are main paths of their own:
+    # the fog, light-traced and Stokes frames' runs are main paths of
+    # their own:
     # their launches add to each kernel's count
     new_paths = {f"fog {k}": v for k, v in fog.items()}
     new_paths.update({f"light-traced {k}": v
                       for k, v in light_traced.items()})
+    new_paths.update({f"Stokes {k}": v for k, v in stokes.items()})
     for path, runs in new_paths.items():
         print(f"launches on the {path} path: "
               + ", ".join(f"{key} {runs[KERNELS[key][0]]}"

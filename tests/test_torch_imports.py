@@ -78,6 +78,8 @@ def test_package_has_kernel_wrappers():
             "tpusky_torch.utils.chi2",
             "tpusky_torch.utils.ztest",
             "tpusky_torch.parallel.render",
+            "tpusky_torch.ops.mueller",
+            "tpusky_torch.render.polarized",
             "tpusky_torch.convert"} <= names
     csrc = set(os.listdir(os.path.join(_PKG, "csrc")))
     assert {"sunsky_core.cuh", "sunsky_kernels.cu", "megakernel.cu",

@@ -1,8 +1,10 @@
 """Shared parts of the port's spectral sunsky tests against the JAX package
 (tests/test_torch_spectral.py and the files of at most 3 items beside it,
-tests/test_torch_spectral_{eval_hit,sample_eval}.py, which pytest-xdist's
-`--dist loadfile` hands out after tests/test_multihost.py): the states,
-the lanes, and the tests of K9-K11's plain versions, whose JAX and
+tests/test_torch_spectral_{eval_hit,sample_eval,distr,state,wrappers,
+precompute_t30,precompute_t35}.py and tests/test_torch_spectrum_{cie,
+colour,srgb,sampling}.py, which pytest-xdist's `--dist loadfile` hands out
+after tests/test_multihost.py): the states, the lanes, the spectrum
+cases, and the tests of K9-K11's plain versions, whose JAX and
 interpret-mode Pallas compiles take most of the time.
 
 Both run on the CPU from the same numpy-seeded inputs. The JAX side runs
@@ -19,11 +21,13 @@ import torch
 import tpusky as ts
 from tpusky.models.sunsky import model as JM
 from tpusky.models.sunsky import tables as JT
+from tpusky.ops import spectrum as JS
 from tpusky.ops.pallas import sunsky_kernel as JK
 
 import tpusky_torch as tt
 from tpusky_torch import convert
 from tpusky_torch.models.sunsky import model as TM
+from tpusky_torch.ops import spectrum as TS
 
 SUN = [0.3, 0.2, 0.93]
 N = 2048
@@ -61,6 +65,73 @@ def _lanes(sun, nw, seed):
     wl = rng.uniform(300.0, 760.0, (N, nw)).astype(np.float32)
     wl[:8, 0] = [320.0, 720.0, 360.0, 680.0, 319.99, 720.01, 500.0, 700.0]
     return d.astype(np.float32), wl
+
+
+# ---------------------------------------------------------------------------
+# shared by the files of at most 3 items split from test_torch_spectral.py
+# ---------------------------------------------------------------------------
+
+_STATE_FIELDS = ("sun_angles", "sun_frame_s", "sun_frame_t", "sun_frame_n",
+                 "sky_params", "sky_radiance", "sun_radiance", "sun_ld",
+                 "gaussians", "sky_sampling_w")
+
+
+def _wavelengths(shape, seed):
+    return np.random.default_rng(seed).uniform(
+        300.0, 850.0, shape).astype(np.float32)
+
+
+_SPECTRUM_CASES = {
+    "cie1931_xyz": lambda m, wl, v: m.cie1931_xyz(wl),
+    "cie1931_y": lambda m, wl, v: m.cie1931_y(wl),
+    "cie_d65": lambda m, wl, v: m.cie_d65(wl),
+    "luminance_spectral": lambda m, wl, v: m.luminance_spectral(v, wl),
+    "spectrum_to_xyz": lambda m, wl, v: m.spectrum_to_xyz(v, wl),
+    "spectrum_to_srgb": lambda m, wl, v: m.spectrum_to_srgb(v, wl),
+    "xyz_to_srgb": lambda m, wl, v: m.xyz_to_srgb(v[..., :3]),
+    "srgb_to_xyz": lambda m, wl, v: m.srgb_to_xyz(v[..., :3]),
+    "srgb_gamma": lambda m, wl, v: m.srgb_gamma(v - 0.2),
+    "sample_shifted": lambda m, wl, v: m.sample_shifted(v[..., 0] / 1.3, 4),
+    "sample_rgb_spectrum": lambda m, wl, v: m.sample_rgb_spectrum(
+        v / 1.3001),
+    "pdf_rgb_spectrum": lambda m, wl, v: m.pdf_rgb_spectrum(wl),
+}
+
+# the spectrum cases by file (tests/test_torch_spectrum_{cie,colour,srgb,
+# sampling}.py), every case in one
+SPECTRUM_GROUPS = {
+    "cie": ("cie1931_xyz", "cie1931_y", "cie_d65"),
+    "colour": ("luminance_spectral", "spectrum_to_xyz", "spectrum_to_srgb"),
+    "srgb": ("xyz_to_srgb", "srgb_to_xyz", "srgb_gamma"),
+    "sampling": ("sample_shifted", "sample_rgb_spectrum", "pdf_rgb_spectrum"),
+}
+assert sorted(n for g in SPECTRUM_GROUPS.values() for n in g) == sorted(
+    _SPECTRUM_CASES)
+
+
+def spectrum_case(name):
+    """Every function of ops/spectrum.py within 1e-5 of the JAX package's
+    (relative to the output's largest magnitude) on wavelengths across
+    and outside the CIE range."""
+    wl = _wavelengths((4096, 4), 0)
+    v = np.random.default_rng(1).uniform(0.0, 1.3, (4096, 4)).astype(
+        np.float32)
+    fn = _SPECTRUM_CASES[name]
+    ref = jax.jit(lambda a, b: fn(JS, a, b))(wl, v)
+    out = fn(TS, torch.tensor(wl), torch.tensor(v))
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    outs = out if isinstance(out, tuple) else (out,)
+    for a, b in zip(outs, refs):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == np.float32
+        assert np.abs(a - b).max() <= 1e-5 * max(np.abs(b).max(), 1e-30)
+
+
+def _leaves(obj):
+    """The tensors (and Nones) of a nested NamedTuple, in field order."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return [x for v in obj for x in _leaves(v)]
+    return [obj]
 
 
 # ---------------------------------------------------------------------------

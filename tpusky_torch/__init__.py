@@ -25,7 +25,9 @@ wavelengths in nm::
     spec = tt.sunsky_eval(state, directions, mode="spectral",
                           wavelengths=wl)              # (..., W) radiance
 
-See `tpusky_torch.render.integrator.render` for the scene renderer.
+See `tpusky_torch.render.integrator.render` for the scene renderer and
+`tpusky_torch.render.polarized.render_stokes` for its Stokes-vector
+(polarized) counterpart.
 """
 
 from .models.sunsky import constants as sunsky_constants

@@ -5,10 +5,13 @@ turned into numpy arrays (for example `jax.tree.map(np.asarray, state)`)
 and returns the port's counterpart as float32/int64 tensors on `device`
 (the card unless the caller names another device).
 Nothing here imports jax or tpusky: the objects are read by field name
-(and an environment by its type's name). Parts the port does not have
-yet raise NotImplementedError: the polarized, hair and measured material
-kinds, SDFs, curves and an area emitter on a cube (R8). A medium (one
-region or a tuple) comes over with its static fields as they are.
+(and an environment by its type's name). The polarized material kinds
+11-14 come over with their `extra` columns (theta, delta, left-handed;
+`render/polarized.py` renders them in Stokes vectors). Parts the port
+does not have yet raise NotImplementedError: the hair and measured
+material kinds, SDFs, curves and an area emitter on a cube (R8). A
+medium (one region or a tuple) comes over with its static fields as
+they are.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Material table: the non-polarized kinds of `tpusky/render/bsdf.py`.
+"""Material table: the kinds of `tpusky/render/bsdf.py` but hair and the
+measured ones.
 
 Kinds (the reference package's numbering):
 
@@ -24,6 +25,18 @@ Kinds (the reference package's numbering):
                     clearcoat_gloss, spec_tint, -]
  10 blend           `blend_w` of row `blend_b` and 1 - `blend_w` of row
                     `blend_a` (`blendbsdf.cpp`), children not blends
+ 11 pplastic        polarized plastic (`pplastic.cpp`): a GGX dielectric
+                    coat plus a Lambertian base attenuated by both
+                    refractions, the coat picked with 1 / (1 + mean albedo)
+ 12 polarizer       linear polarizer (`polarizer.cpp`): straight through,
+                    delta, half the transmittance (`albedo`) unpolarized;
+                    `extra` [theta deg, -, -, ...]
+ 13 retarder        linear retarder (`retarder.cpp`): straight through,
+                    delta, the transmittance; `extra` [theta deg, delta
+                    deg, -, ...]
+ 14 circular        circular polarizer (`circular.cpp`): straight through,
+                    delta, half the transmittance; `extra` [-, -,
+                    left-handed (> 0.5), ...]
  15 principledthin  thin Disney BSDF (`principledthin.cpp`); `extra` holds
                     [spec_trans, diff_trans, sheen, sheen_tint, flatness,
                     spec_tint, -, -]
@@ -34,14 +47,16 @@ reflectance texture (`tex_idx`) and a normal map (`normal_tex_idx`) into
 the scene's `render/texture.py` table (-1: none). The integrator
 evaluates the texture once a vertex and hands it to every query there as
 `refl_tex`, which replaces the reflectance of the Lambertian lobe of
-kinds 0, 4, 8, 9 and of kind 15 (the reference's `_apply_tex`), not a
-conductor's tint. Kinds 11-14 (polarized) wait for
-`render/polarized.py`, 16 (hair) for `render/curve.py`, 17 and 18
-(measured) for `render/measured.py`: they raise.
+kinds 0, 4, 8, 9, 11 and 15 and the filters' transmittance (the
+reference's `_apply_tex`), not a conductor's tint. Kinds 11-14 carry
+here their scalar radiometry, which the scalar path renders as the
+reference's does; their Mueller matrices are in `render/polarized.py`.
+Kind 16 (hair) waits for `render/curve.py`, 17 and 18 (measured) for
+`render/measured.py`: they raise.
 
-Kinds 0-2, 4, 8 and 9 sit behind the `twosided.cpp` adapter; the
-dielectrics, null and principledthin are two-sided by construction and
-work in the geometric frame. Materials live in one struct-of-arrays
+Kinds 0-2, 4, 8, 9 and 11 sit behind the `twosided.cpp` adapter; the
+dielectrics, null, the filters and principledthin are two-sided by
+construction and work in the geometric frame. Materials live in one struct-of-arrays
 table; `eval_pdf` and `sample` evaluate the lobes the table holds (its
 `table_kinds`) and select per lane by kind. The delta lobes evaluate to
 zero in `eval_pdf` (their throughput arrives only through `sample`, with
@@ -69,17 +84,17 @@ DIFFUSE, ROUGH_CONDUCTOR, CONDUCTOR, DIELECTRIC = 0, 1, 2, 3
 PLASTIC, ROUGH_DIELECTRIC, NULL_BSDF = 4, 5, 6
 THIN_DIELECTRIC, ROUGH_PLASTIC, PRINCIPLED = 7, 8, 9
 BLEND = 10
+PPLASTIC, POLARIZER, RETARDER, CIRCULAR = 11, 12, 13, 14
 PRINCIPLED_THIN = 15
 KINDS = (DIFFUSE, ROUGH_CONDUCTOR, CONDUCTOR, DIELECTRIC, PLASTIC,
          ROUGH_DIELECTRIC, NULL_BSDF, THIN_DIELECTRIC, ROUGH_PLASTIC,
-         PRINCIPLED, BLEND, PRINCIPLED_THIN)
+         PRINCIPLED, BLEND, PPLASTIC, POLARIZER, RETARDER, CIRCULAR,
+         PRINCIPLED_THIN)
 # the reference's other kinds, by the module each waits for
-_WAITS = {11: "render/polarized.py", 12: "render/polarized.py",
-          13: "render/polarized.py", 14: "render/polarized.py",
-          16: "render/curve.py", 17: "render/measured.py",
+_WAITS = {16: "render/curve.py", 17: "render/measured.py",
           18: "render/measured.py"}
 # the kinds whose lobes start from the Lambertian sample and reflectance
-_BASE = (DIFFUSE, PLASTIC, ROUGH_PLASTIC, PRINCIPLED)
+_BASE = (DIFFUSE, PLASTIC, ROUGH_PLASTIC, PRINCIPLED, PPLASTIC)
 
 
 class MaterialTable(NamedTuple):
@@ -369,6 +384,37 @@ def _rough_plastic_eval(albedo, alpha, ior, wi_l, wo_l):
     return spec[..., None] + diff, pdf
 
 
+def _pplastic_eval(albedo, alpha, ior, wi_l, wo_l, prob_spec):
+    """Polarized plastic's scalar radiometry (`pplastic.cpp:312-401`, its
+    unpolarized path; `tpusky/render/bsdf.py:323-355`): a GGX dielectric
+    coat plus a Lambertian base attenuated by both refractions, (1 - F_i)
+    (1 - F_o), without the internal-scattering series of roughplastic ->
+    (value = f cos_o (..., C), pdf). `prob_spec` picks the coat
+    (`pplastic.cpp:202-212`)."""
+    cos_i = wi_l[..., 2].clamp(min=0.0)
+    cos_o = wo_l[..., 2].clamp(min=0.0)
+    alpha = alpha.clamp(min=1e-3)
+    m = _unit(wi_l + wo_l)
+    d_ndf = _ggx_ndf(m, alpha)
+    g = _ggx_g1(wi_l, alpha) * _ggx_g1(wo_l, alpha)
+    wim = (wi_l * m).sum(-1)
+    f_spec, _, _ = fresnel_dielectric(wim.clamp(min=0.0), ior)
+    spec = f_spec * d_ndf * g / (4.0 * cos_i.clamp(min=1e-6))
+    f_i, _, _ = fresnel_dielectric(cos_i, ior)
+    f_o, _, _ = fresnel_dielectric(cos_o, ior)
+    diff = albedo * ((1.0 - f_i) * (1.0 - f_o) * warp.INV_PI
+                     * cos_o)[..., None]
+    pdf_spec = d_ndf * m[..., 2] / (4.0 * wim.abs()).clamp(min=1e-6)
+    pdf = prob_spec * pdf_spec + (1.0 - prob_spec) * warp.INV_PI * cos_o
+    return spec[..., None] + diff, pdf
+
+
+def _pplastic_prob_spec(table, mat_idx):
+    """The pplastic coat's selection probability 1 / (1 + mean RGB
+    albedo), untextured in both modes (`tpusky/render/bsdf.py:1038`)."""
+    return 1.0 / (1.0 + table.albedo[mat_idx].mean(-1))
+
+
 def _schlick5(c):
     m = (1.0 - c).clamp(0.0, 1.0)
     m2 = m * m
@@ -655,7 +701,7 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
     # the Lambertian reflectance, textured; a conductor's tint is not
     albedo = _apply_tex(refl, refl_tex)
     if any(k in present for k in (PLASTIC, ROUGH_DIELECTRIC,
-                                  ROUGH_PLASTIC)):
+                                  ROUGH_PLASTIC, PPLASTIC)):
         ior = table.ior[mat_idx]
 
     if DIFFUSE in present:
@@ -678,6 +724,14 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
         is_rough = kind == ROUGH_CONDUCTOR
         value = _select(is_rough, rough_val, value)
         pdf = _select(is_rough, rough_pdf, pdf)
+
+    if PPLASTIC in present:
+        pp_val, pp_pdf = _pplastic_eval(albedo, table.alpha[mat_idx], ior,
+                                        wi_l, wo_l,
+                                        _pplastic_prob_spec(table, mat_idx))
+        is_pp = kind == PPLASTIC
+        value = _select(is_pp, pp_val, value)
+        pdf = _select(is_pp, pp_pdf, pdf)
 
     if ROUGH_PLASTIC in present:
         rp_val, rp_pdf = _rough_plastic_eval(albedo, table.alpha[mat_idx],
@@ -787,7 +841,7 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
         wo_diff = warp.square_to_cosine_hemisphere(sample2)
         pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo_diff)
     if any(k in present for k in (DIELECTRIC, PLASTIC, ROUGH_DIELECTRIC,
-                                  THIN_DIELECTRIC, ROUGH_PLASTIC)):
+                                  THIN_DIELECTRIC, ROUGH_PLASTIC, PPLASTIC)):
         ior = table.ior[mat_idx]
 
     def through_eval(is_k, wo_k, val, pdf_k, valid):
@@ -854,6 +908,19 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
         pr_val, pr_pdf = _principled_eval(albedo, rough, extra, wi_l, wo_pr)
         wo, weight, pdf = through_eval(kind == PRINCIPLED, wo_pr, pr_val,
                                        pr_pdf, wo_pr[..., 2] > 0.0)
+
+    if PPLASTIC in present:
+        # the coat or the base by the reflectance-balanced probability
+        # (`pplastic.cpp:216-262`)
+        alpha_pp = table.alpha[mat_idx]
+        prob_pp = _pplastic_prob_spec(table, mat_idx)
+        m_pp = _ggx_sample(alpha_pp.clamp(min=1e-3), sample2)
+        wo_pp = torch.where((sample1 < prob_pp)[..., None],
+                            _reflect(wi_l, m_pp), wo_diff)
+        pp_val, pp_pdf = _pplastic_eval(albedo, alpha_pp, ior, wi_l, wo_pp,
+                                        prob_pp)
+        wo, weight, pdf = through_eval(kind == PPLASTIC, wo_pp, pp_val,
+                                       pp_pdf, wo_pp[..., 2] > 0.0)
 
     if ROUGH_PLASTIC in present:
         # the coat with probability F(cos_i), else the base
@@ -1008,6 +1075,18 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
         weight = _select(is_null, torch.ones_like(weight), weight)
         pdf = _select(is_null, torch.ones_like(pdf), pdf)
         is_delta = is_delta | is_null
+
+    # the polarization filters: straight through, delta, with their
+    # unpolarized transmission (`polarizer.cpp:148`, `retarder.cpp:137`,
+    # `circular.cpp:111`); `render/polarized.py` holds their Mueller
+    # matrices (`tpusky/render/bsdf.py:1600-1617`)
+    for k, fac in ((POLARIZER, 0.5), (RETARDER, 1.0), (CIRCULAR, 0.5)):
+        if k in present:
+            is_k = kind == k
+            wo = _select(is_k, -wi, wo)
+            weight = _select(is_k, fac * albedo, weight)
+            pdf = _select(is_k, torch.ones_like(pdf), pdf)
+            is_delta = is_delta | is_k
 
     if any_mask:
         # the mask's pass-through overrides every lobe

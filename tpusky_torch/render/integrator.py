@@ -2,10 +2,12 @@
 
 The PyTorch counterpart of `tpusky/render/integrator.py`: analytic
 shapes (sphere, rectangle, disk, cube, cylinder), triangle meshes
-(kernel K14 on the card), every non-polarized material kind but hair
-and the measured ones (diffuse, rough conductor, conductor, dielectric,
-plastic, rough dielectric, null, thin dielectric, rough plastic,
-principled, blend, principledthin) with opacity masks, textures and
+(kernel K14 on the card), every material kind but hair and the measured
+ones (diffuse, rough conductor, conductor, dielectric, plastic, rough
+dielectric, null, thin dielectric, rough plastic, principled, blend,
+principledthin, and the polarized kinds' scalar radiometry: pplastic,
+polarizer, retarder, circular; their Stokes transport is
+`render/polarized.py`'s `render_stokes`) with opacity masks, textures and
 normal maps (`render/texture.py`: uv at analytic and mesh hits, vertex
 colours), the sunsky, constant, uniform and bitmap (envmap) environments
 or none, area emitters, point, directional and spot lights, NEE + MIS
