@@ -217,9 +217,27 @@ Phases, each of which raises (exit code != 0) on failure:
    (Malus's law, a polarizer's degree of polarization, the quarter-wave
    chain, crossed circular polarizers) against their closed forms at
    1e-4;
-23. one JSON line of kernel results (each kernel's launches summed over
-   the main paths, the fog, light-traced and Stokes frames' included),
-   then the device line, last.
+23. SDF grids, curves with hair and measured BRDFs at full width: the
+   headline sunsky, camera and size (512x512x8, depth 4, Russian
+   roulette from depth 3) over a diffuse ground, a 64^3 SDF torus shaded
+   by the RGL measured BRDF (synthetic RGL-layout tables from a seed,
+   spectral in spectral mode) and a tuft of 64 B-spline strands (1,536
+   rounded cones) shaded by the hair BCSDF with a direct sigma_a,
+   through `render` in RGB (K2, K3) and spectral mode (K10, K11): K4
+   refused, two renders bitwise equal, no synchronisation, >= 99.9% of
+   the lanes within 1e-3 of the plain path, render()'s time, launches,
+   peak memory, the busy share of a band of rows and each intersection's
+   device ms a 2^20-ray wavefront; an SDF sphere frame against the
+   analytic sphere's (mean relative error below 0.05); hair's and the
+   measured BRDF's sampling through the chi-square test at N = 1e7; the
+   fwd+bwd at 256x256x4, depth 3, to the grid values and the turbidity
+   (K5, K6) against the plain path (1e-3 of scale) with its peak memory;
+   and `render_stokes` of the headline sphere as a measured pBRDF (kind
+   18) at 512x512x8, depth 4: bitwise repeats, a band of rows' lanes
+   within 1e-3 of the plain path, the degree of polarization at most 1;
+24. one JSON line of kernel results (each kernel's launches summed over
+   the main paths, the fog, light-traced, Stokes and geometry frames'
+   included), then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -2062,7 +2080,10 @@ def _profile_window(name, fn, card, iters=2,
     of iters calls after a warm-up; prints the wall time, the device's
     busy share, the device time of each (label, kernel name pattern) in
     `focus` with its share of the busy time, and the 12 largest
-    device-time entries. Returns the busy share."""
+    device-time entries. It records the device's activity alone: the
+    host's ops would add several events a launch to the profiler's
+    bookkeeping, tens of seconds for a frame of 60,000 launches. Returns
+    the busy share."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2072,8 +2093,7 @@ def _profile_window(name, fn, card, iters=2,
                        getattr(evt, "self_cuda_time_total", 0.0))
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -4386,6 +4406,489 @@ def stokes_frame_phase(dev, card):
     return out
 
 
+# phase 23: SDF grids, curves with hair and measured BRDFs at full width
+GEO_DEPTH = 4
+GEO_RR = 3
+GEO_GRID = 64               # the torus's SDF grid, GEO_GRID^3
+GEO_STRANDS = 64            # B-spline strands of GEO_POINTS control points:
+GEO_POINTS = 6              # 24 rounded cones each at subdivision 8
+GEO_BAND = (224, 32)        # rows profiled
+GEO_WAVE = 1 << 20          # rays a timed intersection wavefront
+GEO_SPHERE = (256, 8, 3)    # the SDF sphere check: size, spp, depth
+GEO_GRAD = 256              # the gradient frame: 256x256x4, depth 3
+GEO_GRAD_SPP = 4
+GEO_GRAD_DEPTH = 3
+GEO_CHI2_N = 10_000_000
+GEO_STOKES_BAND = (256, 4)  # rows of the Stokes frame held to plain
+
+
+def _rgl_fields(seed, spectral=False):
+    """RGL-layout tables (one phi_i slice, 8 theta_i, 32x32 warps) made
+    from a seed with tests/test_measured.py::_synthetic_fields' formulas:
+    a VNDF lobe whose centre moves with theta_i, tapered at the pole, a
+    luminance ramp, and RGB planes or, with `spectral`, 8 wavelengths over
+    360-830 nm, each plane a smooth function of the wavelength and u."""
+    rng = np.random.default_rng(seed)
+    t_n, h, w = 8, 32, 32
+    theta_i = np.linspace(0, np.pi / 2, t_n).astype(np.float32)
+    ut = np.linspace(0, 1, w)[None, None, None, :]
+    up = np.linspace(0, 1, h)[None, None, :, None]
+    ti = theta_i[None, :, None, None] / (np.pi / 2)
+    c0, c1, width = rng.uniform(0.2, 0.4), rng.uniform(0.2, 0.4), 0.25
+    vndf = (np.exp(-((ut - c0 - c1 * ti) / width) ** 2) + 0.15
+            + 0.05 * np.cos(2 * np.pi * up))
+    vndf = np.broadcast_to(vndf * np.clip(ut / 0.2, 0.0, 1.0) ** 2,
+                           (1, t_n, h, w)).astype(np.float32)
+    lum = np.broadcast_to(0.5 + 0.5 * ut + 0.2 * up + 0.1 * ti,
+                          (1, t_n, h, w)).astype(np.float32)
+    out = dict(theta_i=theta_i, phi_i=np.zeros((1,), np.float32),
+               ndf=np.ones((h, w), np.float32),
+               sigma=np.full((h, w), 0.25, np.float32), vndf=vndf,
+               luminance=lum, jacobian=np.array([0], np.uint8))
+    tint = rng.uniform(0.3, 0.9, 3)
+    if spectral:
+        wl = np.linspace(360.0, 830.0, 8).astype(np.float32)
+        sp = np.zeros((1, t_n, 8, h, w), np.float32)
+        for i in range(8):
+            sp[:, :, i] = (0.3 + 0.5 * np.sin(0.7 * i) ** 2
+                           + 0.1 * np.linspace(0, 1, w))
+        out.update(spectra=sp, wavelengths=wl)
+    else:
+        out["rgb"] = np.broadcast_to(tint[None, None, :, None, None],
+                                     (1, t_n, 3, h, w)).astype(np.float32)
+    return out
+
+
+def _pbsdf_fields(seed):
+    """A `_synthetic_pbsdf`-layout table (tests/test_measured.py) on wider
+    grids (16 phi_d, 12 theta_d, 12 theta_h, 8 wavelengths) from a seed:
+    M = [[a, b, 0, 0], [b, a, 0, 0], [0, 0, c, 0], [0, 0, 0, c]], a and
+    b varying smoothly over the grid, c = sqrt(a^2 - b^2)."""
+    rng = np.random.default_rng(seed)
+    n_pd, n_td, n_th, n_l = 16, 12, 12, 8
+    th = np.linspace(0, np.pi / 2, n_th)[None, None, :, None]
+    td = np.linspace(0, np.pi / 2, n_td)[None, :, None, None]
+    lam = np.linspace(0, 1, n_l)[None, None, None, :]
+    a = (rng.uniform(0.3, 0.6) * (1.0 + 0.2 * np.cos(th)) + 0.05 * lam
+         + 0.0 * td)
+    b = rng.uniform(0.1, 0.25) * np.sin(td) ** 2 * np.ones_like(a)
+    a = np.broadcast_to(a, (n_pd, n_td, n_th, n_l))
+    b = np.broadcast_to(b, (n_pd, n_td, n_th, n_l))
+    m = np.zeros((n_pd, n_td, n_th, n_l, 4, 4), np.float32)
+    m[..., 0, 0] = m[..., 1, 1] = a
+    m[..., 0, 1] = m[..., 1, 0] = b
+    m[..., 2, 2] = m[..., 3, 3] = np.sqrt(np.maximum(a * a - b * b, 0.0))
+    return dict(phi_d=np.linspace(-np.pi, np.pi, n_pd,
+                                  dtype=np.float32)[None],
+                theta_d=np.linspace(0, np.pi / 2, n_td,
+                                    dtype=np.float32)[None],
+                theta_h=np.linspace(0, np.pi / 2, n_th,
+                                    dtype=np.float32)[None],
+                wvls=np.linspace(400, 700, n_l).astype(np.uint16), M=m)
+
+
+def _torus_grid(res, major=0.3, minor=0.12):
+    g = np.arange(res) / (res - 1) - 0.5
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    return (np.sqrt((np.sqrt(x ** 2 + y ** 2) - major) ** 2 + z ** 2)
+            - minor).astype(np.float32)
+
+
+def _tuft(seed=23):
+    """GEO_STRANDS B-spline strands of GEO_POINTS control points rising
+    from a disc of radius 0.35 at (1.1, -1.2), 1.6 tall, radius 0.012."""
+    rng = np.random.default_rng(seed)
+    strands = []
+    for _ in range(GEO_STRANDS):
+        r, a = 0.35 * np.sqrt(rng.random()), 2 * np.pi * rng.random()
+        base = np.array([1.1 + r * np.cos(a), -1.2 + r * np.sin(a)])
+        phase, sway = 2 * np.pi * rng.random(), 0.1 + 0.15 * rng.random()
+        k = np.arange(GEO_POINTS)
+        pts = np.stack([base[0] + sway * np.sin(0.8 * k + phase),
+                        base[1] + sway * np.cos(0.6 * k + phase),
+                        1.6 * k / (GEO_POINTS - 1)], -1)
+        strands.append(dict(points=pts.astype(np.float32), radius=0.012,
+                            kind="bspline", bsdf_idx=2))
+    return strands
+
+
+def _geometry_scene(state, device, spectral=False):
+    """The headline sunsky and camera over a diffuse ground: a GEO_GRID^3
+    SDF torus (major radius 0.6, minor 0.24, about [0, 0, 1]) of the RGL
+    measured BRDF (kind 17; `_rgl_fields`) and a tuft of hair (kind 16:
+    sigma_a [0.25, 0.45, 0.9], beta_m 0.3, beta_n 0.3, tilt 2 deg, eta
+    1.55)."""
+    from tpusky_torch.render.measured import load_measured
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sdf import make_sdf_grid
+    from tpusky_torch.render.sensors import make_perspective
+    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
+    t2w = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    t2w[:3, 3] = [-1.0, -1.0, 0.0]
+    extras = np.zeros((3, 8), np.float32)
+    extras[:, 1] = 0.5
+    extras[2, :2] = (0.3, 2.0)
+    sigma_a = [0.25, 0.45, 0.9]
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=ground, bsdf_idx=0)],
+        bsdf_kinds=[0, 17, 16],
+        bsdf_albedos=[[0.4, 0.4, 0.4], [1.0, 1.0, 1.0], sigma_a],
+        bsdf_spectral_albedos=[[0.4] * 11, [1.0] * 11,
+                               np.interp(np.linspace(320, 720, 11),
+                                         [450, 550, 600], sigma_a[::-1])],
+        bsdf_alphas=[0.1, 0.1, 0.3], bsdf_iors=[1.5046, 1.5046, 1.55],
+        bsdf_extras=extras, env=state,
+        sdf=make_sdf_grid(_torus_grid(GEO_GRID), t2w, 1, device=device),
+        curves=_tuft(), measured=load_measured(_rgl_fields(23, spectral),
+                                               device=device),
+        device=device)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=device)
+    return scene, sensor
+
+
+def _intersection_ms(scene, sensor, card):
+    """Device ms of each new intersection on GEO_WAVE of the frame's
+    camera rays: the curves' closest hit and shadow test, the SDF's."""
+    import torch
+    from tpusky_torch.render import curve as CV
+    from tpusky_torch.render import sdf as SD
+    from tpusky_torch.render import sensors as SE
+    dev = scene.shapes.to_world.device
+    g = torch.Generator(device=dev).manual_seed(23)
+    uv = torch.rand((GEO_WAVE, 2), device=dev, generator=g)
+    with torch.no_grad():
+        o, d = SE.sample_ray(sensor, uv)
+        hits = CV.curve_intersect(scene.curve, o, d)[3]
+        out = {"curve_intersect": _median_ms(
+                   lambda: CV.curve_intersect(scene.curve, o, d), reps=3),
+               "curve_test": _median_ms(
+                   lambda: CV.curve_test(scene.curve, o, d, torch.inf),
+                   reps=3),
+               "sdf_intersect": _median_ms(
+                   lambda: SD.sdf_intersect(scene.sdf, o, d), reps=3)}
+    print(f"time intersections on {GEO_WAVE} camera rays of the geometry "
+          f"frame ({int(scene.curve.valid.sum())} rounded cones, "
+          f"{float(hits.float().mean()):.4f} of the rays on a strand; a "
+          f"{GEO_GRID}^3 SDF, 64 steps): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items())
+          + f" [{card}]")
+    return out
+
+
+def _geometry_frame(label, scene, sensor, mode, card):
+    """The geometry frame (H x W x SPP, depth GEO_DEPTH, Russian roulette
+    from GEO_RR) through render() in `mode`: the mode's sunsky kernels
+    launch, K4 not; a second call, under the sync debug mode, bitwise
+    equal; >= 99.9% of the lanes within 1e-3 of the plain path's; the
+    wall times, launches, peak memory, a band's busy share and the
+    intersections' device ms. Returns the launches of one render()."""
+    import torch
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    film = Film(H, W, 3)
+    kinds = B.table_kinds(scene.bsdfs)
+    sky = (("sunsky_hit_rgb", "sunsky_nee_rgb") if mode == "rgb"
+           else ("sunsky_hit_spec", "sunsky_nee_spec"))
+    focus = ((("K2", "hit_kernel"), ("K3", "nee_kernel")) if mode == "rgb"
+             else (("K10", "hit_spec_kernel"), ("K11", "nee_spec_kernel")))
+
+    def frame():
+        return integrator.render(scene, sensor, film, SEED, spp=SPP,
+                                 max_depth=GEO_DEPTH, rr_depth=GEO_RR,
+                                 mode=mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(launches, sky, f"the {label}")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError(f"the {label} went through K4")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError(f"{label}: image not finite, shaped or lit")
+    t0 = time.perf_counter()
+    again = _no_sync(frame, f"the {label}'s render()")
+    torch.cuda.synchronize()
+    again_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(again, img):
+        raise AssertionError(f"two render() calls of the {label} differ")
+    with torch.no_grad():
+        lanes_ms = []
+        lanes = []
+        for plain in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lanes.append(integrator._lane_radiance(
+                scene, sensor, film, SEED, SPP, 0, SPP, GEO_DEPTH, GEO_RR,
+                mode, 0, H, kinds=kinds, plain=plain))
+            torch.cuda.synchronize()
+            lanes_ms.append(1e3 * (time.perf_counter() - t0))
+        share, worst = _lanes_share(*lanes)
+    print(f"check {label} lanes: {share:.2e} of {lanes[0].shape[0]} lanes "
+          f"outside 1e-3 of the plain path (bar 1e-3), max {worst:.3e}; two "
+          f"render() calls bitwise equal; image mean {float(img.mean()):.5f} "
+          f"max {float(img.max()):.3f}")
+    if not share <= 1e-3:
+        raise AssertionError(f"the {label} disagrees with the plain path")
+    del lanes
+    row0, n_rows = GEO_BAND
+
+    def band():
+        return integrator.render_rows(scene, sensor, film, SEED, SPP,
+                                      GEO_DEPTH, GEO_RR, mode, row0, n_rows,
+                                      kinds=kinds)
+    t0 = time.perf_counter()
+    busy = _profile_window(f"{label}, rows {row0}-{row0 + n_rows}", band,
+                           card, iters=1, focus=focus)
+    print(f"the {label}'s profile window took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"time {label} ({W}x{H}x{SPP}, depth {GEO_DEPTH}, Russian "
+          f"roulette from {GEO_RR}, {mode}): render() {first_ms:.1f} ms "
+          f"(first call), {again_ms:.1f} ms (second, under the sync debug "
+          f"mode); lanes through the kernels {lanes_ms[0]:.1f} ms, through "
+          f"the plain path {lanes_ms[1]:.1f} ms; {launches[sky[0]]} "
+          f"{sky[0]} and {launches[sky[1]]} {sky[1]} launches a render(); "
+          f"peak memory {peak_gib:.2f} GiB; device busy {100 * busy:.1f}% "
+          f"of a {n_rows}-row band [{card}]")
+    return launches
+
+
+def _sdf_sphere_check(state, dev):
+    """A GEO_SPHERE frame of a 64^3 SDF sphere (radius 0.7 about [0, 0,
+    1]) on the diffuse ground against the analytic sphere's: the mean
+    absolute difference below 0.05 of the analytic frame's mean
+    (tests/test_sdf.py::test_sdf_in_scene_render)."""
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sdf import make_sdf_grid, sphere_sdf_grid
+    from tpusky_torch.render.sensors import make_perspective
+    size, spp, depth = GEO_SPHERE
+    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
+    sphere = np.diag([0.7, 0.7, 0.7, 1.0]).astype(np.float32)
+    sphere[2, 3] = 1.0
+    t2w = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    t2w[:3, 3] = [-1.0, -1.0, 0.0]
+    common = dict(bsdf_albedos=[[0.4] * 3, [0.6, 0.2, 0.2]], env=state,
+                  device=dev)
+    sdf_scene = make_scene(
+        shapes=[dict(kind=1, to_world=ground, bsdf_idx=0)],
+        sdf=make_sdf_grid(sphere_sdf_grid(64, 0.35), t2w, 1, device=dev),
+        **common)
+    ref_scene = make_scene(
+        shapes=[dict(kind=1, to_world=ground, bsdf_idx=0),
+                dict(kind=0, to_world=sphere, bsdf_idx=1)], **common)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=dev)
+    film = Film(size, size, 3)
+    img_s, img_r = (integrator.render(sc, sensor, film, SEED, spp=spp,
+                                      max_depth=depth)
+                    for sc in (sdf_scene, ref_scene))
+    err = float((img_s - img_r).abs().mean() / img_r.mean().clamp(min=1e-9))
+    print(f"check SDF sphere frame ({size}x{size}x{spp}, depth {depth}, a "
+          f"64^3 grid) against the analytic sphere's: mean relative "
+          f"difference {err:.4f} (bar 0.05)")
+    if not (bool(img_s.isfinite().all()) and err < 0.05):
+        raise AssertionError("the SDF sphere frame differs from the "
+                             "analytic sphere's")
+
+
+def _geometry_chi2(dev, card):
+    """Hair's sampling over the whole sphere and the RGL measured BRDF's
+    over the upper hemisphere against their pdfs, the chi-square test at
+    N = GEO_CHI2_N (`utils/chi2.py`, the reference's binning), on the
+    card."""
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render.measured import load_measured
+    from tpusky_torch.utils.chi2 import BSDFAdapter
+    extras = np.zeros((2, 8), np.float32)
+    extras[0, :2] = (0.3, 2.0)
+    table = B.make_material_table(
+        kinds=[16, 17], albedos=[[0.25, 0.45, 0.9], [1.0] * 3],
+        alphas=[0.3, 0.1], iors=[1.55, 1.5], extras=extras,
+        measured=load_measured(_rgl_fields(23), device=dev), device=dev)
+    for row, wi, cos_range in ((0, [0.4, 0.3, 0.866], (-1.0, 1.0)),
+                               (1, [0.3, -0.1, 0.95], (0.0, 1.0))):
+        wi = np.asarray(wi, np.float32) / np.linalg.norm(wi)
+        t0 = time.perf_counter()
+        p, ok, info = BSDFAdapter(table, row, wi).run(
+            seed=23 + row, cos_range=cos_range, sample_count=GEO_CHI2_N)
+        name = ("hair", "measured")[row]
+        print(f"check chi-square {name} (N = {GEO_CHI2_N}): p = {p:.4f} "
+              f"({time.perf_counter() - t0:.1f} s) [{card}]")
+        if not ok:
+            raise AssertionError(f"the {name} sampling fails its chi-square "
+                                 f"test: p = {p}, {info}")
+
+
+def _geometry_grad_check(dev, card):
+    """fwd+bwd of the geometry frame at GEO_GRAD^2 x GEO_GRAD_SPP, depth
+    GEO_GRAD_DEPTH, mean(img^2) to the SDF grid's values and the
+    turbidity (through precompute): K2, K3, K5 and K6 launch; each
+    gradient within 1e-3 of the plain path's scale; the time and the
+    peak memory. Returns the launches."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky.model import precompute
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film, develop
+    tables = tt.load_tables("rgb", device=dev)
+    scene, sensor = _geometry_scene(None, dev)
+    film = Film(GEO_GRAD, GEO_GRAD, 3)
+    kinds = B.table_kinds(scene.bsdfs)
+    names = ("grid", "turbidity")
+
+    def case(plain):
+        leaves = [scene.sdf.values.clone().requires_grad_(),
+                  torch.full((), 3.0, device=dev, requires_grad=True)]
+        p = tt.make_params(turbidity=leaves[1], albedo=0.3,
+                           sun_direction=SUN, device=dev)
+        sc = scene._replace(env=precompute(tables, p),
+                            sdf=scene.sdf._replace(values=leaves[0]))
+        img = develop(integrator.render_rows(
+            sc, sensor, film, SEED, GEO_GRAD_SPP, GEO_GRAD_DEPTH, 1000,
+            "rgb", 0, GEO_GRAD, kinds=kinds, plain=plain))
+        return torch.autograd.grad((img ** 2).mean(), leaves)
+    case(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads_k, launches = _counted(lambda: case(False))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb",
+                        "sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd"),
+             "the geometry frame's gradient")
+    t0 = time.perf_counter()
+    grads_p = case(True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for name, a, b in zip(names, grads_k, grads_p):
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0):
+            raise AssertionError(f"geometry gradient d{name}: zero or not "
+                                 "finite")
+        _check_scale(f"geometry frame gradient d{name} ({GEO_GRAD}x"
+                     f"{GEO_GRAD}x{GEO_GRAD_SPP}, depth {GEO_GRAD_DEPTH}): "
+                     "kernels vs plain on the card", a, b, 1e-3)
+    print(f"time geometry frame fwd+bwd ({GEO_GRAD}x{GEO_GRAD}x"
+          f"{GEO_GRAD_SPP}, depth {GEO_GRAD_DEPTH}, to the {GEO_GRID}^3 SDF "
+          f"grid and the turbidity, precompute included; one call each, the "
+          f"host clock): kernels {ms:.2f} ms, plain {plain_ms:.2f} ms; peak "
+          f"memory {peak_gib:.2f} GiB; launches {launches} [{card}]")
+    return launches
+
+
+def _measured_stokes_frame(state, dev, card):
+    """`render_stokes` of the headline sphere as the measured pBRDF (kind
+    18, `_pbsdf_fields`, alpha_sample 0.3) on the diffuse ground,
+    H x W x SPP, depth 4, RGB: K2 and K3 launch, K4 not; two calls bitwise
+    equal; the GEO_STOKES_BAND rows' lanes within 1e-3 of the plain
+    path's (>= 99.9%); the degree of polarization at most 1 + 1e-4 where
+    S0 > 1e-3 and above 0.1 somewhere. Returns the launches."""
+    import torch
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import polarized as P
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.measured import load_measured_polarized
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    ground = np.diag([10.0, 10.0, 1.0, 1.0]).astype(np.float32)
+    sphere = np.eye(4, dtype=np.float32)
+    sphere[2, 3] = 1.0
+    scene = make_scene(
+        shapes=[dict(kind=1, to_world=ground, bsdf_idx=0),
+                dict(kind=0, to_world=sphere, bsdf_idx=1)],
+        bsdf_kinds=[0, 18], bsdf_albedos=[[0.4] * 3, [1.0] * 3], env=state,
+        measured_pol=load_measured_polarized(_pbsdf_fields(23), 0.3,
+                                             device=dev), device=dev)
+    sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
+                              device=dev)
+    film = Film(H, W, 3)
+    kinds = B.table_kinds(scene.bsdfs)
+
+    def frame():
+        return P.render_stokes(scene, sensor, film, SEED, spp=SPP,
+                               max_depth=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb"),
+             "the measured Stokes frame")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError("the measured Stokes frame went through K4")
+    if not torch.equal(frame(), img):
+        raise AssertionError("two render_stokes calls differ")
+    s0 = img[..., 0, :]
+    dop = img[..., 1:, :].norm(dim=-2) / s0.clamp(min=1e-6)
+    lit = s0 > 1e-3
+    if not (bool(torch.isfinite(img).all())
+            and float(dop[lit].max()) <= 1.0 + 1e-4
+            and float(dop[lit].max()) > 0.1):
+        raise AssertionError("the measured Stokes frame is not finite or "
+                             "its polarization out of range")
+    row0, n_rows = GEO_STOKES_BAND
+    with torch.no_grad():
+        lanes_k, lanes_p = (P.stokes_lanes(
+            scene, sensor, Film(H, W, 12), SEED, SPP, 0, SPP, 4, 1000,
+            "rgb", row0=row0, n_rows=n_rows, kinds=kinds, plain=plain)
+            for plain in (False, True))
+        err = ((lanes_k - lanes_p).abs()
+               / lanes_p[..., :1].abs().clamp(min=1e-3)).flatten(1).amax(-1)
+        share = float((err > 1e-3).float().mean())
+    print(f"check measured Stokes frame: two calls bitwise equal; rows "
+          f"{row0}-{row0 + n_rows}: {share:.2e} of {err.shape[0]} lanes "
+          f"outside 1e-3 of the plain path (bar 1e-3), max "
+          f"{float(err.max()):.3e}; degree of polarization max "
+          f"{float(dop[lit].max()):.6f}")
+    if not share <= 1e-3:
+        raise AssertionError("the measured Stokes frame disagrees with the "
+                             "plain path")
+    print(f"time measured Stokes frame ({W}x{H}x{SPP}, depth 4, a kind-18 "
+          f"sphere): render_stokes {ms:.1f} ms (first call); "
+          f"{launches['sunsky_hit_rgb']} K2 and {launches['sunsky_nee_rgb']}"
+          f" K3 launches [{card}]")
+    return launches
+
+
+def geometry_phase(dev, card):
+    """Phase 23: the geometry frames at full width, RGB and spectral, the
+    SDF sphere check, the chi-square tests, the gradient and the measured
+    Stokes frame (see the module docstring). Returns each main path's
+    launches."""
+    import tpusky_torch as tt
+    out = {}
+    for mode in ("rgb", "spectral"):
+        t0 = time.perf_counter()
+        state = tt.sunsky_precompute(tt.make_params(
+            turbidity=3.0, albedo=0.3, sun_direction=SUN, mode=mode,
+            device=dev), mode=mode)
+        scene, sensor = _geometry_scene(state, dev, mode == "spectral")
+        if mode == "rgb":
+            _intersection_ms(scene, sensor, card)
+        out[mode] = _geometry_frame(f"geometry frame ({mode})", scene,
+                                    sensor, mode, card)
+        del scene
+        print(f"phase 23 {mode}: {time.perf_counter() - t0:.1f} s")
+        if mode == "rgb":
+            rgb_state = state
+    t0 = time.perf_counter()
+    _sdf_sphere_check(rgb_state, dev)
+    _geometry_chi2(dev, card)
+    out["gradient"] = _geometry_grad_check(dev, card)
+    out["Stokes"] = _measured_stokes_frame(rgb_state, dev, card)
+    print(f"phase 23 checks: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 START = time.perf_counter()
 
 
@@ -4924,7 +5427,12 @@ def main():
     stokes = stokes_frame_phase(dev, card)
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 23. bounds and results ----
+    # ---- 23. SDF grids, curves with hair, measured BRDFs ----
+    t0 = time.perf_counter()
+    geometry = geometry_phase(dev, card)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 24. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -4987,13 +5495,13 @@ def main():
             results[key] = max(results[key], err)
     times["K14"], bounds["K14"] = mesh_times, mesh_bound
     counts["K14"], results["K14"] = mesh_launches, mesh_err
-    # the fog, light-traced and Stokes frames' runs are main paths of
-    # their own:
-    # their launches add to each kernel's count
+    # the fog, light-traced, Stokes and geometry frames' runs are main
+    # paths of their own: their launches add to each kernel's count
     new_paths = {f"fog {k}": v for k, v in fog.items()}
     new_paths.update({f"light-traced {k}": v
                       for k, v in light_traced.items()})
     new_paths.update({f"Stokes {k}": v for k, v in stokes.items()})
+    new_paths.update({f"geometry {k}": v for k, v in geometry.items()})
     for path, runs in new_paths.items():
         print(f"launches on the {path} path: "
               + ", ".join(f"{key} {runs[KERNELS[key][0]]}"

@@ -75,8 +75,9 @@ def test_spectral_refuses_rgb2spec_emitters():
     as do a UniformEnv and no environment; the fitted coefficients follow
     the emitters they were fitted from (refitted after an emitter tensor
     is replaced or changed in place); what spectral mode still refuses is
-    a hair material (NotImplementedError) and an unknown sensor
-    (TypeError), while the polarized kinds 11-14 render."""
+    a kind the reference does not have (NotImplementedError) and an
+    unknown sensor (TypeError), while the polarized kinds 11-14 and hair
+    render."""
     sensor = make_perspective([4, -4, 2.0], [0, 0, 1.0], fov_x_deg=45,
                               device="cpu")
     film = TF.Film(4, 4, 3)
@@ -111,10 +112,10 @@ def test_spectral_refuses_rgb2spec_emitters():
     assert not torch.equal(with_emitter_coeffs(blue).env.coeff,
                            fit.env.coeff)
     with pytest.raises(NotImplementedError):
-        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 16))),
+        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 19))),
                   sensor, film, 1, spp=1, mode="spectral")
     img = TI.render(sc._replace(bsdfs=sc.bsdfs._replace(
-        host_kind=(0, 11, 12, 13, 14))), sensor, film, 1, spp=1,
+        host_kind=(0, 11, 12, 13, 14, 16))), sensor, film, 1, spp=1,
         mode="spectral")
     assert bool(torch.isfinite(img).all())
     with pytest.raises(TypeError, match="unknown sensor"):

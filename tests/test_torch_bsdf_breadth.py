@@ -149,9 +149,10 @@ def test_parameter_gradients_match_jax():
 def test_tables_refusals_and_convert():
     """`convert.material_table` carries every column of the reference's
     table, equal to the port's own `make_material_table` (the host copies
-    of the kinds and the mask flag included); kinds 16, 17 and 18 raise,
-    naming the module they wait for, and the polarized kinds 11-14 come
-    over (render/polarized.py); a textured material carries
+    of the kinds and the mask flag included); the polarized kinds 11-14
+    and hair (16) come over, the measured kinds 17 and 18 without their
+    dataset raise ValueError naming it, a kind the reference does not
+    have (19) raises NotImplementedError; a textured material carries
     its texture and normal-map columns over (render/texture.py)."""
     cols = _columns(True)
     jt = JB.make_material_table(**cols)
@@ -159,21 +160,24 @@ def test_tables_refusals_and_convert():
     conv = convert.material_table(jax.tree.map(np.asarray, jt), device="cpu")
     for f in TB.MaterialTable._fields:
         a, b = getattr(tt, f), getattr(conv, f)
-        assert a == b if f.startswith("host") else torch.equal(a, b), f
+        assert (a == b if f.startswith("host") or a is None
+                else torch.equal(a, b)), f
     assert tt.host_mask and not TB.make_material_table(
         kinds=[4], device="cpu").host_mask
-    for kind in (11, 12, 13, 14):
+    for kind in (11, 12, 13, 14, 16):
         built = TB.make_material_table(kinds=[0, kind],
                                        albedos=[[0.5] * 3] * 2, device="cpu")
         assert built.host_kind == (0, kind)
         moved = convert.material_table(jax.tree.map(np.asarray, jt._replace(
             kind=jt.kind.at[0].set(kind))), device="cpu")
         assert moved.host_kind[0] == kind and int(moved.kind[0]) == kind
-    for kind, module in ((16, "curve"), (17, "measured"), (18, "measured")):
-        with pytest.raises(NotImplementedError, match=module):
+    for kind, error, match in ((17, ValueError, "measured dataset"),
+                               (18, ValueError, "measured_pol dataset"),
+                               (19, NotImplementedError, r"\[19\]")):
+        with pytest.raises(error, match=match):
             TB.make_material_table(kinds=[0, kind], albedos=[[0.5] * 3] * 2,
                                    device="cpu")
-        with pytest.raises(NotImplementedError, match=module):
+        with pytest.raises(error, match=match):
             convert.material_table(jax.tree.map(np.asarray, jt._replace(
                 kind=jt.kind.at[0].set(kind))), device="cpu")
     m = jt.kind.shape[0]

@@ -80,6 +80,10 @@ def test_package_has_kernel_wrappers():
             "tpusky_torch.parallel.render",
             "tpusky_torch.ops.mueller",
             "tpusky_torch.render.polarized",
+            "tpusky_torch.ops.tensorfile",
+            "tpusky_torch.render.measured",
+            "tpusky_torch.render.sdf",
+            "tpusky_torch.render.curve",
             "tpusky_torch.convert"} <= names
     csrc = set(os.listdir(os.path.join(_PKG, "csrc")))
     assert {"sunsky_core.cuh", "sunsky_kernels.cu", "megakernel.cu",

@@ -20,11 +20,13 @@ from tpusky.render import bsdf as JB
 from tpusky.render import polarized as JP
 
 from tpusky_torch.render import bsdf as TB
+from tpusky_torch.render import curve as TCV
 from tpusky_torch.render import emitters as TE
 from tpusky_torch.render import film as TF
 from tpusky_torch.render import integrator as TI
 from tpusky_torch.render import medium as TMD
 from tpusky_torch.render import polarized as TP
+from tpusky_torch.render import sdf as TSD
 from tpusky_torch.render.sampler import fold_in
 
 from torch_polarized_case import (H, SPP, W, WORDS, case, jax_stokes_lanes,
@@ -76,11 +78,11 @@ def test_s0_equals_scalar_render():
 
 
 def test_render_stokes_refuses_what_the_reference_drops():
-    """R16: directional lights, spot lights, directional-area emitters and
-    media; R18: an opacity below 1 and the null kind; kind 18, naming
-    `render/measured.py`; a normal map. Each raises NotImplementedError
-    naming its cause; the scene itself renders. R18 is shown in the
-    reference's own weights."""
+    """R16: directional lights, spot lights, directional-area emitters,
+    media, an SDF grid and curves; R18: an opacity below 1 and the null
+    kind; a normal map. Each raises NotImplementedError naming its cause;
+    a kind-18 row without its dataset raises ValueError; the scene itself
+    renders. R18 is shown in the reference's own weights."""
     _, _, sc, cam = case("rgb")
     film = TF.Film(4, 4, 3)
     kw = dict(spp=1, max_depth=2)
@@ -96,7 +98,12 @@ def test_render_stokes_refuses_what_the_reference_drops():
             ("directional-area", sc._replace(
                 dir_area_radiance=torch.ones((n_shapes, 3)),
                 dir_area_lit=True)),
-            ("medium", sc._replace(medium=fog))):
+            ("medium", sc._replace(medium=fog)),
+            ("SDF", sc._replace(sdf=TSD.make_sdf_grid(
+                TSD.sphere_sdf_grid(8, 0.3), device="cpu"))),
+            ("curves", sc._replace(curve=TCV.make_curve_table([dict(
+                points=[[0, 0, 0.5], [0, 1, 0.5]], kind="linear")],
+                device="cpu")))):
         with pytest.raises(NotImplementedError, match=f"R16.*{cause}"):
             TP.render_stokes(bad, cam, film, 1, **kw)
     b = sc.bsdfs
@@ -104,7 +111,7 @@ def test_render_stokes_refuses_what_the_reference_drops():
                 b._replace(host_kind=b.host_kind + (6,))):
         with pytest.raises(NotImplementedError, match="R18"):
             TP.render_stokes(sc._replace(bsdfs=bad), cam, film, 1, **kw)
-    with pytest.raises(NotImplementedError, match="render/measured.py"):
+    with pytest.raises(ValueError, match="measured_pol dataset"):
         TP.render_stokes(sc._replace(bsdfs=b._replace(
             host_kind=b.host_kind + (18,))), cam, film, 1, **kw)
     with pytest.raises(NotImplementedError, match="normal-mapped"):

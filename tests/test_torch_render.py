@@ -277,14 +277,14 @@ def test_megakernel_rules_match_jax(scenes):
 def test_path_sample_refuses_what_is_not_ported(scenes):
     sc, sensor = scenes[1]
     film = TF.Film(8, 8, 3)
-    with pytest.raises(NotImplementedError):      # a hair material
-        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 16))),
+    with pytest.raises(NotImplementedError):      # not a kind
+        TI.render(sc._replace(bsdfs=sc.bsdfs._replace(host_kind=(0, 19))),
                   sensor, film, SEED, spp=1)
-    # the polarized kinds' lobes are ported: with them in the descriptor
-    # the frame (no lane of theirs) is the same
+    # the polarized kinds' and hair's lobes are ported: with them in the
+    # descriptor the frame (no lane of theirs) is the same
     assert torch.equal(
         TI.render(sc._replace(bsdfs=sc.bsdfs._replace(
-            host_kind=(0, 11, 12, 13, 14))), sensor, film, SEED, spp=1),
+            host_kind=(0, 11, 12, 13, 14, 16))), sensor, film, SEED, spp=1),
         TI.render(sc, sensor, film, SEED, spp=1))
     with pytest.raises(NotImplementedError):
         TI.render(sc, sensor, film, SEED, spp=1, mode="polarized")

@@ -109,12 +109,13 @@ def test_bsdf_eval_pdf_and_sample_match_jax(kinds, spectral):
 
 
 def test_material_table_kinds_and_defaults():
-    """Kinds the port does not have (hair) are refused, the polarized
-    kinds 11-14 are carried; the defaults are the reference package's."""
+    """Kinds the reference does not have (19) are refused, the polarized
+    kinds 11-14 and hair are carried; the defaults are the reference
+    package's."""
     with pytest.raises(NotImplementedError):
-        TB.make_material_table(kinds=[16], device="cpu")
-    assert TB.make_material_table(kinds=[11, 12, 13, 14], albedos=[
-        [0.5] * 3] * 4, device="cpu").host_kind == (11, 12, 13, 14)
+        TB.make_material_table(kinds=[19], device="cpu")
+    assert TB.make_material_table(kinds=[11, 12, 13, 14, 16], albedos=[
+        [0.5] * 3] * 5, device="cpu").host_kind == (11, 12, 13, 14, 16)
     jt = JB.make_material_table(kinds=[1, 0],
                                 albedos=[[0.2, 0.4, 0.6], [0.5, 0.5, 0.5]])
     tt_ = TB.make_material_table(kinds=[1, 0],
@@ -124,13 +125,14 @@ def test_material_table_kinds_and_defaults():
                                   device="cpu")
     for f in TB.MaterialTable._fields:
         a, b = getattr(tt_, f), getattr(conv, f)
-        assert a == b if f.startswith("host") else torch.equal(a, b), f
+        assert (a == b if f.startswith("host") or a is None
+                else torch.equal(a, b)), f
     assert tt_.host_kind == (1, 0)
     assert TB.table_kinds(tt_) == ((0, 1), False)
     with pytest.raises(NotImplementedError):
         TB.eval_pdf(tt_, torch.zeros(4, dtype=torch.long), torch.ones(4, 3),
-                    torch.ones(4, 3), kinds=((0, 16), False))
+                    torch.ones(4, 3), kinds=((0, 19), False))
     v, _ = TB.eval_pdf(tt_, torch.zeros(4, dtype=torch.long),
                        torch.ones(4, 3), torch.ones(4, 3),
-                       kinds=((0, 1, 11, 12, 13, 14), False))
+                       kinds=((0, 1, 11, 12, 13, 14, 16), False))
     assert bool(torch.isfinite(v).all())

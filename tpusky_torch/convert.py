@@ -7,11 +7,12 @@ and returns the port's counterpart as float32/int64 tensors on `device`
 Nothing here imports jax or tpusky: the objects are read by field name
 (and an environment by its type's name). The polarized material kinds
 11-14 come over with their `extra` columns (theta, delta, left-handed;
-`render/polarized.py` renders them in Stokes vectors). Parts the port
-does not have yet raise NotImplementedError: the hair and measured
-material kinds, SDFs, curves and an area emitter on a cube (R8). A
-medium (one region or a tuple) comes over with its static fields as
-they are.
+`render/polarized.py` renders them in Stokes vectors), hair (16) with
+its sigma_a, beta_m, eta, beta_n and tilt in the reference's columns,
+and the measured kinds 17 and 18 with the table's datasets. A medium
+(one region or a tuple), an SDF grid and a curve table come over with
+their static fields as they are. An area emitter on a cube raises
+NotImplementedError (R8).
 """
 
 from __future__ import annotations
@@ -23,11 +24,14 @@ from .models.sunsky.model import SunskyParams, SunskyState
 from .models.sunsky.tables import SunskyTables
 from .ops.distr import ContinuousDistribution, DiscreteDistribution
 from .ops.distr2d import Bilinear2D
-from .render.bsdf import MaterialTable, check_kinds
+from .render.bsdf import MaterialTable, check_datasets, check_kinds
+from .render.curve import CurveTable
 from .render.emitters import ConstantEnv, EnvMapState, SpotLight, UniformEnv
+from .render.measured import MeasuredBRDF, MeasuredPolarized, ParamWarp2D
 from .render.medium import Medium
 from .render.mesh import MeshTable
 from .render.scene import Scene
+from .render.sdf import SDFGrid
 from .render import sensors as sensors_mod
 from .render.sensors import Perspective
 from .render.shapes import KINDS, ShapeTable, check_emitters
@@ -102,11 +106,45 @@ def shape_table(t, device="cuda") -> ShapeTable:
                       _i64(t.emitter_idx, device), _f32(t.area, device))
 
 
+def measured_brdf(m, device="cuda") -> MeasuredBRDF:
+    """A `tpusky` MeasuredBRDF -> MeasuredBRDF, its warps' tables as the
+    reference built them."""
+    def warp(w):
+        return ParamWarp2D(*(_f32(getattr(w, f), device)
+                             for f in ParamWarp2D._fields))
+    return MeasuredBRDF(*(_f32(getattr(m, f), device) for f in (
+        "phi_i", "theta_i", "wavelengths", "ndf", "sigma")),
+        warp(m.vndf), warp(m.luminance), _f32(m.spectra, device),
+        bool(m.isotropic), bool(m.jacobian), int(m.reduction))
+
+
+def measured_polarized(m, device="cuda") -> MeasuredPolarized:
+    """A `tpusky` MeasuredPolarized -> MeasuredPolarized."""
+    return MeasuredPolarized(*(_f32(getattr(m, f), device) for f in (
+        "phi_d", "theta_d", "theta_h", "wvls", "m_data")),
+        float(m.alpha_sample), float(m.wavelength))
+
+
+def sdf_grid(g, device="cuda") -> SDFGrid:
+    """A `tpusky` SDFGrid -> SDFGrid (its material row a Python int)."""
+    return SDFGrid(_f32(g.values, device), _f32(g.to_local, device),
+                   _f32(g.to_world, device), int(np.asarray(g.bsdf_idx)))
+
+
+def curve_table(c, device="cuda") -> CurveTable:
+    """A `tpusky` CurveTable -> CurveTable (material rows as int64)."""
+    return CurveTable(_f32(c.pa, device), _f32(c.pb, device),
+                      _f32(c.ra, device), _f32(c.rb, device),
+                      _i64(c.bsdf_idx, device),
+                      torch.tensor(np.asarray(c.valid, bool), device=device))
+
+
 def material_table(t, device="cuda") -> MaterialTable:
     """A `tpusky` MaterialTable -> MaterialTable, its blend children as
-    int64."""
+    int64, with the measured datasets it holds."""
     kinds = np.asarray(t.kind)
     check_kinds(kinds)
+    check_datasets(kinds, t.measured, t.measured_pol)
     m = kinds.shape[0]
 
     def column(idx):
@@ -123,7 +161,11 @@ def material_table(t, device="cuda") -> MaterialTable:
                          _f32(t.blend_w, device),
                          tuple(int(k) for k in kinds),
                          bool((opacity < 1.0).any()), _i64(tex_idx, device),
-                         _i64(nrm_idx, device), bool((nrm_idx >= 0).any()))
+                         _i64(nrm_idx, device), bool((nrm_idx >= 0).any()),
+                         (None if t.measured is None
+                          else measured_brdf(t.measured, device)),
+                         (None if t.measured_pol is None
+                          else measured_polarized(t.measured_pol, device)))
 
 
 def texture_table(t, device="cuda") -> TextureTable:
@@ -193,15 +235,13 @@ def medium(m, device="cuda"):
 
 
 def scene(sc, device="cuda") -> Scene:
-    """A `tpusky` Scene of analytic shapes, triangle meshes, the ported
-    materials and their textures, a sunsky, constant, uniform, envmap or
-    no environment, area, point, directional, spot and directional-area
-    emitters and media -> Scene, with its bounding sphere. Where no shape
-    emits and none is an emitter, `area_radiance` is None; empty light
-    tables are None, and so is an all-zero `dir_area_radiance`."""
-    for field in ("sdf", "curve"):
-        if getattr(sc, field) is not None:
-            raise NotImplementedError(f"scene.{field}")
+    """A `tpusky` Scene of analytic shapes, triangle meshes, an SDF grid,
+    curves, materials with their textures and measured datasets, a
+    sunsky, constant, uniform, envmap or no environment, area, point,
+    directional, spot and directional-area emitters and media -> Scene,
+    with its bounding sphere. Where no shape emits and none is an
+    emitter, `area_radiance` is None; empty light tables are None, and so
+    is an all-zero `dir_area_radiance`."""
 
     def rows(a):
         return None if _none_or_empty(a) else _f32(a, device)
@@ -227,7 +267,9 @@ def scene(sc, device="cuda") -> Scene:
                   else texture_table(sc.textures, device)),
                  medium(sc.medium, device), _f32(sc.bsphere_center, device),
                  _f32(sc.bsphere_radius, device),
-                 _f32(dir_area, device) if dir_lit else None, dir_lit)
+                 _f32(dir_area, device) if dir_lit else None, dir_lit, None,
+                 None if sc.sdf is None else sdf_grid(sc.sdf, device),
+                 None if sc.curve is None else curve_table(sc.curve, device))
 
 
 def perspective(s, device="cuda") -> Perspective:

@@ -55,6 +55,14 @@ def normalize(v):
     return v / norm(v, keepdim=True)
 
 
+def unit(v):
+    """v normalised, its length floored at 1e-12; `linalg.vector_norm`
+    rounds as the reference's `jnp.linalg.norm` does, where a sum of
+    squares need not."""
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp(
+        min=1e-12)
+
+
 def sph_dir(theta, phi):
     """Spherical angles -> unit vector (theta from +z)."""
     st, ct = torch.sin(theta), torch.cos(theta)

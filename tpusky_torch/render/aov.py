@@ -3,8 +3,10 @@ and albedo at each pixel's centre, with an optional nested integrator.
 
 The PyTorch counterpart of `tpusky/render/aov.py` (the reference's
 `aov.cpp` and `depth.cpp`): one ray a pixel through its centre, the
-analytic shapes and the mesh (kernel K14 on the card) intersected as the
-path tracer does, and the reference's `aovs` spec string
+analytic shapes, the mesh (kernel K14 on the card), the SDF grid and the
+curves intersected as the path tracer does (an SDF or curve hit keeps the
+shapes' geometric normal, uv and primitive, as the reference's), and the
+reference's `aovs` spec string
 `"name:type,..."` (`aov.cpp:111`). A nested child integrator ("path",
 "direct" or a callable) adds its image under its name (`aov.cpp:126-137`),
 rendered through the port's `render`.
@@ -14,8 +16,7 @@ the child's key is `child_seed`, which defaults to the reference's fixed
 `PRNGKey(0)` (R2: the reference ignores any other); and the albedo of a
 textured material is its texture at the hit, as Mitsuba 3's `aov.cpp`
 reads it through `BSDF::eval_diffuse_reflectance` (R11: the reference
-reads the untextured column). SDFs and curves are not ported, so a scene
-here holds neither.
+reads the untextured column).
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from . import sensors as sensors_mod
+from .curve import curve_intersect
 from .mesh import mesh_interp_color, mesh_interp_uv, mesh_intersect
+from .sdf import sdf_intersect
 from .shapes import ray_intersect
 from .texture import eval_texture
 
@@ -60,7 +63,8 @@ def render_aovs(scene, sensor, height: int, width: int, aovs=None,
     """Feature channels at pixel centres -> dict: 'depth' (H, W),
     'normal', 'sh_normal', 'geo_normal', 'position', 'albedo' (H, W, 3),
     'uv' (H, W, 2), 'shape_idx' and 'prim_index' (H, W) int64 (-2 the
-    mesh's shape index, -1 a miss's or an analytic shape's primitive).
+    mesh's shape index, -3 the SDF's, -4 a curve's; -1 a miss's or an
+    analytic shape's primitive).
 
     `aovs` ("name:type,...") maps each requested name to its channel;
     `child` ("path", "direct" or a callable(scene, sensor, H, W)) adds
@@ -103,6 +107,22 @@ def render_aovs(scene, sensor, height: int, width: int, aovs=None,
         mat = torch.where(use, matm, mat)
         shape_idx = torch.where(use, -2, shape_idx)
         hit = hit | hitm
+    hits = []
+    if scene.sdf is not None:
+        ts, ns, hs = sdf_intersect(scene.sdf, o, d)
+        hits.append((ts, ns, hs, scene.sdf.bsdf_idx, -3))
+    if scene.curve is not None:
+        tc, nc, matc, hc, _ = curve_intersect(scene.curve, o, d)
+        hits.append((tc, nc, hc, matc, -4))
+    for t_k, n_k, hit_k, mat_k, index in hits:
+        # `tpusky/render/aov.py:68-88`
+        use = hit_k & (t_k < t)
+        t = torch.where(use, t_k, t)
+        p = torch.where(use[..., None], o + t_k[..., None] * d, p)
+        n = torch.where(use[..., None], n_k, n)
+        mat = torch.where(use, mat_k, mat)
+        shape_idx = torch.where(use, index, shape_idx)
+        hit = hit | use
 
     albedo = scene.bsdfs.albedo[mat]
     if scene.textures is not None:

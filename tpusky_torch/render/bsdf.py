@@ -1,5 +1,4 @@
-"""Material table: the kinds of `tpusky/render/bsdf.py` but hair and the
-measured ones.
+"""Material table: every kind of `tpusky/render/bsdf.py`.
 
 Kinds (the reference package's numbering):
 
@@ -40,6 +39,16 @@ Kinds (the reference package's numbering):
  15 principledthin  thin Disney BSDF (`principledthin.cpp`); `extra` holds
                     [spec_trans, diff_trans, sheen, sheen_tint, flatness,
                     spec_tint, -, -]
+ 16 hair            Chiang et al. 2016 fiber (`hair.cpp`) in the fiber frame
+                    (+y the tangent, +z the normal across the fiber): R,
+                    TT, TRT and a residual lobe; `albedo` is sigma_a,
+                    `alpha` beta_m, `ior` eta, `extra` [beta_n, tilt deg,
+                    -, ...]
+ 17 measured        RGL measured BRDF (`measured.cpp`), the table's
+                    `measured` dataset (`render/measured.py`)
+ 18 measured_pol    polarized measured pBRDF (`measured_polarized.cpp`),
+                    the table's `measured_pol` dataset; its scalar M00 here,
+                    its Mueller matrices in `render/polarized.py`
 
 Every row also carries an `opacity`: a lane passes through unscattered
 with probability 1 - opacity (the flattened `mask.cpp`), and may carry a
@@ -51,19 +60,20 @@ kinds 0, 4, 8, 9, 11 and 15 and the filters' transmittance (the
 reference's `_apply_tex`), not a conductor's tint. Kinds 11-14 carry
 here their scalar radiometry, which the scalar path renders as the
 reference's does; their Mueller matrices are in `render/polarized.py`.
-Kind 16 (hair) waits for `render/curve.py`, 17 and 18 (measured) for
-`render/measured.py`: they raise.
+A table with a kind-17 or kind-18 row holds the dataset those rows read
+(one each a table); without it the table is refused (ValueError), where
+the reference skips the lobe, since Mitsuba's plugins need a file.
 
-Kinds 0-2, 4, 8, 9 and 11 sit behind the `twosided.cpp` adapter; the
-dielectrics, null, the filters and principledthin are two-sided by
-construction and work in the geometric frame. Materials live in one struct-of-arrays
-table; `eval_pdf` and `sample` evaluate the lobes the table holds (its
-`table_kinds`) and select per lane by kind. The delta lobes evaluate to
-zero in `eval_pdf` (their throughput arrives only through `sample`, with
-is_delta set). In spectral mode (`wavelengths` given, (..., W) in nm)
-reflectance is the 11-channel spectrum lerped at the hero wavelengths,
-and a conductor's Fresnel term is the mean over its three RGB channels,
-as in the reference package.
+Kinds 0-2, 4, 8, 9, 11, 17 and 18 sit behind the `twosided.cpp`
+adapter; the dielectrics, null, the filters, principledthin and hair are
+two-sided by construction and work in the geometric frame. Materials
+live in one struct-of-arrays table; `eval_pdf` and `sample` evaluate
+the lobes the table holds (its `table_kinds`) and select per lane by
+kind. The delta lobes evaluate to zero in `eval_pdf` (their throughput
+arrives only through `sample`, with is_delta set). In spectral mode
+(`wavelengths` given, (..., W) in nm) reflectance is the 11-channel
+spectrum lerped at the hero wavelengths, and a conductor's Fresnel term
+is the mean over its three RGB channels, as in the reference package.
 
 Directions are in the local shading frame (+z = geometric normal).
 `sample` returns weight = value / pdf with the cosine included; a delta
@@ -72,13 +82,16 @@ lobe's pdf is its discrete probability.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops import warp
-from ..ops.math import PI, safe_sqrt
+from ..ops.math import PI, safe_acos, safe_asin, safe_sqrt
+from ..ops.math import unit as _unit
+from . import measured as measured_mod
 
 DIFFUSE, ROUGH_CONDUCTOR, CONDUCTOR, DIELECTRIC = 0, 1, 2, 3
 PLASTIC, ROUGH_DIELECTRIC, NULL_BSDF = 4, 5, 6
@@ -86,13 +99,11 @@ THIN_DIELECTRIC, ROUGH_PLASTIC, PRINCIPLED = 7, 8, 9
 BLEND = 10
 PPLASTIC, POLARIZER, RETARDER, CIRCULAR = 11, 12, 13, 14
 PRINCIPLED_THIN = 15
+HAIR, MEASURED, MEASURED_POL = 16, 17, 18
 KINDS = (DIFFUSE, ROUGH_CONDUCTOR, CONDUCTOR, DIELECTRIC, PLASTIC,
          ROUGH_DIELECTRIC, NULL_BSDF, THIN_DIELECTRIC, ROUGH_PLASTIC,
          PRINCIPLED, BLEND, PPLASTIC, POLARIZER, RETARDER, CIRCULAR,
-         PRINCIPLED_THIN)
-# the reference's other kinds, by the module each waits for
-_WAITS = {16: "render/curve.py", 17: "render/measured.py",
-          18: "render/measured.py"}
+         PRINCIPLED_THIN, HAIR, MEASURED, MEASURED_POL)
 # the kinds whose lobes start from the Lambertian sample and reflectance
 _BASE = (DIFFUSE, PLASTIC, ROUGH_PLASTIC, PRINCIPLED, PPLASTIC)
 
@@ -120,17 +131,30 @@ class MaterialTable(NamedTuple):
     normal_tex_idx: Optional[torch.Tensor] = None  # (M,) int64, -1: none
     # whether any row has a normal map, on the host (`table_normal_maps`)
     host_normal_maps: Optional[bool] = None
+    # the datasets the kind-17 and kind-18 rows read (one each a table;
+    # `render/measured.py`)
+    measured: Any = None        # measured.MeasuredBRDF
+    measured_pol: Any = None    # measured.MeasuredPolarized
 
 
 def check_kinds(kinds):
-    """Raise NotImplementedError for kinds the port does not have, naming
-    the module each waits for."""
+    """Raise NotImplementedError for kinds the reference does not have."""
     bad = sorted(set(int(k) for k in kinds) - set(KINDS))
     if bad:
-        waits = sorted(set(_WAITS.get(k, "no module of the reference")
-                           for k in bad))
-        raise NotImplementedError(f"material kinds {bad} need "
-                                  f"{', '.join(waits)}, not ported yet")
+        raise NotImplementedError(f"material kinds {bad}: no kind of the "
+                                  "reference")
+
+
+def check_datasets(kinds, measured, measured_pol):
+    """Raise ValueError where a kind-17 or kind-18 row has no dataset to
+    read (the reference skips its lobe; Mitsuba's plugin needs a
+    file)."""
+    kinds = set(int(k) for k in kinds)
+    for kind, data, name in ((MEASURED, measured, "measured"),
+                             (MEASURED_POL, measured_pol, "measured_pol")):
+        if kind in kinds and data is None:
+            raise ValueError(f"a kind-{kind} row needs the table's {name} "
+                             "dataset")
 
 
 def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
@@ -138,17 +162,21 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
                         etas=None, ks=None, iors=None, opacities=None,
                         extras=None, blend_children=None, blend_weights=None,
                         tex_indices=None, normal_tex_indices=None,
+                        measured=None, measured_pol=None,
                         device="cuda") -> MaterialTable:
     """Host-side description -> table, with the reference package's
     defaults: the spectral albedo repeats the RGB mean, alpha 0.1, a
     gold-like conductor IOR, a dielectric IOR of 1.5046, opacity 1,
     `extra` [0, 0.5, 0, 0, 0, 0, 0, 0], blend children (0, 0) of weight
-    0, no texture and no normal map (-1)."""
+    0, no texture and no normal map (-1). `measured` and `measured_pol`
+    are the datasets of the kind-17 and kind-18 rows
+    (`measured.load_measured`, `load_measured_polarized`), on `device`."""
     a = np.atleast_2d(np.asarray(albedos, np.float32))
     m = a.shape[0]
     kinds = (np.zeros((m,), np.int64) if kinds is None
              else np.asarray(kinds, np.int64))
     check_kinds(kinds)
+    check_datasets(kinds, measured, measured_pol)
     ts = (np.zeros((m,), bool) if twosided is None
           else np.asarray(twosided, bool))
     if spectral_albedos is None:
@@ -188,7 +216,8 @@ def make_material_table(kinds=None, albedos=((0.5, 0.5, 0.5),),
                          f32(blend_weights), tuple(int(k) for k in kinds),
                          bool((opacities < 1.0).any()), i64(tex_indices),
                          i64(normal_tex_indices),
-                         bool((normal_tex_indices >= 0).any()))
+                         bool((normal_tex_indices >= 0).any()), measured,
+                         measured_pol)
 
 
 def make_diffuse_table(albedos, twosided=None,
@@ -352,13 +381,6 @@ def _plastic_base(albedo, ior, f_o):
     inv_eta2 = 1.0 / (ior * ior)
     return (albedo / (1.0 - albedo * fdr[..., None]).clamp(min=1e-3)
             * ((1.0 - f_o) * inv_eta2)[..., None])
-
-
-def _unit(v):
-    """v normalised; `linalg.vector_norm` rounds as the reference's
-    `jnp.linalg.norm` does, where a sum of squares need not."""
-    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp(
-        min=1e-12)
 
 
 def _rough_plastic_eval(albedo, alpha, ior, wi_l, wo_l):
@@ -599,6 +621,267 @@ def _principled_eval(base, rough, extra, wi_l, wo_l):
             torch.where(ok, pdf, 0.0))
 
 
+# ---------------------------------------------------------------------------
+# hair (Chiang et al. 2016; `hair.cpp`, `tpusky/render/bsdf.py:355-616`)
+# ---------------------------------------------------------------------------
+#
+# The fiber frame (`hair.cpp:140-149`): local +y is the tangent (sin_theta
+# = w.y), (x, z) the cross-section with +z the outward normal at the hit.
+# Three modes (R, TT, TRT) and a residual lobe.
+
+_HAIR_PMAX = 3
+# the direction a non-hair lane's fiber math runs on: no inf or NaN there
+# to turn a zero cotangent into NaN in the shared wi / wo
+_HAIR_SAFE_D = (0.6, 0.48, 0.64)
+
+
+def _bessel_i0(x):
+    """10-term series of the modified Bessel function I0 (`warp.h:
+    748-758`)."""
+    result = torch.ones_like(x)
+    x2 = x * x
+    xi = x2
+    denom = 4.0
+    for i in range(1, 11):
+        factor = i + 1.0
+        result = result + xi / denom
+        xi = xi * x2
+        denom = denom * 4.0 * factor * factor
+    return result
+
+
+def _log_bessel_i0(x):
+    """log I0(x), the large-argument asymptote above 12 (`warp.h:
+    761-766`)."""
+    safe = x.clamp(max=12.0)
+    xc = x.clamp(min=1e-6)
+    return torch.where(
+        x > 12.0, x + 0.5 * (-torch.log(2.0 * PI * xc) + 1.0 / (8.0 * xc)),
+        torch.log(_bessel_i0(safe).clamp(min=1e-30)))
+
+
+def _rough_fiber_pdf(v_dir, wi, kappa):
+    """d'Eon et al. 2011's longitudinal density M_p (`warp.h:772-792`,
+    tangent +y)."""
+    sin_ti = wi[..., 1]
+    sin_to = v_dir[..., 1]
+    cos_ti = safe_sqrt(1.0 - sin_ti * sin_ti)
+    cos_to = safe_sqrt(1.0 - sin_to * sin_to)
+    c = cos_ti * cos_to * kappa
+    s = sin_ti * sin_to * kappa
+    inv_2pi = 0.15915494309189535
+    big = torch.exp(-s + _log_bessel_i0(c) - kappa + 0.6931
+                    + torch.log(0.5 * kappa.clamp(min=1e-6))) * inv_2pi
+    kp = kappa.clamp(max=10.0)
+    small = (torch.exp(-s) * _bessel_i0(c) * kp
+             / (2.0 * torch.sinh(kp)) * inv_2pi)
+    return torch.where(kappa > 10.0, big, small)
+
+
+def _hair_gamma(w):
+    """The azimuthal offset of w from the cross-section's normal +z
+    (`hair.cpp:528-536`); h = sin(gamma) is the chord's offset."""
+    proj = safe_sqrt(w[..., 0] ** 2 + w[..., 2] ** 2)
+    g = safe_acos((w[..., 2] / proj.clamp(min=1e-12)).clamp(-1.0, 1.0))
+    g = torch.where(proj == 0.0, 0.0, g)
+    return torch.where(w[..., 0] < 0.0, g, -g)
+
+
+def _hair_derived(beta_m, beta_n, tilt_deg):
+    """Roughness -> the lobes' variances v[0..3], the logistic scale s and
+    the scale tilt's double-angle tables (`hair.cpp:496-527`)."""
+    v0 = (0.726 * beta_m + 0.812 * beta_m ** 2 + 3.7 * beta_m ** 20) ** 2
+    v = [v0, 0.25 * v0, 4.0 * v0, 4.0 * v0]
+    s = math.sqrt(PI / 8.0) * (0.265 * beta_n + 1.194 * beta_n ** 2
+                               + 5.372 * beta_n ** 22)
+    sin0 = torch.sin(torch.deg2rad(tilt_deg))
+    cos0 = safe_sqrt(1.0 - sin0 * sin0)
+    sin1 = 2.0 * cos0 * sin0
+    cos1 = cos0 * cos0 - sin0 * sin0
+    sin2 = 2.0 * cos1 * sin1
+    cos2 = cos1 * cos1 - sin1 * sin1
+    return v, s, (sin0, sin1, sin2), (cos0, cos1, cos2)
+
+
+def _hair_reframe(sin_ti, cos_ti, p, sin2k, cos2k):
+    """The incident angle tilted for lobe p (`hair.cpp:543-575`)."""
+    if p == 0:
+        s = sin_ti * cos2k[1] - cos_ti * sin2k[1]
+        c = cos_ti * cos2k[1] + sin_ti * sin2k[1]
+    elif p == 1:
+        s = sin_ti * cos2k[0] + cos_ti * sin2k[0]
+        c = cos_ti * cos2k[0] - sin_ti * sin2k[0]
+    elif p == 2:
+        s = sin_ti * cos2k[2] + cos_ti * sin2k[2]
+        c = cos_ti * cos2k[2] - sin_ti * sin2k[2]
+    else:
+        s, c = sin_ti, cos_ti
+    return s, c.abs()
+
+
+def _hair_attenuation(cos_theta_i, eta, h, transmittance):
+    """Each mode's attenuation a_p (`hair.cpp:577-592`): Fresnel at the
+    entry, absorption along the chords, the residual series."""
+    cos_gamma_i = safe_sqrt(1.0 - h * h)
+    f, _, _ = fresnel_dielectric(cos_theta_i * cos_gamma_i, eta)
+    f = f[..., None]
+    t = transmittance
+    a0 = f.expand(t.shape)
+    a1 = (1.0 - f) ** 2 * t
+    a2 = a1 * t * f
+    a3 = a2 * f * t / (1.0 - t * f).clamp(min=1e-4)
+    return [a0, a1, a2, a3]
+
+
+def _hair_logistic(x, s):
+    # a non-hair row has beta_n = 0, so s = 0: floored, or its masked
+    # lanes' NaN would turn zero cotangents into NaN in the shared wi / wo
+    s = s.clamp(min=1e-6)
+    x = x.abs()
+    e = torch.exp(-x / s)
+    return e / (s * (1.0 + e) ** 2)
+
+
+def _hair_logistic_cdf(x, s):
+    return 1.0 / (1.0 + torch.exp(-(x / s.clamp(min=1e-6)).clamp(-60.0,
+                                                                  60.0)))
+
+
+def _hair_azimuthal(delta_phi, p, s, gamma_i, gamma_t):
+    """The trimmed logistic N_p (`hair.cpp:630-645`)."""
+    perfect = 2.0 * p * gamma_t - 2.0 * gamma_i + p * PI
+    phi = torch.remainder(delta_phi - perfect, 2.0 * PI)
+    phi = torch.where(phi < PI, phi + 2.0 * PI, phi)
+    phi = torch.where(phi > PI, phi - 2.0 * PI, phi)
+    pi_t = torch.full_like(s, PI)
+    norm_ = _hair_logistic_cdf(pi_t, s) - _hair_logistic_cdf(-pi_t, s)
+    return _hair_logistic(phi, s) / norm_.clamp(min=1e-9)
+
+
+def _hair_geometry(wi, eta):
+    """The fiber-frame geometry shared by eval, pdf and sample."""
+    # a non-hair row has eta = 0: sin_ti / eta would be inf
+    eta = eta.clamp(min=1e-3)
+    gamma_i = _hair_gamma(wi)
+    h = torch.sin(gamma_i)
+    sin_ti = wi[..., 1]
+    cos_ti = safe_sqrt(1.0 - sin_ti * sin_ti)
+    sin_tt = sin_ti / eta
+    cos_tt = safe_sqrt(1.0 - sin_tt * sin_tt)
+    eta_p = safe_sqrt(eta * eta - sin_ti * sin_ti) / cos_ti.clamp(min=1e-6)
+    sin_gt = h / eta_p.clamp(min=1e-6)
+    cos_gt = safe_sqrt(1.0 - sin_gt * sin_gt)
+    gamma_t = safe_asin(sin_gt)
+    return gamma_i, h, sin_ti, cos_ti, cos_tt, cos_gt, gamma_t
+
+
+def _hair_lobes(sigma_a, beta_m, beta_n, tilt_deg, eta, wi):
+    """(v, s, sin2k, cos2k, geometry, a_p, lum, lum_sum) of a lane."""
+    v, s, sin2k, cos2k = _hair_derived(beta_m, beta_n, tilt_deg)
+    geo = _hair_geometry(wi, eta)
+    cos_tt, cos_gt = geo[4], geo[5]
+    transmittance = torch.exp(-sigma_a * (2.0 * cos_gt
+                                          / cos_tt.clamp(min=1e-6))[..., None])
+    a_p = _hair_attenuation(geo[3], eta, geo[1], transmittance)
+    lum = [a.mean(-1) for a in a_p]
+    lum_sum = sum(lum).clamp(min=1e-12)
+    return v, s, sin2k, cos2k, geo, a_p, lum, lum_sum
+
+
+def _hair_eval_pdf(sigma_a, beta_m, beta_n, tilt_deg, eta, wi, wo):
+    """(f (..., C), pdf) of the hair BCSDF in the fiber frame
+    (`hair.cpp:420-477`); the model folds the projected cosine into f."""
+    v, s, sin2k, cos2k, geo, a_p, lum, lum_sum = _hair_lobes(
+        sigma_a, beta_m, beta_n, tilt_deg, eta, wi)
+    gamma_i, _, sin_ti, cos_ti, _, _, gamma_t = geo
+    phi_i = torch.atan2(wi[..., 2], wi[..., 0])
+    phi_o = torch.atan2(wo[..., 2], wo[..., 0])
+    delta_phi = phi_o - phi_i
+    sin_pi, cos_pi = torch.sin(phi_i), torch.cos(phi_i)
+    value = torch.zeros_like(a_p[0])
+    pdf = torch.zeros_like(lum_sum)
+    for p in range(_HAIR_PMAX):
+        s_ip, c_ip = _hair_reframe(sin_ti, cos_ti, p, sin2k, cos2k)
+        wi_p = torch.stack([c_ip * cos_pi, s_ip, c_ip * sin_pi], -1)
+        m_p = _rough_fiber_pdf(wo, wi_p, 1.0 / v[p].clamp(min=1e-7))
+        n_p = _hair_azimuthal(delta_phi, p, s, gamma_i, gamma_t)
+        value = value + (m_p * 2.0 * PI * n_p)[..., None] * a_p[p]
+        pdf = pdf + m_p * 2.0 * PI * (lum[p] / lum_sum) * n_p
+    m_res = _rough_fiber_pdf(wo, wi, 1.0 / v[3].clamp(min=1e-7))
+    value = value + m_res[..., None] * a_p[3]
+    pdf = pdf + m_res * (lum[3] / lum_sum)
+    return (torch.where(torch.isfinite(value), value, 0.0),
+            torch.where(torch.isfinite(pdf), pdf, 0.0))
+
+
+def _hair_sample(sigma_a, beta_m, beta_n, tilt_deg, eta, wi, u2, u1):
+    """An outgoing direction of the hair BCSDF (`hair.cpp:215-322`): a
+    lobe by u1, the longitudinal and azimuthal inverse CDFs by u2."""
+    v, s, sin2k, cos2k, geo, a_p, lum, lum_sum = _hair_lobes(
+        sigma_a, beta_m, beta_n, tilt_deg, eta, wi)
+    gamma_i, _, sin_ti, cos_ti, _, _, gamma_t = geo
+    ap_pdf = torch.stack([l / lum_sum for l in lum], -1)      # (..., 4)
+    # the lobe, and u1's remainder rescaled to it (`hair.cpp:233-243`)
+    cdf = torch.cumsum(ap_pdf, -1)
+    p_sel = (3 - (u1 < cdf[..., 2]).long() - (u1 < cdf[..., 1]).long()
+             - (u1 < cdf[..., 0]).long())
+    cdf_prev = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1]], -1)
+    sel = torch.nn.functional.one_hot(p_sel, 4).to(cdf.dtype)
+    u_rem = ((u1 - (sel * cdf_prev).sum(-1))
+             / (sel * ap_pdf).sum(-1).clamp(min=1e-9)).clamp(0.0, 1.0 - 1e-6)
+
+    # the longitudinal sample about the tilted incident angle
+    s_ip = torch.zeros_like(sin_ti)
+    c_ip = torch.zeros_like(cos_ti)
+    v_sel = torch.zeros_like(sin_ti)
+    for p in range(4):
+        sp, cp = _hair_reframe(sin_ti, cos_ti, p, sin2k, cos2k)
+        is_p = p_sel == p
+        s_ip = torch.where(is_p, sp, s_ip)
+        c_ip = torch.where(is_p, cp, c_ip)
+        v_sel = torch.where(is_p, v[p], v_sel)
+    v_sel = v_sel.clamp(min=1e-7)
+    u20 = u2[..., 0].clamp(1e-6, 1.0 - 1e-6)
+    cos_theta = 1.0 + v_sel * torch.log(
+        u20 + (1.0 - u20) * torch.exp(-2.0 / v_sel))
+    sin_theta = safe_sqrt(1.0 - cos_theta ** 2)
+    cos_phi_l = torch.cos(2.0 * PI * u2[..., 1])
+    sin_to = -cos_theta * s_ip + sin_theta * cos_phi_l * c_ip
+    cos_to = safe_sqrt(1.0 - sin_to ** 2)
+
+    # the azimuthal sample: the trimmed logistic about the perfect
+    # deflection for p < 3, uniform for the residual (`hair.cpp:268-280`)
+    p_f = p_sel.to(sin_ti.dtype)
+    perfect = 2.0 * p_f * gamma_t - 2.0 * gamma_i + p_f * PI
+    pi_t = torch.full_like(s, PI)
+    cdf_lo = _hair_logistic_cdf(-pi_t, s)
+    k_log = _hair_logistic_cdf(pi_t, s) - cdf_lo
+    # the log's argument reaches <= 0 at u_rem ~ 1 (and where s = 0):
+    # floored, or its NaN would turn zero cotangents into NaN downstream
+    x_log = -s * torch.log((1.0 / (u_rem * k_log + cdf_lo).clamp(min=1e-9)
+                            - 1.0).clamp(min=1e-12))
+    x_log = x_log.clamp(-PI, PI)
+    delta_phi = torch.where(p_sel < 3, perfect + x_log, 2.0 * PI * u_rem)
+    phi_o = torch.atan2(wi[..., 2], wi[..., 0]) + delta_phi
+    wo = torch.stack([cos_to * torch.cos(phi_o), sin_to,
+                      cos_to * torch.sin(phi_o)], -1)
+    return _unit(wo)
+
+
+def _hair_args(table, mat_idx, albedo, wi):
+    """The hair lobe's arguments: (sigma_a, beta_m, beta_n, tilt, eta,
+    is_hair, wi with a fixed safe direction on the other lanes), the
+    input guard of `tpusky/render/bsdf.py:1152-1160`."""
+    extra = table.extra[mat_idx]
+    is_h = table.kind[mat_idx] == HAIR
+    # filled on the device: a copy from the host would wait for it
+    safe_d = torch.stack([torch.full((), v, dtype=wi.dtype, device=wi.device)
+                          for v in _HAIR_SAFE_D])
+    return ((albedo, table.alpha[mat_idx], extra[..., 0], extra[..., 1],
+             table.ior[mat_idx]), is_h,
+            torch.where(is_h[..., None], wi, safe_d))
+
+
 def _n_chan(wavelengths):
     return 3 if wavelengths is None else wavelengths.shape[-1]
 
@@ -635,6 +918,7 @@ def eval_pdf(table: MaterialTable, mat_idx, wi, wo, wavelengths=None,
     vertex's `refl_tex`."""
     present, any_mask = table_kinds(table) if kinds is None else kinds
     check_kinds(present)
+    check_datasets(present, table.measured, table.measured_pol)
     if BLEND not in present:
         return _eval_pdf_core(table, mat_idx, wi, wo, wavelengths, present,
                               any_mask, refl_tex)
@@ -657,6 +941,7 @@ def sample(table: MaterialTable, mat_idx, wi, sample2, sample1,
     `blendbsdf.cpp::sample`; `tpusky/render/bsdf.py:918-962`)."""
     present, any_mask = table_kinds(table) if kinds is None else kinds
     check_kinds(present)
+    check_datasets(present, table.measured, table.measured_pol)
     if BLEND not in present:
         return _sample_core(table, mat_idx, wi, sample2, sample1,
                             wavelengths, present, any_mask, refl_tex)
@@ -803,6 +1088,32 @@ def _eval_pdf_core(table: MaterialTable, mat_idx, wi, wo, wavelengths,
         is_pt = kind == PRINCIPLED_THIN
         value = _select(is_pt, pt_val, value)
         pdf = _select(is_pt, pt_pdf, pdf)
+
+    if HAIR in present:
+        # the fiber frame, the full sphere (:1148-1165)
+        args, is_h, wi_h = _hair_args(table, mat_idx, albedo, wi)
+        wo_h = torch.where(is_h[..., None], wo, wi_h)
+        h_val, h_pdf = _hair_eval_pdf(*args, wi_h, wo_h)
+        value = _select(is_h, h_val, value)
+        pdf = _select(is_h, h_pdf, pdf)
+
+    if MEASURED in present:
+        # the two-sided local frame, upper-hemisphere reflection
+        # (:1167-1174)
+        md_val, md_pdf = measured_mod.measured_eval_pdf(
+            table.measured, wi_l, wo_l, wavelengths)
+        is_md = kind == MEASURED
+        value = _select(is_md, md_val, value)
+        pdf = _select(is_md, md_pdf, pdf)
+
+    if MEASURED_POL in present:
+        # the scalar M00 (:1176-1183); the Mueller matrices are
+        # `render/polarized.py`'s
+        mp_val, mp_pdf = measured_mod.mp_eval_pdf(
+            table.measured_pol, wi_l, wo_l, wavelengths)
+        is_mp = kind == MEASURED_POL
+        value = _select(is_mp, mp_val, value)
+        pdf = _select(is_mp, mp_pdf, pdf)
 
     if any_mask:
         # the mask: the lane's chance to interact at all
@@ -971,6 +1282,24 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
                                          (1.0 - f_i_pl) * pdf_diff), pdf)
         is_delta = is_delta | (is_pl & pl_spec)
 
+    if MEASURED in present:
+        # the luminance, then the VNDF warp (:1424-1432)
+        wo_md, w_md, pdf_md = measured_mod.measured_sample(
+            table.measured, wi_l, sample2, wavelengths)
+        is_md = kind == MEASURED
+        wo = _select(is_md, wo_md, wo)
+        weight = _select(is_md, w_md, weight)
+        pdf = _select(is_md, pdf_md, pdf)
+
+    if MEASURED_POL in present:
+        # the cosine and GGX mixture, weight = M00 cos / pdf (:1434-1445)
+        wo_mp = measured_mod.mp_sample(table.measured_pol, wi_l, sample2,
+                                       sample1)
+        mp_val, mp_pdf = measured_mod.mp_eval_pdf(table.measured_pol, wi_l,
+                                                  wo_mp, wavelengths)
+        wo, weight, pdf = through_eval(kind == MEASURED_POL, wo_mp, mp_val,
+                                       mp_pdf, torch.ones_like(active))
+
     # back from the two-sided local frame to the geometric one
     wo = torch.where(geom_frame[..., None], wo, wo * sign3)
     ok = geom_frame | active
@@ -1068,6 +1397,15 @@ def _sample_core(table: MaterialTable, mat_idx, wi, sample2, sample1,
         pt_pdf = torch.where(valid, pt_pdf, 0.0)
         wo, weight, pdf = through_eval(kind == PRINCIPLED_THIN, wo_pt, pt_val,
                                        pt_pdf, valid)
+
+    if HAIR in present:
+        # the lobe cascade and the two inverse CDFs, weight f / pdf by the
+        # shared eval (fiber frame, the full sphere; :1572-1590)
+        args, is_h, wi_h = _hair_args(table, mat_idx, albedo, wi)
+        wo_h = _hair_sample(*args, wi_h, sample2, sample1)
+        h_val, h_pdf = _hair_eval_pdf(*args, wi_h, wo_h)
+        wo, weight, pdf = through_eval(is_h, wo_h, h_val, h_pdf,
+                                       torch.ones_like(is_h))
 
     if NULL_BSDF in present:
         is_null = kind == NULL_BSDF

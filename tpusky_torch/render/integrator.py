@@ -2,22 +2,24 @@
 
 The PyTorch counterpart of `tpusky/render/integrator.py`: analytic
 shapes (sphere, rectangle, disk, cube, cylinder), triangle meshes
-(kernel K14 on the card), every material kind but hair and the measured
-ones (diffuse, rough conductor, conductor, dielectric, plastic, rough
+(kernel K14 on the card), an SDF grid (`render/sdf.py`, its gradient
+reaching the grid's values) and curves (`render/curve.py`, hair shaded in
+the fiber frame of the winning segment's tangent), every material kind
+(diffuse, rough conductor, conductor, dielectric, plastic, rough
 dielectric, null, thin dielectric, rough plastic, principled, blend,
-principledthin, and the polarized kinds' scalar radiometry: pplastic,
-polarizer, retarder, circular; their Stokes transport is
-`render/polarized.py`'s `render_stokes`) with opacity masks, textures and
-normal maps (`render/texture.py`: uv at analytic and mesh hits, vertex
-colours), the sunsky, constant, uniform and bitmap (envmap) environments
-or none, area emitters, point, directional and spot lights, NEE + MIS
-(power heuristic, beta = 2, reference `path.cpp:321`), Russian
-roulette and participating media (`render/medium.py`: free flight over
-one or more convex regions, homogeneous or a density grid, every phase
-function; a scattering lane samples the environment and its phase
-function). A medium beside area or delta lights (R13) and a spectral
-render of a medium of more than one channel (R14) raise.
-The environments and the lobes enter the path only through
+principledthin, hair, the measured BRDF, and the polarized kinds' scalar
+radiometry: pplastic, polarizer, retarder, circular, the measured pBRDF;
+their Stokes transport is `render/polarized.py`'s `render_stokes`) with
+opacity masks, textures and normal maps (`render/texture.py`: uv at
+analytic and mesh hits, vertex colours), the sunsky, constant, uniform
+and bitmap (envmap) environments or none, area emitters, point,
+directional and spot lights, NEE + MIS (power heuristic, beta = 2,
+reference `path.cpp:321`), Russian roulette and participating media
+(`render/medium.py`: free flight over one or more convex regions,
+homogeneous or a density grid, every phase function; a scattering lane
+samples the environment and its phase function). A medium beside area
+or delta lights (R13) and a spectral render of a medium of more than one
+channel (R14) raise. The environments and the lobes enter the path only through
 `emitters.env_*` and `bsdf.eval_pdf` / `bsdf.sample`, as in the
 reference. Up to two delta lights are each connected at every
 vertex; more are sampled one a vertex by their weights
@@ -76,10 +78,12 @@ from . import film as film_mod
 from . import medium as medium_mod
 from . import sensors as sensors_mod
 from . import spectra
+from .curve import curve_intersect
 from .mesh import mesh_interp_color, mesh_interp_uv, mesh_intersect
 from .sampler import fold_in, key_seed, lane_samples
 from .scene import (Scene, n_delta_lights, scene_occluded, table_len,
                     with_emitter_coeffs, with_mesh_tables)
+from .sdf import sdf_intersect
 from .shapes import DISK, RECTANGLE, SPHERE, ray_intersect
 from .texture import eval_texture, table_texture_kinds
 
@@ -128,6 +132,8 @@ def _check_slice(scene: Scene, max_depth, rr_depth, mode, kinds):
         raise NotImplementedError(f"max_depth {max_depth}")
     if kinds is not None:
         bsdf_mod.check_kinds(kinds[0])
+        bsdf_mod.check_datasets(kinds[0], scene.bsdfs.measured,
+                                scene.bsdfs.measured_pol)
     if scene.medium is not None:
         # R13: the reference's medium vertex samples the environment
         # alone (`tpusky/render/integrator.py:627-653`; its area and delta
@@ -146,14 +152,17 @@ def _check_slice(scene: Scene, max_depth, rr_depth, mode, kinds):
                 "channel")
 
 
-def _scene_hit(scene: Scene, o, d, plain: bool, textured: bool = False):
-    """Closest hit over the analytic shapes and the mesh -> (t, p, ng,
-    shape index (-2 on a mesh hit), material index, hit); with `textured`
-    also the hit's uv (..., 2) and vertex colour (..., 3) (None where the
-    mesh has none, 0 off the mesh). A mesh hit closer than the shapes'
-    takes the hit point o + t d, the interpolated shading normal as ng,
-    the triangle's material, uv and colour
-    (`tpusky/render/integrator.py:274-298, 410-411`)."""
+def _scene_hit(scene: Scene, o, d, plain: bool, textured: bool = False,
+               fiber: bool = False):
+    """Closest hit over the analytic shapes, the mesh, the SDF grid and the
+    curves -> (t, p, ng, shape index (-2 on a mesh hit, -3 on the SDF, -4
+    on a curve), material index, hit); with `textured` also the hit's uv
+    (..., 2) and vertex colour (..., 3) (None where the mesh has none, 0
+    off the mesh); with `fiber` then the lanes on a curve and the winning
+    segment's unit tangent (None without curves). A closer hit takes the
+    hit point o + t d, its normal as ng and its material; a mesh hit also
+    the interpolated uv and colour (`tpusky/render/integrator.py:274-327,
+    410-415`)."""
     if textured:
         t, p, ng, uv, shape_idx, hit = ray_intersect(scene.shapes, o, d,
                                                      uv=True)
@@ -181,9 +190,31 @@ def _scene_hit(scene: Scene, o, d, plain: bool, textured: bool = False):
             if scene.mesh.col is not None:
                 attr = torch.where(use_mesh[..., None], mesh_interp_color(
                     scene.mesh, tri, b1, b2), 0.0)
+
+    def closer(t_k, n_k, hit_k, index, mat_k):
+        use = hit_k & (t_k < t)
+        # o + t d with a finite t off the shape (R12, as above)
+        p_k = o + torch.where(use, t_k, 0.0)[..., None] * d
+        return (use, torch.where(use, t_k, t),
+                torch.where(use[..., None], p_k, p),
+                torch.where(use[..., None], n_k, ng),
+                torch.where(use, index, shape_idx),
+                torch.where(use, mat_k, mat_idx), hit | use)
+    if scene.sdf is not None:
+        ts, ns, hs = sdf_intersect(scene.sdf, o, d)
+        _, t, p, ng, shape_idx, mat_idx, hit = closer(
+            ts, ns, hs, -3, scene.sdf.bsdf_idx)
+    on_curve = tangent = None
+    if scene.curve is not None:
+        tc, nc, matc, hc, tangent = curve_intersect(scene.curve, o, d)
+        on_curve, t, p, ng, shape_idx, mat_idx, hit = closer(
+            tc, nc, hc, -4, matc)
+    out = (t, p, ng, shape_idx, mat_idx, hit)
     if textured:
-        return t, p, ng, shape_idx, mat_idx, hit, uv, attr
-    return t, p, ng, shape_idx, mat_idx, hit
+        out += (uv, attr)
+    if fiber:
+        out += (on_curve, tangent)
+    return out
 
 
 def _scene_intersect(scene: Scene, o, d, plain: bool):
@@ -191,6 +222,21 @@ def _scene_intersect(scene: Scene, o, d, plain: bool):
     hit)."""
     t, p, ng, _, mat_idx, hit = _scene_hit(scene, o, d, plain)
     return t, p, ng, mat_idx, hit
+
+
+def _fiber_frame(frame: Frame, on_curve, tangent, ng, kind):
+    """`frame` with the hair lanes on a curve in the fiber frame: +y the
+    segment's tangent, +z ng projected off it, +x their cross product
+    (`hair.cpp:140-149`; `tpusky/render/integrator.py:444-459`)."""
+    z_h = ng - (ng * tangent).sum(-1, keepdim=True) * tangent
+    z_h = z_h / torch.linalg.vector_norm(z_h, dim=-1,
+                                         keepdim=True).clamp(min=1e-9)
+    m = (on_curve & (kind == bsdf_mod.HAIR))[..., None]
+    out = Frame.__new__(Frame)
+    out.s = torch.where(m, torch.linalg.cross(tangent, z_h, dim=-1), frame.s)
+    out.t = torch.where(m, tangent, frame.t)
+    out.n = torch.where(m, z_h, frame.n)
+    return out
 
 
 def _offset(p, ng, dirs):
@@ -416,8 +462,11 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
                 (active & hit & facing)[..., None], contrib, 0.0)
         return result
 
+    # the fiber frame where a hair row can be hit on a curve
+    hair = (scene.curve is not None and bsdf_mod.HAIR in (
+        bsdf_mod.table_kinds(scene.bsdfs) if kinds is None else kinds)[0])
     for depth in range(max_depth - 1):
-        geo = _scene_hit(scene, o, d, plain, textured)
+        geo = _scene_hit(scene, o, d, plain, textured, fiber=hair)
         t, p, ng, mat_idx, hit = geo[0], geo[1], geo[2], geo[4], geo[5]
         t_seg, thr_s = None, throughput
         if media is not None:
@@ -463,6 +512,9 @@ def _path_sample(scene: Scene, o, d, smp: _SamplerCtx, max_depth: int,
             # reaches the next hit, NaN at o + inf * d on a mesh miss)
             place = Frame(torch.where(n_has[..., None],
                                       place.to_world(n_loc.detach()), ng))
+        if hair:
+            fiber = (geo[-2], geo[-1], ng, scene.bsdfs.kind[mat_idx])
+            frame, place = (_fiber_frame(f, *fiber) for f in (frame, place))
         wi_local = frame.to_local(-d)
 
         # ---- next-event estimation toward the environment ----
@@ -730,7 +782,8 @@ def _megakernel_rules(scene, sensor, film_cfg, spp, max_depth, mode,
     test in `_megakernel_ok`). K4 draws spheres, rectangles and disks lit
     by the sunsky alone, untextured, in a vacuum (:955-958); it also
     refuses a scene whose shapes emit without an area emitter, which the
-    reference lets through."""
+    reference lets through. It knows no mesh, SDF, curve, texture, medium
+    or spot light."""
     if not (mode == "rgb" and max_depth == 2
             and sampler_kind == "independent"
             and film_cfg.rfilter == "box" and film_cfg.n_channels == 3
@@ -741,7 +794,8 @@ def _megakernel_rules(scene, sensor, film_cfg, spp, max_depth, mode,
         return False
     if not isinstance(scene.env, SunskyState):
         return False
-    if (scene.mesh is not None or scene.spot_lights
+    if (scene.mesh is not None or scene.sdf is not None
+            or scene.curve is not None or scene.spot_lights
             or scene.textures is not None or scene.medium is not None):
         return False
     if kinds != _DIFFUSE_ONLY:

@@ -11,9 +11,11 @@ its `stokes` integrator (`src/integrators/stokes.cpp`):
 * Every emitter is unpolarized. Polarization comes from the kinds that
   know of it: the conductors and the smooth dielectric (polarized
   Fresnel, `conductor.cpp:272-302`, `dielectric.cpp:294-340`), pplastic
-  (`pplastic.cpp:280-369`) and the filters (polarizer, retarder,
-  circular). Every other kind is an ideal depolarizer of its scalar
-  value, the fallback of the reference's other plugins.
+  (`pplastic.cpp:280-369`), the filters (polarizer, retarder,
+  circular) and the measured pBRDF (kind 18, its data's Mueller matrices,
+  `render/measured.py::mp_eval_mueller`). Every other kind, hair and the
+  measured BRDF among them, is an ideal depolarizer of its scalar value,
+  the fallback of the reference's other plugins.
 * Pdfs, sampling and the S0 magnitudes are the scalar BSDF's
   (`render/bsdf.py`): a polarizing lobe's Mueller weight is its Fresnel
   matrix scaled by scalar weight / M[0, 0], so S0 follows the scalar
@@ -36,8 +38,9 @@ K13 without the pdf); autograd differentiates the rest.
 
 What the reference drops without a word, this module refuses
 (NotImplementedError): directional and spot lights, directional-area
-emitters and media (R16; SDFs and curves cannot enter a scene of the
-port), a normal map (the reference shades with the geometric normal),
+emitters, media, SDF grids and curves (R16; the reference's Stokes path
+intersects none of the last two), a normal map (the reference shades
+with the geometric normal),
 and a material with an opacity below 1 or the null kind (R18: the
 reference gives a straight-through lane its lobe's Mueller matrix). In
 spectral mode the RGB area and point emitters are upsampled by rgb2spec,
@@ -56,11 +59,13 @@ from . import bsdf as bsdf_mod
 from . import emitters as em
 from . import film as film_mod
 from . import sensors as sensors_mod
-from .bsdf import (CIRCULAR, CONDUCTOR, DIELECTRIC, NULL_BSDF, POLARIZER,
-                   PPLASTIC, RETARDER, ROUGH_CONDUCTOR, fresnel_dielectric)
+from .bsdf import (CIRCULAR, CONDUCTOR, DIELECTRIC, MEASURED_POL,
+                   NULL_BSDF, POLARIZER, PPLASTIC, RETARDER, ROUGH_CONDUCTOR,
+                   fresnel_dielectric)
 from .integrator import (_N_HERO, _SHADOW_EPS, _SamplerCtx, _check_slice,
                          _mis_weight, _offset, _pass_keys, _scene_hit,
                          _spp_chunk)
+from .measured import mp_eval_mueller
 from .scene import (Scene, scene_occluded, table_len, with_emitter_coeffs,
                     with_mesh_tables)
 from .texture import eval_texture, table_texture_kinds
@@ -216,7 +221,8 @@ def _pol_weight_eval(table, mat_idx, wi, wo, scalar_val, kinds,
                      refl_tex=None, wavelengths=None):
     """Mueller matrix of an evaluated direction pair (next-event
     estimation): polarized Fresnel for the rough conductor, pplastic's
-    own eval, a depolarizer of the scalar value for every other kind.
+    and the measured pBRDF's own eval, a depolarizer of the scalar value
+    for every other kind.
     Local frame, (N, C, 4, 4)."""
     present = bsdf_mod.table_kinds(table)[0] if kinds is None else kinds[0]
     kind = table.kind[mat_idx]
@@ -232,6 +238,11 @@ def _pol_weight_eval(table, mat_idx, wi, wo, scalar_val, kinds,
                           _pplastic_mueller_eval(table, mat_idx, wi, wo,
                                                  refl_tex, wavelengths),
                           out)
+    if MEASURED_POL in present:
+        # the data's own matrices (`tpusky/render/polarized.py:225-229`)
+        out = torch.where((kind == MEASURED_POL)[..., None, None, None],
+                          mp_eval_mueller(table.measured_pol, wi, wo,
+                                          wavelengths), out)
     return out
 
 
@@ -239,8 +250,8 @@ def _pol_weight_sample(table, mat_idx, wi, wo, scalar_w, pdf, kinds,
                        refl_tex=None, wavelengths=None):
     """Mueller weight of a sampled direction: the delta lobes' Fresnel
     and filter matrices, the eval's matrix over the pdf for the rough
-    conductor and pplastic, a depolarizer of the scalar weight for every
-    other kind. Local frame, (N, C, 4, 4)."""
+    conductor, pplastic and the measured pBRDF, a depolarizer of the
+    scalar weight for every other kind. Local frame, (N, C, 4, 4)."""
     present = bsdf_mod.table_kinds(table)[0] if kinds is None else kinds[0]
     kind = table.kind[mat_idx]
     nc = scalar_w.shape[-1]
@@ -281,6 +292,13 @@ def _pol_weight_sample(table, mat_idx, wi, wo, scalar_w, pdf, kinds,
         out = torch.where(is_filter[..., None, None, None],
                           _filter_mueller_local(table, mat_idx, kind, wi,
                                                 trans, filters), out)
+    if MEASURED_POL in present:
+        # the eval's matrix over the pdf (:342-347)
+        scale = torch.where(pdf > 1e-12, 1.0 / pdf.clamp(min=1e-12), 0.0)
+        out = torch.where((kind == MEASURED_POL)[..., None, None, None],
+                          mp_eval_mueller(table.measured_pol, wi, wo,
+                                          wavelengths)
+                          * scale[..., None, None, None], out)
     return out
 
 
@@ -290,7 +308,11 @@ def _check_stokes(scene: Scene, kinds):
         ("directional lights", table_len(scene.directional_lights)),
         ("spot lights", len(scene.spot_lights)),
         ("directional-area emitters", scene.dir_area_radiance is not None),
-        ("a medium", scene.medium is not None)) if there]
+        ("a medium", scene.medium is not None),
+        # its `_scene_hit` meets neither (`tpusky/render/polarized.py:
+        # 361-376`)
+        ("an SDF grid", scene.sdf is not None),
+        ("curves", scene.curve is not None)) if there]
     if dropped:
         raise NotImplementedError(
             f"R16: render_stokes of a scene with {', '.join(dropped)} (the "

@@ -22,8 +22,11 @@ The splats are deterministic: each sorts its lanes by pixel (stable) and
 sums each pixel's run in a fixed order (`_segment_sum`), with no atomics,
 so two calls give bitwise equal images on the card. On the card the
 sunsky's radiance is kernel K1 (K9 in spectral mode) and the mesh
-queries K14; `plain=True` runs their plain versions. The reference reads
-neither textures nor media here (R15), so a scene with either raises.
+queries K14; `plain=True` runs their plain versions. The walk meets the
+analytic shapes, the mesh and the SDF grid (`tpusky/render/ptracer.py:
+302-335`). The reference reads neither textures nor media here (R15), so
+a scene with either raises; nor does its walk meet curves, which its
+shadow rays do see (R19), so a scene with curves raises too.
 """
 
 from __future__ import annotations
@@ -314,7 +317,8 @@ def render_ptracer(scene: Scene, sensor, film_cfg, key,
     `integrator.render` (an integer seed or the reference key's two
     uint32 words; the reference keys the particles on the key itself, not
     a pass's). `plain=True` runs the plain sunsky and mesh functions on
-    any device. A scene with textures or a medium raises (R15)."""
+    any device. A scene with textures or a medium raises (R15), and so
+    does one with curves (R19)."""
     if not isinstance(sensor, Perspective):
         raise TypeError("ptracer supports the perspective sensor")
     if scene.textures is not None or scene.medium is not None:
@@ -322,6 +326,13 @@ def render_ptracer(scene: Scene, sensor, film_cfg, key,
         raise NotImplementedError(
             "R15: the particle tracer of a scene with textures, normal maps "
             "or a medium (the reference reads none of them)")
+    if scene.curve is not None:
+        # R19: the reference's walk does not intersect curves
+        # (`ptracer.py:302-335`) while its shadow rays do (`:75-78`), so a
+        # light-traced curve casts shadows but is never lit or seen
+        raise NotImplementedError(
+            "R19: the particle tracer of a scene with curves (the "
+            "reference's walk never meets them, its shadow rays do)")
     if mode not in ("rgb", "spectral"):
         raise NotImplementedError(f"render mode {mode!r}")
     kinds = bsdf_mod.table_kinds(scene.bsdfs)

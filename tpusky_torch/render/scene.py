@@ -1,13 +1,13 @@
-"""Scene: analytic shapes, triangle meshes, a material table, its
-textures, the environment (sunsky, constant, uniform, envmap or none),
-the area, point, directional, spot and directional-area emitters and
-participating media (`tpusky/render/scene.py`).
+"""Scene: analytic shapes, triangle meshes, an SDF grid, curves, a
+material table with its textures and measured datasets, the environment
+(sunsky, constant, uniform, envmap or none), the area, point,
+directional, spot and directional-area emitters and participating media
+(`tpusky/render/scene.py`).
 
-SDFs and curves are not ported yet, so a Scene here cannot hold them. An
-emitter field left None holds no emitter; `textures` None, no texture
+An emitter field left None holds no emitter; `textures` None, no texture
 (the material table's texture columns are then not read); `medium` None,
-a vacuum. Media do not occlude: `scene_occluded` tests the geometry
-alone.
+a vacuum; `sdf` and `curve` None, neither. Media do not occlude:
+`scene_occluded` tests the geometry alone.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ import torch
 
 from ..ops.rgb2spec import fit_sigmoid_coeffs_torch
 from .bsdf import MaterialTable, make_material_table
+from .curve import CurveTable, curve_test, make_curve_table
 from .emitters import ConstantEnv
 from .mesh import MeshTable, make_mesh_table, mesh_test
+from .sdf import SDFGrid, sdf_test
 from .shapes import ShapeTable, make_shape_table, ray_test
 from .texture import make_texture_table
 
@@ -58,6 +60,8 @@ class Scene(NamedTuple):
     # internal: the RGB emitters' rgb2spec coefficients for spectral mode,
     # set by `with_emitter_coeffs`
     emitter_coeffs: Optional["EmitterCoeffs"] = None
+    sdf: Optional[SDFGrid] = None        # one SDF grid (`render/sdf.py`)
+    curve: Optional[CurveTable] = None   # every curve (`render/curve.py`)
 
 
 class EmitterCoeffs(NamedTuple):
@@ -163,13 +167,17 @@ def with_emitter_coeffs(scene: Scene) -> Scene:
 
 
 def scene_occluded(scene: Scene, o, d, maxt, plain: bool = False):
-    """Shadow-ray predicate over the scene's geometry (analytic shapes and
-    triangle meshes); `plain` runs the meshes' plain version on any
-    device."""
+    """Shadow-ray predicate over the scene's geometry (analytic shapes,
+    triangle meshes, the SDF grid and the curves; `tpusky/render/scene.py:
+    50-65`); `plain` runs the meshes' plain version on any device."""
     occ = ray_test(scene.shapes, o, d, maxt)
     if scene.mesh is not None:
         occ = occ | mesh_test(scene.mesh, o, d, maxt, plain=plain,
                               tables=scene.mesh_tables)
+    if scene.sdf is not None:
+        occ = occ | sdf_test(scene.sdf, o, d, maxt)
+    if scene.curve is not None:
+        occ = occ | curve_test(scene.curve, o, d, maxt)
     return occ
 
 
@@ -183,7 +191,9 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                bsdf_blend_children=None, bsdf_blend_weights=None,
                bsdf_tex_indices=None, bsdf_normal_tex_indices=None,
                textures=None, spectral_textures=False, medium=None,
-               dir_area_radiance=None, device="cuda") -> Scene:
+               dir_area_radiance=None, sdf=None, curves=None,
+               measured=None, measured_pol=None,
+               device="cuda") -> Scene:
     """Assemble a scene from host-side descriptions: shapes are dicts
     accepted by `make_shape_table`; the bsdf_* lists are the columns of
     `make_material_table` (the reference package's keyword names); meshes
@@ -197,7 +207,10 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
     bsdf_tex_indices (reflectance) and bsdf_normal_tex_indices (normal
     map) columns, -1 for none. `medium` is a `medium.Medium` or a tuple
     of them; `dir_area_radiance` (n_shapes, 3) each shape's
-    directional-area radiance. The bounding sphere is estimated from the
+    directional-area radiance. `sdf` is an `sdf.SDFGrid`; `curves` a list
+    of dicts accepted by `curve.make_curve_table` (subdivision 8);
+    `measured` and `measured_pol` the datasets of the kind-17 and kind-18
+    rows (`render/measured.py`). The bounding sphere is estimated from the
     shapes' transforms, as the reference's."""
     if len(shapes) == 0:
         # a never-hit placeholder keeps the table non-empty
@@ -231,6 +244,7 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                      blend_weights=bsdf_blend_weights,
                      tex_indices=bsdf_tex_indices,
                      normal_tex_indices=bsdf_normal_tex_indices,
+                     measured=measured, measured_pol=measured_pol,
                      device=device),
                  env, f32(env_to_world),
                  make_mesh_table(meshes, device=device) if meshes else None,
@@ -247,7 +261,9 @@ def make_scene(shapes=(), bsdf_albedos=((0.5, 0.5, 0.5),), env=None,
                   if textures else None),
                  medium, f32(center), f32(radius),
                  None if dir_area is None else f32(dir_area, 3),
-                 bool(dir_area is not None and (dir_area > 0).any()))
+                 bool(dir_area is not None and (dir_area > 0).any()), None,
+                 sdf, make_curve_table(curves, device=device) if curves
+                 else None)
 
 
 def bounding_sphere(to_world):
