@@ -235,9 +235,26 @@ Phases, each of which raises (exit code != 0) on failure:
    and `render_stokes` of the headline sphere as a measured pBRDF (kind
    18) at 512x512x8, depth 4: bitwise repeats, a band of rows' lanes
    within 1e-3 of the plain path, the degree of polarization at most 1;
-24. one JSON line of kernel results (each kernel's launches summed over
-   the main paths, the fog, light-traced, Stokes and geometry frames'
-   included), then the device line, last.
+24. scene loading and I/O: the mesh cell (phase 9's 81,920-triangle
+   icosphere with vertex normals, written as a .serialized file and as an
+   OBJ) in an XML scene written by the port's `write_xml` (the headline
+   sunsky, `_mesh_scene`'s camera, 512x512x8, path at depth 3), loaded by
+   `tpusky_torch.load_file` in RGB and spectral mode: the loaded tables
+   bitwise `_mesh_scene`'s (the camera's look-at within 1e-6), the OBJ's
+   arrays through the native and the Python parser bitwise,
+   `bundle.render(seed=0)` with K14 and K2/K3 (K10/K11) launched and K4
+   not, bitwise on repeat, with no synchronisation, >= 99.9% of its lanes
+   within 1e-3 of the plain path with K14's hits and of a band of the
+   fully plain path's rows, the load and render times; `python -m
+   tpusky_torch render examples/sunsky_spheres.json` in a subprocess, its
+   EXR bitwise the in-process render (K2/K3); the headline scene as a
+   dict with the direct integrator (512x512x4) differentiated through
+   `render(params=)` to four `traverse()` leaves (K4 forward, K5/K6
+   backward) against the plain path (1e-3 of scale, the sun 3e-2), with
+   its time and peak memory;
+25. one JSON line of kernel results (each kernel's launches summed over
+   the main paths, the fog, light-traced, Stokes, geometry and loaded
+   frames' included), then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -4889,6 +4906,354 @@ def geometry_phase(dev, card):
     return out
 
 
+# phase 24: scene loading and I/O
+LOAD_BAND = (240, 8)        # rows of the loaded mesh frame held to the
+#                             fully plain path (the dense mesh intersection)
+LOAD_TURNS = 3
+LOAD_GRAD_SPP = 4           # the loaded headline gradient: 512x512x4, K4
+EXAMPLE = "examples/sunsky_spheres.json"
+
+
+def _write_obj(path, pos, idx):
+    """An OBJ of float32 positions (decimals that read back exactly) and
+    triangles, no normals or texcoords."""
+    with open(path, "w") as f:
+        f.write("".join(f"v {x!r} {y!r} {z!r}\n" for x, y, z in
+                        pos.astype(np.float32).tolist()))
+        f.write("".join(f"f {a} {b} {c}\n" for a, b, c in
+                        (idx + 1).tolist()))
+
+
+def _loader_files(tmp):
+    """Write the loaded mesh cell's files into `tmp`: `_mesh_scene`'s
+    icosphere (vertex normals) as a Mitsuba .serialized file and as an
+    OBJ, and an XML scene (the port's `write_xml`) of that mesh at z = 1
+    on the 20x20 ground under the headline sunsky, seen by `_mesh_scene`'s
+    camera, hdrfilm 512x512, independent 8 spp, path at depth 3. ->
+    (xml path, obj path)."""
+    from tpusky_torch.render.xml_writer import write_xml
+    from tpusky_torch.utils.meshio import icosphere, write_serialized
+    from tpusky_torch.utils.transform import look_at
+    pos, idx = icosphere(FRAME_SUBDIV)
+    ser, obj, xml = (os.path.join(tmp, n) for n in (
+        "icosphere.serialized", "icosphere.obj", "mesh_scene.xml"))
+    write_serialized(ser, pos, idx, normals=pos)
+    _write_obj(obj, pos, idx)
+    t2w = np.eye(4, dtype=np.float32)
+    t2w[2, 3] = 1.0
+    write_xml(xml, {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": MESH_DEPTH},
+        "sensor": {"type": "perspective", "fov": 45.0,
+                   "to_world": look_at([3.5, -3.5, 2.0], [0, 0, 1.0]),
+                   "film": {"type": "hdrfilm", "width": W, "height": H},
+                   "sampler": {"type": "independent", "sample_count": SPP}},
+        "emitter": {"type": "sunsky", "turbidity": 3.0, "albedo": 0.3,
+                    "sun_direction": SUN},
+        "ground": {"type": "rectangle",
+                   "to_world": np.diag([10.0, 10.0, 1.0, 1.0]),
+                   "bsdf": {"type": "diffuse",
+                            "reflectance": [0.5, 0.5, 0.5]}},
+        "mesh": {"type": "serialized", "filename": ser, "to_world": t2w,
+                 "bsdf": {"type": "diffuse",
+                          "reflectance": [0.3, 0.5, 0.7]}}})
+    return xml, obj
+
+
+def _tensors(obj, path=""):
+    """(path, tensor or plain value) of every field of nested tuples."""
+    import torch
+    if isinstance(obj, torch.Tensor) or obj is None or not isinstance(
+            obj, tuple):
+        yield path, obj
+        return
+    names = getattr(obj, "_fields", range(len(obj)))
+    for name, v in zip(names, obj):
+        yield from _tensors(v, f"{path}.{name}" if path else str(name))
+
+
+def _loaded_tables_check(label, bundle, scene, mode):
+    """The loaded scene against `_mesh_scene` on the same sunsky state:
+    every tensor bitwise, but the camera's look-at matrix (the loader's
+    float64 look-at, `make_perspective`'s float32) within 1e-6, and the
+    spectral albedos, the loader's rgb2spec fit of the reflectances
+    (`_mesh_scene` repeats their mean), bitwise that host fit; the
+    emitter's parameters within 1e-6 of `make_params`' (the loader
+    normalises the sun in float64 first)."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.models.sunsky import constants as skyC
+    from tpusky_torch.ops.rgb2spec import upsample_rgb
+    ref, ref_sensor = _mesh_scene(scene.env, FRAME_SUBDIV, scene.env_to_world
+                                  .device)
+    fit = np.stack([upsample_rgb(np.array(rgb), skyC.WAVELENGTHS)[0]
+                    for rgb in ([0.5] * 3, [0.3, 0.5, 0.7])]).astype(
+                        np.float32)
+    ref = ref._replace(bsdfs=ref.bsdfs._replace(albedo_spec=torch.tensor(
+        fit, device=ref.bsdfs.albedo.device)))
+    worst = {}
+    pairs = list(zip(_tensors(scene), _tensors(ref)))
+    pairs += [((f"sensor.{a}", x), (b, y)) for (a, x), (b, y) in zip(
+        _tensors(bundle.sensor), _tensors(ref_sensor))]
+    params = tt.make_params(turbidity=3.0, albedo=0.3, sun_direction=SUN,
+                            mode=mode, device=scene.env_to_world.device)
+    pairs += [((f"emitter.{a}", x), (b, y)) for (a, x), (b, y) in zip(
+        _tensors(bundle.env_params), _tensors(params))]
+    for (path, a), (_, b) in pairs:
+        if isinstance(a, torch.Tensor):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{label} {path}: {a.shape} {b.shape}")
+            err = float((a.double() - b.double()).abs().max()) \
+                if a.numel() else 0.0
+            bar = 1e-6 if path in ("sensor.to_world",
+                                   "emitter.sun_direction") else 0.0
+            if not err <= bar:
+                raise AssertionError(f"{label} {path}: {err:.3e} > {bar:g}")
+            worst[path] = err
+        elif a is not b and a != b:
+            raise AssertionError(f"{label} {path}: {a!r} != {b!r}")
+    loose = {k: v for k, v in worst.items() if v > 0}
+    print(f"check {label} tables: {len(worst)} tensors against _mesh_scene "
+          f"(the mesh's {int(scene.mesh.valid.sum())} triangles read from "
+          f".serialized), bitwise but {loose or 'none'}")
+
+
+def _loaded_mesh_frame(label, bundle, scene, mode, card):
+    """bundle.render(seed=0) of the loaded mesh cell (512x512x8, depth
+    MESH_DEPTH): the mode's sunsky kernels and K14 launch, K4 not; a
+    second call, under the sync debug mode, bitwise equal; every lane
+    within 1e-3 of the plain path with K14's hits on >= 99.9% and a band
+    of rows of the fully plain path too; render()'s time (median of
+    LOAD_TURNS). Returns the launches of one render()."""
+    import torch
+    from tpusky_torch.render import bsdf as B
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.loader import prng_key
+    from tpusky_torch.render.scene import with_mesh_tables
+    sky = (("sunsky_hit_rgb", "sunsky_nee_rgb") if mode == "rgb"
+           else ("sunsky_hit_spec", "sunsky_nee_spec"))
+
+    def frame():
+        return bundle.render(seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, launches = _counted(frame)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    _require(launches, sky + ("mesh_intersect",), f"the {label}")
+    if launches["direct_rgb_megakernel"] != 0:
+        raise AssertionError(f"the {label} went through K4")
+    if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise AssertionError(f"{label}: image not finite, shaped or lit")
+    again = _no_sync(frame, f"the {label}'s bundle.render()")
+    if not torch.equal(again, img):
+        raise AssertionError(f"two renders of the {label} differ")
+    seed = integrator._pass_keys(prng_key(0), 1)[0]
+    kinds = B.table_kinds(scene.bsdfs)
+    scene_k = with_mesh_tables(scene)
+    args = (bundle.film, seed, SPP, 0, SPP, bundle.max_depth,
+            bundle.rr_depth, mode)
+    with torch.no_grad():
+        lanes_k = integrator._lane_radiance(scene_k, bundle.sensor, *args,
+                                            0, H, kinds=kinds)
+        with _k14_as_plain_mesh(scene_k.mesh_tables):
+            lanes_p = integrator._lane_radiance(scene, bundle.sensor, *args,
+                                                0, H, kinds=kinds, plain=True)
+        share, worst = _lanes_share(lanes_k, lanes_p)
+        row0, n_rows = LOAD_BAND
+        band = slice(row0 * W * SPP, (row0 + n_rows) * W * SPP)
+        band_p = integrator._lane_radiance(scene, bundle.sensor, *args, row0,
+                                           n_rows, kinds=kinds, plain=True)
+        band_share, band_worst = _lanes_share(lanes_k[band], band_p)
+    print(f"check {label} lanes: {share:.2e} of {lanes_p.shape[0]} lanes "
+          f"outside 1e-3 of the plain path with K14's hits (bar 1e-3), max "
+          f"{worst:.3e}; rows {row0}-{row0 + n_rows} against the fully "
+          f"plain path: {band_share:.2e} of {band_p.shape[0]} outside, max "
+          f"{band_worst:.3e}; two renders bitwise equal; image mean "
+          f"{float(img.mean()):.5f} max {float(img.max()):.3f}")
+    if not (share <= 1e-3 and band_share <= 1e-3):
+        raise AssertionError(f"the {label} disagrees with the plain path")
+    del lanes_k, lanes_p, band_p
+    runs = []
+    for _ in range(LOAD_TURNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    print(f"time {label} ({W}x{H}x{SPP}, depth {bundle.max_depth}, {mode}): "
+          f"bundle.render() {first_ms:.1f} ms (first call), then "
+          f"{', '.join(f'{t:.1f}' for t in runs)} ms (median "
+          f"{float(np.median(runs)):.1f}); {launches[sky[0]]} {sky[0]}, "
+          f"{launches[sky[1]]} {sky[1]} and {launches['mesh_intersect']} "
+          f"K14 launches a render [{card}]")
+    return launches
+
+
+def _cli_check(dev, card, tmp):
+    """`python -m tpusky_torch render examples/sunsky_spheres.json -o
+    <tmp>.exr` in a subprocess (the file's own 256x160 at 64 spp, depth
+    6, roulette from 4, the ldsampler): its EXR, read back with the
+    port's `read_exr`, bitwise `load_file(...).render(seed=0)` in this
+    process. Returns that render's launches."""
+    import torch
+    import tpusky_torch as tt
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "sunsky_spheres.exr")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "tpusky_torch", "render", EXAMPLE, "-o", out],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    print("cli: " + run.stdout.strip().replace("\n", "; "))
+    if run.returncode != 0:
+        raise AssertionError(f"the CLI failed: {run.stderr[-3000:]}")
+    img, names = tt.read_exr(out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = tt.load_file(os.path.join(here, EXAMPLE), device=dev)
+    want, launches = _counted(lambda: bundle.render(seed=0))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb"), "the example")
+    if names != ["B", "G", "R"] or not np.array_equal(
+            img[..., ::-1], want.cpu().numpy()):
+        raise AssertionError("the CLI's EXR is not the in-process render")
+    print(f"check the CLI's EXR of {EXAMPLE} ({bundle.film.width}x"
+          f"{bundle.film.height}x{bundle.spp}, depth {bundle.max_depth}, "
+          f"roulette from {bundle.rr_depth}, {bundle.sampler_kind}): bitwise "
+          f"the in-process render; image mean {float(want.mean()):.5f}")
+    print(f"time the CLI: {wall_s:.2f} s wall (a process, the import, "
+          f"load and render, the EXR); in-process load + render {ms:.1f} "
+          f"ms; launches {launches} [{card}]")
+    return launches
+
+
+def _loaded_grad_check(dev, card):
+    """The headline scene as a dict (the direct integrator, 512x512x4,
+    so K4's gate holds) through `render(params=)`: the mean of the image
+    differentiated to the turbidity, the sun direction, the ground's
+    reflectance and the sphere's to_world from `traverse()`; K4 forward
+    and K5/K6 backward launch; each gradient finite, non-zero and within
+    1e-3 of the plain path's scale (the sun 3e-2, PERF.md §2); its time
+    and peak memory. Returns the launches."""
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import develop
+    from tpusky_torch.render.loader import prng_key
+    bundle = tt.load_dict({
+        "type": "scene", "integrator": {"type": "direct"},
+        "sensor": {"type": "perspective", "fov": 45.0,
+                   "to_world": {"type": "look_at", "origin": [4, -4, 2.0],
+                                "target": [0, 0, 1.0]},
+                   "film": {"type": "hdrfilm", "width": W, "height": H},
+                   "sampler": {"type": "independent",
+                               "sample_count": LOAD_GRAD_SPP}},
+        "emitter": {"type": "sunsky", "turbidity": 3.0, "albedo": 0.3,
+                    "sun_direction": SUN},
+        "ground": {"type": "rectangle",
+                   "to_world": {"scale": [10.0, 10.0, 1.0]},
+                   "bsdf": {"type": "diffuse", "reflectance": [0.4] * 3}},
+        "sphere": {"type": "sphere", "to_world": {"translate": [0, 0, 1.0]},
+                   "bsdf": {"type": "diffuse",
+                            "reflectance": [0.6, 0.2, 0.2]}}}, device=dev)
+    names = ("emitter.turbidity", "emitter.sun_direction",
+             "ground.bsdf.reflectance.value", "sphere.to_world")
+    seed = integrator._pass_keys(prng_key(0), 1)[0]
+
+    def case(plain):
+        p = bundle.traverse()
+        leaves = [p[n].requires_grad_() for n in names]
+        if plain:
+            img = develop(integrator.render_rows(
+                bundle.build_scene(params=p), bundle.sensor, bundle.film,
+                seed, LOAD_GRAD_SPP, bundle.max_depth, bundle.rr_depth, "rgb",
+                0, H, plain=True))
+        else:
+            img = bundle.render(seed=0, params=p)
+        return torch.autograd.grad(img.mean(), leaves)
+    case(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads_k, launches = _counted(lambda: case(False))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require(launches, ("direct_rgb_megakernel", "sunsky_eval_rgb_bwd",
+                        "sunsky_nee_rgb_bwd"), "the loaded gradient")
+    t0 = time.perf_counter()
+    grads_p = case(True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for name, a, b in zip(names, grads_k, grads_p):
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0):
+            raise AssertionError(f"loaded gradient d{name}: zero or not "
+                                 "finite")
+        _check_scale(f"loaded headline gradient d{name} ({W}x{H}x"
+                     f"{LOAD_GRAD_SPP}, direct): K4 + replay vs plain on "
+                     "the card", a, b, 3e-2 if "sun" in name else 1e-3)
+    print(f"time loaded headline fwd+bwd ({W}x{H}x{LOAD_GRAD_SPP}, direct, "
+          f"render(params=) to {len(names)} traverse() leaves, precompute "
+          f"included; one call each, the host clock): K4 + replay {ms:.2f} "
+          f"ms, plain {plain_ms:.2f} ms; peak memory {peak_gib:.2f} GiB; "
+          f"launches {launches} [{card}]")
+    return launches
+
+
+def loader_phase(dev, card):
+    """Phase 24: the loaded mesh cell in RGB and spectral mode, the CLI on
+    the shipped example and the gradient through `traverse()` (see the
+    module docstring). Returns each main path's launches."""
+    import tempfile
+    import torch
+    import tpusky_torch as tt
+    from tpusky_torch.utils import native
+    from tpusky_torch.utils.obj import load_obj as load_obj_py
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        xml, obj = _loader_files(tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = native.load_obj(obj)
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got_py = load_obj_py(obj)
+        py_ms = 1e3 * (time.perf_counter() - t0)
+        for a, b in zip(got, got_py):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError("the native and the Python OBJ parsers "
+                                     "differ")
+        print(f"check the OBJ ({got[0].shape[0]} vertices, {got[2].shape[0]} "
+              f"triangles) through the native ({native.have_native()}, "
+              f"{native.native_path()}) and the Python parser: bitwise; "
+              f"{native_ms:.1f} ms and {py_ms:.1f} ms; files written in "
+              f"{write_s:.2f} s")
+        for mode in ("rgb", "spectral"):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            bundle = tt.load_file(xml, mode=mode, device=dev)
+            torch.cuda.synchronize()
+            parse_ms = 1e3 * (time.perf_counter() - t0)
+            scene = bundle.build_scene()
+            torch.cuda.synchronize()
+            load_ms = 1e3 * (time.perf_counter() - t0)
+            print(f"time loading the mesh cell ({mode}): load_file "
+                  f"{parse_ms:.1f} ms (XML, .serialized, tables), with the "
+                  f"sunsky precompute {load_ms:.1f} ms [{card}]")
+            label = f"loaded mesh frame ({mode})"
+            _loaded_tables_check(label, bundle, scene, mode)
+            out[f"mesh {mode}"] = _loaded_mesh_frame(label, bundle, scene,
+                                                     mode, card)
+            del bundle, scene
+        out["example"] = _cli_check(dev, card, tmp)
+    out["gradient"] = _loaded_grad_check(dev, card)
+    return out
+
+
 START = time.perf_counter()
 
 
@@ -5432,7 +5797,12 @@ def main():
     geometry = geometry_phase(dev, card)
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 24. bounds and results ----
+    # ---- 24. scene loading and I/O ----
+    t0 = time.perf_counter()
+    loaded = loader_phase(dev, card)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 25. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -5495,13 +5865,14 @@ def main():
             results[key] = max(results[key], err)
     times["K14"], bounds["K14"] = mesh_times, mesh_bound
     counts["K14"], results["K14"] = mesh_launches, mesh_err
-    # the fog, light-traced, Stokes and geometry frames' runs are main
-    # paths of their own: their launches add to each kernel's count
+    # the fog, light-traced, Stokes, geometry and loaded frames' runs are
+    # main paths of their own: their launches add to each kernel's count
     new_paths = {f"fog {k}": v for k, v in fog.items()}
     new_paths.update({f"light-traced {k}": v
                       for k, v in light_traced.items()})
     new_paths.update({f"Stokes {k}": v for k, v in stokes.items()})
     new_paths.update({f"geometry {k}": v for k, v in geometry.items()})
+    new_paths.update({f"loaded {k}": v for k, v in loaded.items()})
     for path, runs in new_paths.items():
         print(f"launches on the {path} path: "
               + ", ".join(f"{key} {runs[KERNELS[key][0]]}"

@@ -11,6 +11,7 @@ At most 3 items, so that pytest-xdist's `--dist loadfile` hands this
 file out after tests/test_multihost.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,13 +134,19 @@ def test_render_stokes_refuses_what_the_reference_drops():
                                    opacities=[0.5])
         kinds = JB.table_kinds(t)
         idx = jnp.zeros((1,), jnp.int32)
-        wo, w, pdf, _ = JB.sample(t, idx, wi, jnp.asarray([[0.3, 0.6]]),
-                                  jnp.asarray([0.9]), None, kinds=kinds)
+
+        # one program a kind: op by op, the first kind's dispatch alone
+        # compiled for ~9 s
+        @jax.jit
+        def sample_weight(t, idx, wi):
+            wo, w, pdf, _ = JB.sample(t, idx, wi, jnp.asarray([[0.3, 0.6]]),
+                                      jnp.asarray([0.9]), None, kinds=kinds)
+            return wo, w, JP._pol_weight_sample(t, idx, wi, wo, w, pdf, kinds)
+        wo, w, m = sample_weight(t, idx, wi)
         np.testing.assert_allclose(np.asarray(wo), -np.asarray(wi),
                                    rtol=1e-6)
         assert (np.asarray(w) == 1.0).all()
-        got[kind] = np.asarray(JP._pol_weight_sample(t, idx, wi, wo, w, pdf,
-                                                     kinds))[0, 0]
+        got[kind] = np.asarray(m)[0, 0]
     assert (got[11] == 0).all()
     off = got[2] - np.diag(np.diag(got[2]))
     assert got[2][0, 0] == pytest.approx(1.0) and np.abs(off).max() > 0.89

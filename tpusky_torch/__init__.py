@@ -25,6 +25,15 @@ wavelengths in nm::
     spec = tt.sunsky_eval(state, directions, mode="spectral",
                           wavelengths=wl)              # (..., W) radiance
 
+Scenes load from Mitsuba-style dicts, Mitsuba XML or JSON files, their
+tensors on the card unless the caller names another device::
+
+    bundle = tt.load_file("scene.xml")             # or tt.load_dict(d)
+    img = bundle.render(seed=0)                     # (H, W, 3) on the card
+    tt.write_exr("out.exr", img.cpu().numpy(), ["R", "G", "B"])
+
+and from the command line: `python -m tpusky_torch render scene.xml`.
+
 See `tpusky_torch.render.integrator.render` for the scene renderer and
 `tpusky_torch.render.polarized.render_stokes` for its Stokes-vector
 (polarized) counterpart.
@@ -38,8 +47,23 @@ from .models.sunsky.model import (SunskyParams, SunskyState, make_params,
                                   pdf_direction, precompute,
                                   sample_direction, sample_wavelengths)
 from .models.sunsky.tables import load_tables
+from .utils.io import read_exr, write_exr
 
 __version__ = "0.1.0"
+
+
+def load_dict(d, mode="rgb", device="cuda"):
+    """``mi.load_dict`` equivalent: `render.loader.load_dict`, imported on
+    first use."""
+    from .render.loader import load_dict as _ld
+    return _ld(d, mode=mode, device=device)
+
+
+def load_file(path, mode="rgb", parameters=None, device="cuda"):
+    """``mi.load_file`` equivalent: `render.xml_loader.load_file`, imported
+    on first use."""
+    from .render.xml_loader import load_file as _lf
+    return _lf(path, mode=mode, parameters=parameters, device=device)
 
 
 def sunsky_params(turbidity=3.0, albedo=0.3, sun_direction_xyz=None,
@@ -93,7 +117,8 @@ def sunsky_eval(state: SunskyState, directions, wavelengths=None,
 
 __all__ = [
     "DateTimeRecord", "LocationRecord", "SunskyParams", "SunskyState",
-    "load_tables", "make_params", "pdf_direction", "precompute",
-    "sample_direction", "sample_wavelengths", "sun_direction",
-    "sunsky_constants", "sunsky_eval", "sunsky_params", "sunsky_precompute",
+    "load_dict", "load_file", "load_tables", "make_params", "pdf_direction",
+    "precompute", "read_exr", "sample_direction", "sample_wavelengths",
+    "sun_direction", "sunsky_constants", "sunsky_eval", "sunsky_params",
+    "sunsky_precompute", "write_exr",
 ]

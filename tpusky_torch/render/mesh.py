@@ -11,7 +11,9 @@ multiple (`make_mesh_table`, numpy, bitwise the reference's tables).
   against every tile, the per-tile closest hit by argmin, tiles merged in
   order with a strict `<` (`_tile_hits` and the scan of the reference's
   dense path, `tpusky/render/mesh.py:141-166, 419-437`), so the lowest
-  triangle index wins a tie;
+  triangle index wins a tie; a tile's test is skipped for the rays whose
+  line passes outside its padded bounding sphere (`_near_tile`), which
+  no ray of a hit in it does, so the results are the dense scan's;
 * a CUDA tensor runs kernel K14 (`ops/cuda/mesh_kernel.py`), after the
   reference's ray-sort rule (`tpusky/render/mesh.py:388-413`): the
   wavefront is reordered by direction octant and origin Morton code unless
@@ -194,10 +196,44 @@ def _tile_hits(mesh: MeshTable, tile: int, o, d):
             b2.gather(-1, best)[:, 0], best[:, 0])
 
 
+def _tile_spheres(mesh: MeshTable):
+    """(centres (n_tiles, 3), radii (n_tiles,)) of spheres about each
+    tile's valid triangles (their corners v0, v0 + e1, v0 + e2), padded by
+    1e-3 of the radius and 1e-4; radius -1 for a tile of padding alone."""
+    with torch.no_grad():
+        corners = torch.stack([mesh.v0, mesh.v0 + mesh.e1,
+                               mesh.v0 + mesh.e2], 1).reshape(-1, _TILE, 3,
+                                                              3)
+        valid = mesh.valid.reshape(-1, _TILE, 1, 1)
+        lo = torch.where(valid, corners, torch.inf).amin((1, 2))
+        hi = torch.where(valid, corners, -torch.inf).amax((1, 2))
+        any_valid = valid.reshape(valid.shape[0], -1).any(-1)
+        centre = torch.where(any_valid[:, None], 0.5 * (lo + hi), 0.0)
+        radius = torch.linalg.vector_norm(
+            torch.where(any_valid[:, None], hi - lo, 0.0), dim=-1)
+        return centre, torch.where(any_valid, 0.5005 * radius + 1e-4, -1.0)
+
+
+def _near_tile(spheres, tile: int, o, d):
+    """(N,) indices of the rays whose line passes within the tile's padded
+    sphere, the distance taken through |(c - o) x d| / |d| and padded by
+    1e-5 of |c - o| against its rounding. A ray that hits a triangle of
+    the tile meets the sphere there, so every such ray is kept."""
+    with torch.no_grad():
+        centre, radius = spheres[0][tile], spheres[1][tile]
+        v = centre - o
+        cr = torch.linalg.cross(v, d, dim=-1)
+        reach = radius + 1e-5 * torch.linalg.vector_norm(v, dim=-1)
+        near = (cr * cr).sum(-1) <= reach * reach * (d * d).sum(-1)
+        return (near & (radius >= 0.0)).nonzero()[:, 0]
+
+
 def _closest_plain(mesh: MeshTable, o, d):
-    """The dense closest hit of rays o, d (N, 3) -> (t, b1, b2, tri int64);
-    t = inf and tri = -1 on a miss."""
+    """The closest hit of rays o, d (N, 3) -> (t, b1, b2, tri int64); t =
+    inf and tri = -1 on a miss: the dense scan's results, a tile tested
+    on the rays `_near_tile` keeps."""
     out, step = [], _PLAIN_RAYS[o.device.type]
+    spheres = _tile_spheres(mesh)
     for r0 in range(0, o.shape[0], step):
         oc, dc = o[r0:r0 + step], d[r0:r0 + step]
         bt = torch.full(oc.shape[:1], torch.inf, device=o.device)
@@ -205,26 +241,38 @@ def _closest_plain(mesh: MeshTable, o, d):
         btri = torch.full(oc.shape[:1], -1, dtype=torch.int64,
                           device=o.device)
         for tile in range(mesh.v0.shape[0] // _TILE):
-            t, b1, b2, local = _tile_hits(mesh, tile, oc, dc)
-            closer = t < bt
-            bt = torch.where(closer, t, bt)
-            bb1 = torch.where(closer, b1, bb1)
-            bb2 = torch.where(closer, b2, bb2)
-            btri = torch.where(closer, tile * _TILE + local, btri)
+            near = _near_tile(spheres, tile, oc, dc)
+            if near.shape[0] == 0:
+                continue
+            t, b1, b2, local = _tile_hits(mesh, tile, oc[near], dc[near])
+            closer = t < bt[near]
+
+            def update(best, new):
+                return best.index_put((near,),
+                                      torch.where(closer, new, best[near]))
+            bt, bb1, bb2 = update(bt, t), update(bb1, b1), update(bb2, b2)
+            btri = update(btri, tile * _TILE + local)
         out.append((bt, bb1, bb2, btri))
     return tuple(torch.cat(x) for x in zip(*out))
 
 
 def _occluded_plain(mesh: MeshTable, o, d, maxt):
-    """The dense any-hit test of rays o, d (N, 3) within (eps, maxt), maxt
-    (N,) (`tpusky/render/mesh.py:492-501`)."""
+    """The any-hit test of rays o, d (N, 3) within (eps, maxt), maxt (N,)
+    (`tpusky/render/mesh.py:492-501`): the dense scan's results, a tile
+    tested on the rays `_near_tile` keeps."""
     out, step = [], _PLAIN_RAYS[o.device.type]
+    spheres = _tile_spheres(mesh)
     for r0 in range(0, o.shape[0], step):
         oc, dc = o[r0:r0 + step], d[r0:r0 + step]
         mt = maxt[r0:r0 + step, None]
         occ = torch.zeros(oc.shape[:1], dtype=torch.bool, device=o.device)
         for tile in range(mesh.v0.shape[0] // _TILE):
-            occ = occ | (_tile_mt(mesh, tile, oc, dc)[0] < mt).any(-1)
+            near = _near_tile(spheres, tile, oc, dc)
+            if near.shape[0] == 0:
+                continue
+            hit = (_tile_mt(mesh, tile, oc[near], dc[near])[0]
+                   < mt[near]).any(-1)
+            occ = occ.index_put((near,), occ[near] | hit)
         out.append(occ)
     return torch.cat(out)
 

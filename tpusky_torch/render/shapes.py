@@ -70,6 +70,28 @@ def _world_area(kind: int, t2w) -> float:
     return 8.0 * (c01 + c12 + c02)          # cube
 
 
+def world_area(kind: int, t2w):
+    """`_world_area` on a (4, 4) tensor, differentiable in it, for a
+    transform that requires grad (`tpusky/render/shapes.py::
+    world_area_jnp`): the loaded bundle's `_apply_params` re-derives a
+    shape's area from its new `to_world`."""
+    lin = t2w[:3, :3]
+
+    def cross_norm(i, j):
+        return torch.linalg.norm(torch.linalg.cross(lin[:, i], lin[:, j]))
+    c01 = cross_norm(0, 1)
+    if kind == RECTANGLE:
+        return 4.0 * c01
+    if kind == DISK:
+        return PI * c01
+    if kind == SPHERE:
+        return 4.0 * PI * torch.linalg.det(lin).abs() ** (2.0 / 3.0)
+    c12, c02 = cross_norm(1, 2), cross_norm(0, 2)
+    if kind == CYLINDER:
+        return PI * (c02 + c12)
+    return 8.0 * (c01 + c12 + c02)          # cube
+
+
 def make_shape_table(shapes, device="cuda") -> ShapeTable:
     """Build a ShapeTable from a list of dicts {kind, to_world (4x4),
     bsdf_idx, emitter_idx}."""

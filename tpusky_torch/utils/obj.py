@@ -1,8 +1,8 @@
 """Wavefront OBJ reader (host-side, pure Python).
 
 A copy of the reference package's pure-Python parser
-(`tpusky/utils/native.py::_load_obj_py`); binding its native parser
-(`native/`) is later work.
+(`tpusky/utils/native.py::_load_obj_py`); `utils/native.py::load_obj`
+runs the native one where it runs, and this one otherwise.
 """
 
 from __future__ import annotations
