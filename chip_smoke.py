@@ -252,9 +252,29 @@ Phases, each of which raises (exit code != 0) on failure:
    `render(params=)` to four `traverse()` leaves (K4 forward, K5/K6
    backward) against the plain path (1e-3 of scale, the sun 3e-2), with
    its time and peak memory;
-25. one JSON line of kernel results (each kernel's launches summed over
-   the main paths, the fog, light-traced, Stokes, geometry and loaded
-   frames' included), then the device line, last.
+25. the AD toolkit (`tpusky_torch.ad`): `render_backward` of the
+   headline scene loaded as a dict (512x512x8, path at depth 2; K4
+   forward, the replay's K2/K3 and K5/K6) against the plain path (1e-3 of
+   scale, the sun's fields 3e-2), `render_forward` at seeded tangents
+   (K4's primal, its tangent replayed; the forward-mode render with no
+   synchronisation) with every pixel's tangent within 1e-3 of the plain
+   path's scale and <dL, J t> = <J^T dL, t> to rtol 2e-3 for each
+   parameter's tangent; the
+   same on bench_spectral_grad's scene (512x512x4, depth 2; K10/K11,
+   K12/K13); `primary_boundary_grad` on tests/test_projective.py's FD
+   scene at 512x512x256 (the probes through K2/K3 against the plain
+   probes at 1e-3, interior + boundary against the central FD under the
+   test's two bars); the mesh cell's vertex gradients (81,920 triangles,
+   512x512x4, depth 2) to a translation and to v0, e1, e2 through K14 and
+   the attached hit, a band of 32,768 lanes against the fully plain path
+   (1e-3), its time, peak memory and K14 launches; the icosphere alone
+   under the sky: interior + the mesh's boundary term (K14 probes) against
+   the FD; LargeSteps' CG round trip on the icosphere's 40,962 vertices
+   (1e-4) with its iterations and time; an Adam state checkpointed, the
+   step after the load bitwise the step without it;
+26. one JSON line of kernel results (each kernel's launches summed over
+   the main paths, the fog, light-traced, Stokes, geometry, loaded and AD
+   paths' included), then the device line, last.
 
 It prints no result and exits non-zero without a CUDA device or outside
 a checkout of the repository.
@@ -5254,6 +5274,491 @@ def loader_phase(dev, card):
     return out
 
 
+# phase 25: the AD toolkit
+AD_SPP = 8                  # render_backward / render_forward: the headline
+AD_SPEC_SPP = 4             # bench_spectral_grad's frame
+FD_SPP = 256                # tests/test_projective.py::test_primary_boundary_vs_fd
+FD_EPS = 3e-2
+FD_SAMPLES, FD_PROBE_SPP = 3072, 8
+AD_BLOCK_ROWS = 32          # rows a block of a replayed interior gradient
+MESH_AD_SPP = 4
+MESH_AD_BAND = (240, 16)    # 16 x 512 x 4 = 32,768 lanes held to plain
+MESH_FD_SPP = 64
+SUN_PARAMS = ("emitter.sun_direction", "emitter.sun_half_aperture",
+              "emitter.disc_softness")
+
+
+def _ad_dict(spp, spectral_grad=False):
+    """The headline scene as a `load_dict` dict (path at depth 2), or
+    bench_spectral_grad's (a diffuse ground alone, the camera looking at
+    z = 0.5)."""
+    sensor = {"type": "perspective", "fov": 45.0,
+              "to_world": {"type": "look_at", "origin": [4, -4, 2.0],
+                           "target": [0, 0, 0.5 if spectral_grad else 1.0]},
+              "film": {"type": "hdrfilm", "width": W, "height": H},
+              "sampler": {"type": "independent", "sample_count": spp}}
+    d = {"type": "scene", "integrator": {"type": "path", "max_depth": 2},
+         "sensor": sensor,
+         "emitter": {"type": "sunsky", "turbidity": 3.0, "albedo": 0.3,
+                     "sun_direction": SUN},
+         "ground": {"type": "rectangle",
+                    "to_world": {"scale": [10.0, 10.0, 1.0]},
+                    "bsdf": {"type": "diffuse", "reflectance":
+                             [0.5 if spectral_grad else 0.4] * 3}}}
+    if not spectral_grad:
+        d["sphere"] = {"type": "sphere", "to_world": {"translate": [0, 0, 1]},
+                       "bsdf": {"type": "diffuse",
+                                "reflectance": [0.6, 0.2, 0.2]}}
+    return d
+
+
+def _plain_bundle_image(bundle, params):
+    """The bundle's image at `params` through the plain wavefront on the
+    card (the reference the kernels are held against)."""
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import develop
+    from tpusky_torch.render.loader import prng_key
+    return develop(integrator.render_rows(
+        bundle.build_scene(params=params), bundle.sensor, bundle.film,
+        integrator._pass_keys(prng_key(0), 1)[0], bundle.spp,
+        bundle.max_depth, bundle.rr_depth, bundle.mode, 0, H, plain=True))
+
+
+def _pixel_share(a, b):
+    """(share of pixels whose largest channel error exceeds 1e-3 of b's
+    scale, the largest error over that scale)."""
+    err = (a - b).abs().amax(-1) / b.abs().max().clamp(min=1e-30)
+    return float((err > 1e-3).float().mean()), float(err.max())
+
+
+def _ad_modes(label, bundle, tangents, d_l, sky, card, k4):
+    """render_forward and render_backward of `bundle` on the card: the
+    kernels launch (K4 with no synchronisation in the forward render when
+    `k4`); the gradients within 1e-3 of the plain path's scale (the sun's
+    fields 3e-2), the tangent image, every pixel, within 1e-3 of the
+    plain path's scale; <dL, J t> = <J^T dL, t> to rtol 2e-3.
+    Returns the launches of each mode."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+    from tpusky_torch.ad import render_backward, render_forward
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.loader import prng_key
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (img_b, grads), l_b = _counted(lambda: render_backward(bundle, d_l))
+    torch.cuda.synchronize()
+    ms_b = 1e3 * (time.perf_counter() - t0)
+    _require(l_b, sky + ((("direct_rgb_megakernel",) if k4 else ())), label)
+    bwd = ("sunsky_eval_rgb_bwd", "sunsky_nee_rgb_bwd") if bundle.mode == \
+        "rgb" else ("sunsky_hit_spec_bwd", "sunsky_nee_spec_bwd")
+    _require(l_b, bwd, f"{label}'s render_backward")
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in bundle.traverse().items()
+              if k.startswith("emitter.")}
+    t0 = time.perf_counter()
+    g_p = torch.autograd.grad(_plain_bundle_image(bundle, params),
+                              list(params.values()), d_l,
+                              allow_unused=True)
+    torch.cuda.synchronize()
+    ms_bp = 1e3 * (time.perf_counter() - t0)
+    for (name, a), b in zip(grads.items(), g_p):
+        if b is None or float(b.abs().max()) == 0.0:
+            continue
+        _check_scale(f"{label} render_backward d{name} ({W}x{H}x"
+                     f"{bundle.spp}, depth {bundle.max_depth}): kernels vs "
+                     "plain on the card", a, b,
+                     3e-2 if name in SUN_PARAMS else 1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (img_f, dimg), l_f = _counted(lambda: render_forward(bundle, None,
+                                                         tangents))
+    torch.cuda.synchronize()
+    ms_f = 1e3 * (time.perf_counter() - t0)
+    _require(l_f, sky + ((("direct_rgb_megakernel",) if k4 else ())),
+             f"{label}'s render_forward")
+    if k4:
+        # the forward-mode render itself, past the parameters' precompute
+        with fwAD.dual_level():
+            duals = {k: fwAD.make_dual(v, tangents[k])
+                     for k, v in params.items()}
+            scene = bundle.build_scene(params=duals)
+            _counted(lambda: _no_sync(lambda: integrator.render(
+                scene, bundle.sensor, bundle.film, prng_key(0),
+                spp=bundle.spp, max_depth=bundle.max_depth,
+                rr_depth=bundle.rr_depth, mode=bundle.mode),
+                f"the {label}'s forward-mode render() (K4 and its tangent)"))
+    with fwAD.dual_level():
+        duals = {k: fwAD.make_dual(v.detach(), tangents[k])
+                 for k, v in params.items()}
+        dimg_p = fwAD.unpack_dual(_plain_bundle_image(bundle, duals)).tangent
+    share, worst = _pixel_share(dimg, dimg_p)
+    print(f"check {label} render_forward: the tangents {worst:.3e} of the "
+          f"plain path's scale at most (bar 1e-3), {share:.2e} of the pixels "
+          f"outside 1e-3; image against render_backward's: "
+          f"{float((img_f - img_b).abs().max()):.3e}")
+    if not (worst <= 1e-3 and torch.equal(img_f, img_b)):
+        raise AssertionError(f"the {label}'s render_forward disagrees")
+    # the identity parameter by parameter: the seeded tangents' terms
+    # cancel in the sum, so the sum alone would hold each term far more
+    # loosely than 2e-3
+    for name, t in tangents.items():
+        one = {k: t if k == name else torch.zeros_like(v)
+               for k, v in tangents.items()}
+        dimg_1 = render_forward(bundle, None, one)[1]
+        lhs = float((d_l.double() * dimg_1.double()).sum())
+        rhs = float((grads[name].double() * t.double()).sum())
+        print(f"check {label} {name}: <dL, J t> = {lhs:.6e}, <J^T dL, t> = "
+              f"{rhs:.6e}, {abs(lhs - rhs) / abs(rhs):.3e} relative (bar "
+              "2e-3)")
+        if not math.isclose(lhs, rhs, rel_tol=2e-3):
+            raise AssertionError(f"the {label}'s adjoint identity fails in "
+                                 f"{name}")
+    lhs = float((d_l.double() * dimg.double()).sum())
+    rhs = sum(float((grads[k].double() * t.double()).sum())
+              for k, t in tangents.items())
+    print(f"read {label} summed over the parameters: <dL, J t> = {lhs:.6e},"
+          f" <J^T dL, t> = {rhs:.6e} (no bar: the terms cancel)")
+    print(f"time {label} ({W}x{H}x{bundle.spp}, depth {bundle.max_depth}, "
+          f"{bundle.mode}; the host clock, precompute included): "
+          f"render_backward {ms_b:.1f} ms (the plain path's {ms_bp:.1f} ms), "
+          f"render_forward {ms_f:.1f} ms; launches backward {l_b}, forward "
+          f"{l_f} [{card}]")
+    return l_b, l_f
+
+
+def _blocked_grad(scene_of, leaves, sensor, film, seed, spp, depth, kinds,
+                  weight=None, plain=False):
+    """d mean(weight * image) / d leaves through render_rows, a block of
+    AD_BLOCK_ROWS rows at a time (each block's graph alone in memory; the
+    lanes are the whole frame's, as `_Megakernel`'s replay draws them)."""
+    import torch
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import develop
+    total = [torch.zeros_like(x) for x in leaves]
+    for row0 in range(0, H, AD_BLOCK_ROWS):
+        img = develop(integrator.render_rows(
+            scene_of(), sensor, film, seed, spp, depth, 1000, "rgb", row0,
+            AD_BLOCK_ROWS, kinds=kinds, plain=plain))
+        w = 1.0 if weight is None else weight[row0:row0 + AD_BLOCK_ROWS]
+        loss = (img * w).sum() / (H * W * 3)
+        for acc, g in zip(total, torch.autograd.grad(loss, leaves,
+                                                     allow_unused=True)):
+            if g is not None:
+                acc += g
+    return total
+
+
+def _fd_check(label, loss, interior, boundary):
+    fd = (loss(FD_EPS) - loss(-FD_EPS)) / (2 * FD_EPS)
+    total = interior + boundary
+    print(f"check {label}: FD {fd:.6e}, interior {interior:.6e}, boundary "
+          f"{boundary:.6e}, total {total:.6e}; |total - fd| "
+          f"{abs(total - fd):.3e} (bars {0.25 * abs(fd) + 1e-5:.3e} and "
+          f"{0.5 * abs(interior - fd):.3e})")
+    if not (abs(total - fd) < 0.25 * abs(fd) + 1e-5
+            and abs(total - fd) < 0.5 * abs(interior - fd)):
+        raise AssertionError(f"{label}: interior + boundary misses the FD")
+
+
+def _sky_only(dev):
+    import tpusky_torch as tt
+    return tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, sun_scale=0.0,
+        device=dev))
+
+
+def _primary_fd_check(dev, card):
+    """test_primary_boundary_vs_fd's scene (a unit sphere at z = 1 under
+    the sky alone, the off-axis camera) at 512x512 and 256 spp: FD of
+    mean(image) in the sphere's x (K4 renders), interior by the replayed
+    wavefront (K2/K3, K5/K6), boundary by primary_boundary_grad (3,072
+    samples, 8 probe paths, K2/K3) against the plain probes' (1e-3 of
+    scale) and interior + boundary against the FD under the test's two
+    bars. Returns the launches of the boundary term."""
+    import torch
+    from tpusky_torch.ad import primary_boundary_grad
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film
+    from tpusky_torch.render.loader import prng_key
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    t2w = np.eye(4, dtype=np.float32)
+    t2w[2, 3] = 1.0
+    base = make_scene(shapes=[dict(kind=0, to_world=t2w, bsdf_idx=0)],
+                      bsdf_albedos=[[0.6, 0.3, 0.2]], env=_sky_only(dev),
+                      device=dev)
+    sensor = make_perspective([2.5, -5, 1.0], [0, 0, 1.0], fov_x_deg=40,
+                              device=dev)
+    film = Film(H, W, 3)
+    key = prng_key(3)
+
+    def moved(dx):
+        t = base.shapes.to_world
+        shift = torch.zeros_like(t)
+        shift[0, 0, 3] = 1.0
+        t = t + shift * dx
+        return base._replace(shapes=base.shapes._replace(
+            to_world=t, to_object=torch.linalg.inv(t)))
+
+    def loss(dx):
+        with torch.no_grad():
+            return float(integrator.render(moved(dx), sensor, film, key,
+                                           spp=FD_SPP).mean())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dx = torch.zeros((), device=dev, requires_grad=True)
+    kinds = integrator._DIFFUSE_ONLY
+    interior = float(_blocked_grad(lambda: moved(dx), [dx], sensor, film,
+                                   integrator._pass_keys(key, 1)[0], FD_SPP,
+                                   2, kinds)[0])
+    torch.cuda.synchronize()
+    t_int = time.perf_counter() - t0
+    gi = torch.full((H, W, 3), 1.0 / (H * W * 3), device=dev)
+    t0 = time.perf_counter()
+    (d_k, _), launches = _counted(lambda: primary_boundary_grad(
+        base, sensor, film, gi, prng_key(11), n_samples=FD_SAMPLES,
+        probe_spp=FD_PROBE_SPP, max_depth=2))
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    _require(launches, ("sunsky_hit_rgb", "sunsky_nee_rgb"),
+             "primary_boundary_grad")
+    d_p, _ = primary_boundary_grad(base, sensor, film, gi, prng_key(11),
+                                   n_samples=FD_SAMPLES,
+                                   probe_spp=FD_PROBE_SPP, max_depth=2,
+                                   plain=True)
+    _check_scale(f"primary_boundary_grad's sphere term ({W}x{H}, "
+                 f"{FD_SAMPLES} samples x {FD_PROBE_SPP} probe paths): K2/K3 "
+                 "probes vs plain", d_k[0], d_p[0], 1e-3)
+    _fd_check(f"sphere x-translation at {W}x{H}x{FD_SPP}", loss, interior,
+              float(d_k[0, 0, 3]))
+    print(f"time primary_boundary_grad (sphere, {FD_SAMPLES} samples x "
+          f"{FD_PROBE_SPP} probe paths x 4 probes, depth 2): "
+          f"{1e3 * t_b:.1f} ms; the interior gradient at {W}x{H}x{FD_SPP} "
+          f"({H // AD_BLOCK_ROWS} blocks of rows) {1e3 * t_int:.1f} ms "
+          f"[{card}]")
+    return launches
+
+
+def _mesh_ad_check(dev, card):
+    """Phase 9's mesh cell (81,920 triangles, 512x512x4, depth 2, the
+    headline sunsky): mean(w * image) differentiated to a translation c of
+    the mesh (v0 + c) and to v0, e1, e2 through K14 and the attached hit,
+    its time, peak memory and launches; a band of 32,768 lanes against the
+    fully plain path (1e-3 of scale). Then the icosphere alone under the
+    sky (the FD scene's camera, 512x512x64): interior (K14) +
+    primary_boundary_grad's mesh term (probes through K14, against the
+    plain probes at 1e-3) against the FD of the x-translation (a ground
+    would move the sky's occlusion with the mesh, a boundary that no
+    primary term holds). Returns the launches of the cell's gradient and
+    of the boundary term."""
+    import torch
+    from tpusky_torch.ad import primary_boundary_grad
+    from tpusky_torch.render import integrator
+    from tpusky_torch.render.film import Film, develop
+    from tpusky_torch.render.loader import prng_key
+    from tpusky_torch.render.scene import make_scene
+    from tpusky_torch.render.sensors import make_perspective
+    from tpusky_torch.utils.meshio import icosphere
+    import tpusky_torch as tt
+    state = tt.sunsky_precompute(tt.make_params(
+        turbidity=3.0, albedo=0.3, sun_direction=SUN, device=dev))
+    scene, sensor = _mesh_scene(state, FRAME_SUBDIV, dev)
+    film = Film(H, W, 3)
+    kinds = integrator._DIFFUSE_ONLY
+    seed = integrator._pass_keys(prng_key(0), 1)[0]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    wgt = 0.5 + torch.rand((H, W, 3), generator=gen, device=dev)
+
+    def leaves():
+        c = torch.zeros(3, device=dev, requires_grad=True)
+        return [c] + [getattr(scene.mesh, k).detach().clone()
+                      .requires_grad_() for k in ("v0", "e1", "e2")]
+
+    def with_leaves(lv):
+        return scene._replace(mesh=scene.mesh._replace(
+            v0=lv[1] + lv[0], e1=lv[2], e2=lv[3]))
+
+    def frame_grad():
+        lv = leaves()
+        img = integrator.render(with_leaves(lv), sensor, film, prng_key(0),
+                                spp=MESH_AD_SPP)
+        return torch.autograd.grad((img * wgt).mean(), lv)
+    frame_grad()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads, launches = _counted(frame_grad)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # K6 stays out: the NEE radiance depends on the sky alone, and no sky
+    # parameter is differentiated here (K5 carries the continuation's
+    # direction, which the vertices move)
+    _require(launches, ("mesh_intersect", "sunsky_hit_rgb", "sunsky_nee_rgb",
+                        "sunsky_eval_rgb_bwd"),
+             "the mesh cell's vertex gradient")
+    for name, g in zip(("c", "v0", "e1", "e2"), grads):
+        if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
+            raise AssertionError(f"mesh gradient d{name}: zero or not finite")
+    row0, n_rows = MESH_AD_BAND
+
+    def band(plain):
+        lv = leaves()
+        img = develop(integrator.render_rows(
+            with_leaves(lv), sensor, film, seed, MESH_AD_SPP, 2, 1000, "rgb",
+            row0, n_rows, kinds=kinds, plain=plain))
+        return torch.autograd.grad(
+            (img * wgt[row0:row0 + n_rows]).mean(), lv)
+    t0 = time.perf_counter()
+    band_k = band(False)
+    band_p = band(True)
+    torch.cuda.synchronize()
+    band_s = time.perf_counter() - t0
+    for name, a, b in zip(("c", "v0", "e1", "e2"), band_k, band_p):
+        _check_scale(f"mesh band d{name} (rows {row0}-{row0 + n_rows}, "
+                     f"{n_rows * W * MESH_AD_SPP} lanes): K14 + attached hit "
+                     "vs the fully plain path", a, b, 1e-3)
+    print(f"time mesh cell vertex gradient ({W}x{H}x{MESH_AD_SPP}, depth 2, "
+          f"{int(scene.mesh.valid.sum())} triangles, to c, v0, e1, e2; the "
+          f"host clock): {ms:.1f} ms, peak memory {peak:.2f} GiB, "
+          f"{launches['mesh_intersect']} K14 launches; the band, kernel and "
+          f"plain, {band_s:.1f} s [{card}]")
+
+    pos, idx = icosphere(FRAME_SUBDIV)
+    t2w = np.eye(4, dtype=np.float32)
+    t2w[2, 3] = 1.0
+    alone = make_scene(shapes=[], bsdf_albedos=[[0.6, 0.3, 0.2]],
+                       meshes=[dict(positions=pos, indices=idx,
+                                    normals=pos.copy(), to_world=t2w,
+                                    bsdf_idx=0)], env=_sky_only(dev),
+                       device=dev)
+    cam = make_perspective([2.5, -5, 1.0], [0, 0, 1.0], fov_x_deg=40,
+                           device=dev)
+    key = prng_key(3)
+
+    def shifted(c):
+        return alone._replace(mesh=alone.mesh._replace(v0=alone.mesh.v0 + c))
+
+    def loss(dx):
+        c = torch.zeros(3, device=dev)
+        c[0] = dx
+        with torch.no_grad():
+            return float(integrator.render(shifted(c), cam, film, key,
+                                           spp=MESH_FD_SPP).mean())
+    c = torch.zeros(3, device=dev, requires_grad=True)
+    interior = float(_blocked_grad(lambda: shifted(c), [c], cam, film,
+                                   integrator._pass_keys(key, 1)[0],
+                                   MESH_FD_SPP, 2, kinds)[0][0])
+    gi = torch.full((H, W, 3), 1.0 / (H * W * 3), device=dev)
+    t0 = time.perf_counter()
+    (_, d_k), l_b = _counted(lambda: primary_boundary_grad(
+        alone, cam, film, gi, prng_key(11), n_samples=FD_SAMPLES,
+        probe_spp=FD_PROBE_SPP, max_depth=2))
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    _require(l_b, ("mesh_intersect", "sunsky_hit_rgb"),
+             "primary_boundary_grad's mesh term")
+    _, d_p = primary_boundary_grad(alone, cam, film, gi, prng_key(11),
+                                   n_samples=FD_SAMPLES,
+                                   probe_spp=FD_PROBE_SPP, max_depth=2,
+                                   plain=True)
+    _check_scale(f"primary_boundary_grad's mesh term "
+                 f"({int(alone.mesh.valid.sum())} triangles): K14 probes vs "
+                 "plain", d_k, d_p, 1e-3)
+    _fd_check(f"mesh x-translation at {W}x{H}x{MESH_FD_SPP}", loss, interior,
+              float(d_k[0]))
+    print(f"time primary_boundary_grad's mesh term ({FD_SAMPLES} samples x "
+          f"{FD_PROBE_SPP} probe paths x 4 probes, depth 2, the edge table "
+          f"included): {1e3 * t_b:.1f} ms; launches {l_b} [{card}]")
+    return launches, l_b
+
+
+def _largesteps_check(dev, card):
+    """LargeSteps on the mesh cell's icosphere (40,962 vertices): the CG
+    round trip within 1e-4 (tests/test_ad.py:177-182), its iterations and
+    time."""
+    import torch
+    from tpusky_torch.ad import LargeSteps
+    from tpusky_torch.utils.meshio import icosphere
+    pos, idx = icosphere(FRAME_SUBDIV)
+    ls = LargeSteps(pos, idx, lambda_=19.0, device=dev)
+    v = torch.as_tensor(pos, device=dev)
+    u = ls.to_differential(v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v2 = ls.from_differential(u)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    err = float((v2 - v).abs().max())
+    print(f"check LargeSteps round trip ({pos.shape[0]} vertices, "
+          f"{ls.edges.shape[0]} edges, lambda 19): max |v' - v| {err:.3e} "
+          f"(bar 1e-4) in {ls.last_iterations} CG iterations")
+    if not err <= 1e-4:
+        raise AssertionError("LargeSteps' round trip")
+    print(f"time LargeSteps from_differential: {ms:.1f} ms, "
+          f"{ls.last_iterations} iterations [{card}]")
+
+
+def _checkpoint_check(dev, grads):
+    """An Adam state over the headline gradients: two steps, a checkpoint,
+    a third step; the third step from the loaded checkpoint bitwise it."""
+    import tempfile
+    import torch
+    from tpusky_torch.ad import Adam
+    from tpusky_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    opt = Adam(lr=0.01)
+    params = {k: torch.zeros_like(g) + 0.5 for k, g in grads.items()}
+    state = opt.init(params)
+    for _ in range(2):
+        params, state = opt.step(params, grads, state)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "adam.pkl")
+        save_checkpoint(path, {"params": params, "opt": state})
+        back = load_checkpoint(path)
+    want, _ = opt.step(params, grads, state)
+    p2 = {k: torch.as_tensor(v, device=dev) for k, v in back["params"].items()}
+    s2 = {k: tuple(torch.as_tensor(a, device=dev) for a in v)
+          for k, v in back["opt"].items()}
+    got, _ = opt.step(p2, grads, s2)
+    if not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("a step after loading the checkpoint differs")
+    print(f"check checkpoint: an Adam state of {len(grads)} parameters "
+          "saved and loaded; the step after the load bitwise the step "
+          "without it")
+
+
+def ad_phase(dev, card):
+    """Phase 25: the AD toolkit (see the module docstring). Returns each
+    main path's launches."""
+    import torch
+    import tpusky_torch as tt
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    for label, d, sky, k4 in (
+            ("headline bundle", _ad_dict(AD_SPP),
+             ("sunsky_hit_rgb", "sunsky_nee_rgb"), True),
+            ("bench_spectral_grad bundle", _ad_dict(AD_SPEC_SPP, True),
+             ("sunsky_hit_spec", "sunsky_nee_spec"), False)):
+        mode = "spectral" if "spectral" in label else "rgb"
+        bundle = tt.load_dict(d, mode=mode, device=dev)
+        params = {k: v for k, v in bundle.traverse().items()
+                  if k.startswith("emitter.")}
+        tangents = {k: torch.randn(v.shape, generator=gen, device=dev)
+                    for k, v in params.items()}
+        d_l = (0.5 + torch.rand((H, W, 3), generator=gen, device=dev)) \
+            / (H * W * 3)
+        l_b, l_f = _ad_modes(label, bundle, tangents, d_l, sky, card, k4)
+        out[f"{label} backward"], out[f"{label} forward"] = l_b, l_f
+        if mode == "rgb":
+            from tpusky_torch.ad import render_backward
+            grads = render_backward(bundle, d_l)[1]
+    out["primary boundary"] = _primary_fd_check(dev, card)
+    out["mesh gradient"], out["mesh boundary"] = _mesh_ad_check(dev, card)
+    _largesteps_check(dev, card)
+    _checkpoint_check(dev, grads)
+    return out
+
+
 START = time.perf_counter()
 
 
@@ -5802,7 +6307,12 @@ def main():
     loaded = loader_phase(dev, card)
     print(f"phase 24: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 25. bounds and results ----
+    # ---- 25. the AD toolkit ----
+    t0 = time.perf_counter()
+    ad = ad_phase(dev, card)
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 26. bounds and results ----
     with torch.no_grad():
         n_sun = state.sun_frame_n
         cos_cut = math.cos(float(state.params.sun_half_aperture))
@@ -5873,6 +6383,7 @@ def main():
     new_paths.update({f"Stokes {k}": v for k, v in stokes.items()})
     new_paths.update({f"geometry {k}": v for k, v in geometry.items()})
     new_paths.update({f"loaded {k}": v for k, v in loaded.items()})
+    new_paths.update({f"AD {k}": v for k, v in ad.items()})
     for path, runs in new_paths.items():
         print(f"launches on the {path} path: "
               + ", ".join(f"{key} {runs[KERNELS[key][0]]}"

@@ -131,7 +131,8 @@ def test_render_dispatch_matches_reference(monkeypatch):
     path bundles calls the same renderer with the same arguments as the
     reference's (the scene and sensor by type, the key as its words),
     under a constant environment so that neither side precomputes; the
-    key is `jax.random.key_data(PRNGKey(seed))`."""
+    key is `jax.random.key_data(PRNGKey(seed))`. The port also gives the
+    aov's child that key (the reference none, R2)."""
     from tpusky_torch.render.loader import prng_key
     for seed in (0, 1, 7, 12345, 2 ** 31 - 1):
         np.testing.assert_array_equal(
@@ -158,8 +159,13 @@ def test_render_dispatch_matches_reference(monkeypatch):
             L.jax_bundle(d).render(seed=seed, spp=spp)
             L.port_bundle(d).render(seed=seed, spp=spp)
     assert len(ref) == len(port) == 14
-    for (nr, ar, kr), (nt, at, kt) in zip(ref, port):
+    for i, ((nr, ar, kr), (nt, at, kt)) in enumerate(zip(ref, port)):
         assert nr == nt
         assert [_plain(a) for a in ar] == [_plain(a) for a in at], nr
+        if nt == "aov":
+            # the port's child renders at the bundle's key; the
+            # reference's at PRNGKey(0) whatever the seed (R2)
+            assert _plain(kt.pop("child_seed")) == \
+                tuple(prng_key((0, 5)[i % 2]).tolist())
         assert {k: _plain(v) for k, v in kr.items()} == \
             {k: _plain(v) for k, v in kt.items()}, nr

@@ -96,9 +96,9 @@ def test_elements_match_jax():
     for what, a, b in pairs:
         assert tuple(a.shape) == np.shape(b), what
         _check(a, b, what)
-    for what, a, b in (("right", TMU.right_circular_polarizer(),
+    for what, a, b in (("right", TMU.right_circular_polarizer("cpu"),
                         JMU.right_circular_polarizer()),
-                       ("left", TMU.left_circular_polarizer(),
+                       ("left", TMU.left_circular_polarizer("cpu"),
                         JMU.left_circular_polarizer())):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), what)
     # the default arguments

@@ -1,10 +1,12 @@
-"""The RGB precompute's VJP of the port against jax.vjp at turbidity
-3.0 (`torch_grad_case.check_precompute_vjp`; moved unchanged from
-tests/test_torch_grad.py).
+"""The RGB precompute's VJP of the port against jax.vjp at turbidity 3.0
+and 3.8 (`torch_grad_case.check_precompute_vjp`; moved unchanged from
+tests/test_torch_grad.py). Both turbidities run in this one file, so that
+the reference's jitted pullback compiles once and the aperture's
+op-by-op path compiles its operations once.
 
-At most 3 items, so that pytest-xdist's `--dist loadfile` hands this
-file out after tests/test_multihost.py and its JAX compile adds nothing
-to the wall.
+Four items, as many as tests/test_multihost.py, which is collected first:
+pytest-xdist's `--dist loadfile` hands this file out right after it, and
+its JAX compile adds nothing to the wall.
 """
 
 import pytest
@@ -21,11 +23,11 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def jax_precompute_vjps(jax_tables):
-    return build_precompute_vjps(jax_tables, (3.0,))
+    return build_precompute_vjps(jax_tables, (3.0, 3.8))
 
 
 @pytest.mark.parametrize("sun", PRECOMPUTE_SUNS)
-@pytest.mark.parametrize("turbidity", [3.0])
+@pytest.mark.parametrize("turbidity", [3.0, 3.8])
 def test_precompute_vjp_matches_jax(jax_precompute_vjps, torch_tables,
                                     turbidity, sun):
     """`torch_grad_case.check_precompute_vjp`."""

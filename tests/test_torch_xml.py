@@ -88,23 +88,77 @@ def _outcome(fn, *args):
         return type(e)
 
 
+_NAMED = ("shape", "sensor", "bsdf", "emitter", "texture")
+
+
+def _nests(obj) -> bool:
+    """Whether an object holds an object in a property slot that the
+    writer names (a texture as `reflectance`): the port writes it with
+    `name=`, the reference with `id=` (R23)."""
+    for k, v in obj.items():
+        if isinstance(v, dict):
+            tag = TW._tag_for(k, v)
+            if (tag in _NAMED and k not in (tag, "bsdf", "emitter")) \
+                    or _nests(v):
+                return True
+    return False
+
+
+def _plain(x):
+    """A scene dict as its XML reads back: an `rgb` object as its value, a
+    one-matrix `transforms` chain as the (4, 4) matrix, numbers as
+    float32 arrays, an empty type as none."""
+    if isinstance(x, dict):
+        if x.get("type") == "rgb" and set(x) == {"type", "value"}:
+            return _plain(x["value"])
+        if set(x) == {"transforms"} and len(x["transforms"]) == 1 \
+                and set(x["transforms"][0]) == {"matrix"}:
+            return _plain(np.reshape(x["transforms"][0]["matrix"], (4, 4)))
+        # an object written without a type reads back with type ""
+        return {k: _plain(v) for k, v in x.items()
+                if not (k == "type" and v == "")}
+    if isinstance(x, (str, bool)):
+        return x
+    return np.asarray(x, np.float32)
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
 def test_dict_to_xml_matches_reference(tmp_path):
     """The same text from both writers for tests/test_xml_writer.py's
-    scene dict and every scene of the loader tests (or the same
-    exception, where XML cannot carry a property: an inline bitmap, a
-    spectrum dict), and the same dict from both readers of that text."""
+    scene dict and every scene of the loader tests that nests no named
+    object (or the same exception, where XML cannot carry a property: an
+    inline bitmap, a spectrum dict), and the same dict from both readers
+    of that text. A scene that nests one (a texture in a BSDF's slot) is
+    written with `name=`, where the reference writes `id=` and its reader
+    loses the texture (R23): the port's reader gives the dict back."""
     p = L.assets(tmp_path)
     scenes = [_scene_dict(), L.headline(), L.render_scene(p),
               *L.table_scenes(p).values()]
-    carried = 0
+    carried = nested = 0
     for d in scenes:
         text = _outcome(TW.dict_to_xml, d)
-        assert text == _outcome(JW.dict_to_xml, d)
-        if isinstance(text, str):
-            back = _outcome(TX.xml_to_dict, text)
+        if not isinstance(text, str):
+            assert text == _outcome(JW.dict_to_xml, d)
+            continue
+        back = _outcome(TX.xml_to_dict, text)
+        if not any(isinstance(v, dict) and _nests(v) for v in d.values()):
+            assert text == _outcome(JW.dict_to_xml, d)
             assert back == _outcome(JX.xml_to_dict, text)
-            carried += isinstance(back, dict)
-    assert carried >= 10, carried
+        elif isinstance(back, dict):
+            assert _same(_plain(back), _plain(d))
+            nested += 1
+        else:
+            assert back == _outcome(JX.xml_to_dict, text)
+        carried += isinstance(back, dict)
+    assert carried >= 10 and nested >= 3, (carried, nested)
 
 
 def test_load_file_equals_load_dict(tmp_path):
@@ -113,11 +167,11 @@ def test_load_file_equals_load_dict(tmp_path):
     of `tt.load_dict` of the dict bitwise, in RGB and spectral mode; a
     polarized variant renders Stokes vectors through either (the
     reference's `load_file` drops the polarization, R21). The cube's
-    checkerboard is left out: both writers give a nested texture its
-    property name as an id, which neither reader takes back (R23)."""
+    checkerboard comes back: the port's writer names a nested texture by
+    its slot (the reference's gives it an id, which its reader drops,
+    R23)."""
     p = L.assets(tmp_path)
     d = L.render_scene(p)
-    d["box"]["bsdf"]["diffuse_reflectance"] = [0.8, 0.2, 0.1]
     xml = str(tmp_path / "scene.xml")
     TW.write_xml(xml, d)
     js = str(tmp_path / "scene.json")

@@ -200,13 +200,6 @@ def precompute(tables: SunskyTables, params: SunskyParams,
 # Radiance evaluation
 # ---------------------------------------------------------------------------
 
-# flat (k, j) index pairs of the RGB sun coefficient block
-_SUN_RGB_K = np.arange(C.N_SUN_CTRL_PTS * C.N_SUN_LD_PARAMS) \
-    // C.N_SUN_LD_PARAMS
-_SUN_RGB_J = np.arange(C.N_SUN_CTRL_PTS * C.N_SUN_LD_PARAMS) \
-    % C.N_SUN_LD_PARAMS
-
-
 def _sky_formula(coefs, mean_rad, cos_theta, gamma):
     """Hosek-Wilkie sky radiance; coefs (..., 9), scalars broadcast."""
     cos_gamma = torch.cos(gamma)
@@ -252,7 +245,9 @@ def _sun_rgb_from_flat(coefs_flat, x, cos_psi):
     [c * 24 + k * 6 + j] (channel, elevation power, limb power)."""
     xp = poly_powers(x, C.N_SUN_CTRL_PTS)
     cp = poly_powers(cos_psi, C.N_SUN_LD_PARAMS)
-    w = xp[..., _SUN_RGB_K] * cp[..., _SUN_RGB_J]          # (..., 24)
+    # [k * 6 + j]: an outer product, not an index list (which would copy
+    # from the host and wait for the device)
+    w = (xp[..., :, None] * cp[..., None, :]).flatten(-2)    # (..., 24)
     block = C.N_SUN_CTRL_PTS * C.N_SUN_LD_PARAMS
     return torch.stack([(coefs_flat[..., c * block:(c + 1) * block] * w)
                         .sum(-1) for c in range(3)], -1)

@@ -31,6 +31,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from . import build
 
@@ -101,11 +102,15 @@ def mesh_tables(mesh) -> MeshTables:
 
 def check_inputs(mesh, o, d, tables: MeshTables):
     """What K14 takes: rays (N, 3) float32, contiguous, on the tables'
-    device, at most 2^31 - 1 of them, and nothing that requires grad."""
-    if any(t is not None and t.requires_grad for t in (*mesh, o, d)):
+    device, at most 2^31 - 1 of them, and nothing that requires grad or
+    carries a forward-mode tangent."""
+    if any(isinstance(t, torch.Tensor) and (
+            t.requires_grad or fwAD.unpack_dual(t).tangent is not None)
+           for t in (*mesh, o, d)):
         raise NotImplementedError(
-            "mesh_intersect has no adjoint on the card (the TPU kernel has "
-            "none): vertex gradients wait for the projective AD module")
+            "K14 has no adjoint (the TPU kernel has none): it takes "
+            "detached tensors, and render/mesh.py::_closest differentiates "
+            "the hit at the triangle it picks")
     for name, x in (("o", o), ("d", d)):
         if x.dim() != 2 or x.shape[1] != 3 or x.shape[0] != o.shape[0]:
             raise ValueError(f"mesh_intersect: {name} must be (N, 3), "

@@ -49,6 +49,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ...models.sunsky import constants as C
 from ...models.sunsky import model as M
@@ -314,6 +315,17 @@ def _f32(g):
     return g.to(torch.float32).contiguous()
 
 
+def _plain_tangents(fn, state, *lanes):
+    """Forward-mode AD of a kernel's plain version fn(state, *lanes) under
+    the caller's dual level -> its outputs' tangents (None where an output
+    does not move). The state and the lanes carry their own tangents (a
+    Function's inputs keep theirs)."""
+    with fwAD._set_fwd_grad_enabled(True):
+        out = fn(state, *lanes)
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(fwAD.unpack_dual(o).tangent for o in out)
+
+
 def _eval_adjoint(ctx, g_rad, want_dd):
     """K5 from a Function's saved (d, skyp, skyr, sun, misc, ...)."""
     d, *small = ctx.saved_tensors[:5]
@@ -323,16 +335,24 @@ def _eval_adjoint(ctx, g_rad, want_dd):
 
 
 class _Eval(torch.autograd.Function):
-    """K1 forward, K5 backward."""
+    """K1 forward, K5 backward; the tangent is forward-mode AD of K1's
+    plain version in the state the tables come from (`state`, which
+    carries its tangents) and d, as the reference's custom_jvp
+    (`tpusky/models/sunsky/model.py:482-505`)."""
 
     @staticmethod
-    def forward(ctx, d, skyp, skyr, sun, misc):
+    def forward(ctx, state, d, skyp, skyr, sun, misc):
+        ctx.state, ctx.d = state, d
         ctx.save_for_backward(d, skyp, skyr, sun, misc)
         return launch_eval(Tables(skyp, skyr, sun, misc, None), d)
 
     @staticmethod
     def backward(ctx, g_rad):
-        return _eval_adjoint(ctx, g_rad, ctx.needs_input_grad[0])
+        return (None, *_eval_adjoint(ctx, g_rad, ctx.needs_input_grad[1]))
+
+    @staticmethod
+    def jvp(ctx, *_tangents):
+        return _plain_tangents(M._eval_rgb_plain, ctx.state, ctx.d)[0]
 
 
 class _Hit(torch.autograd.Function):
@@ -340,24 +360,34 @@ class _Hit(torch.autograd.Function):
     non-differentiable), K7 with it attached."""
 
     @staticmethod
-    def forward(ctx, pdf_detached, d, skyp, skyr, sun, misc, gauss):
+    def forward(ctx, state, pdf_detached, d, skyp, skyr, sun, misc, gauss):
         rad, pdf = launch_hit(Tables(skyp, skyr, sun, misc, gauss), d)
         if pdf_detached:
             ctx.mark_non_differentiable(pdf)
         ctx.pdf_detached = pdf_detached
+        ctx.state, ctx.d = state, d
         ctx.save_for_backward(d, skyp, skyr, sun, misc, gauss)
         return rad, pdf
 
     @staticmethod
     def backward(ctx, g_rad, g_pdf):
         if ctx.pdf_detached:
-            return (None, *_eval_adjoint(ctx, g_rad,
-                                         ctx.needs_input_grad[1]), None)
+            return (None, None, *_eval_adjoint(ctx, g_rad,
+                                               ctx.needs_input_grad[2]),
+                    None)
         d, *tables = ctx.saved_tensors
         dd, *dtables = launch_hit_bwd(Tables(*tables), d, _f32(g_rad),
                                       _f32(g_pdf))
         build.launches["sunsky_hit_rgb_bwd"] += 1
-        return (None, dd if ctx.needs_input_grad[1] else None, *dtables)
+        return (None, None, dd if ctx.needs_input_grad[2] else None,
+                *dtables)
+
+    @staticmethod
+    def jvp(ctx, *_tangents):
+        if ctx.pdf_detached:
+            return _plain_tangents(M._eval_rgb_plain, ctx.state, ctx.d)[0], \
+                None
+        return _plain_tangents(M._hit_rgb_plain, ctx.state, ctx.d)
 
 
 class _Nee(torch.autograd.Function):
@@ -366,11 +396,12 @@ class _Nee(torch.autograd.Function):
     attached."""
 
     @staticmethod
-    def forward(ctx, pdf_detached, u2, skyp, skyr, sun, misc, gauss):
+    def forward(ctx, state, pdf_detached, u2, skyp, skyr, sun, misc, gauss):
         tables = Tables(skyp, skyr, sun, misc, gauss)
         d, rad, pdf = launch_nee(tables, u2)
         ctx.mark_non_differentiable(*((d, pdf) if pdf_detached else (d,)))
         ctx.pdf_detached = pdf_detached
+        ctx.state, ctx.u2, ctx.d = state, u2, d
         ctx.save_for_backward(u2, skyp, skyr, sun, misc, gauss)
         return d, rad, pdf
 
@@ -380,11 +411,26 @@ class _Nee(torch.autograd.Function):
         if ctx.pdf_detached:
             dtables = launch_nee_bwd(Tables(*tables), u2, _f32(g_rad))
             build.launches["sunsky_nee_rgb_bwd"] += 1
-            return (None, None, *dtables, None)
+            return (None, None, None, *dtables, None)
         dtables = launch_nee_pdf_bwd(Tables(*tables), u2, _f32(g_rad),
                                      _f32(g_pdf))
         build.launches["sunsky_nee_rgb_pdf_bwd"] += 1
-        return (None, None, *dtables)
+        return (None, None, None, *dtables)
+
+    @staticmethod
+    def jvp(ctx, *_tangents):
+        return _nee_tangents(ctx, M._eval_rgb_plain, ())
+
+
+def _nee_tangents(ctx, radiance, wl):
+    """(d, radiance, pdf) tangents of an NEE kernel: the radiance's at the
+    kernel's own direction (placement, which moves no tangent), the pdf's
+    through the plain sampler unless it is detached."""
+    t_rad = _plain_tangents(radiance, ctx.state, ctx.d, *wl)[0]
+    t_pdf = None
+    if not ctx.pdf_detached:
+        t_pdf = _plain_tangents(M.sample_direction, ctx.state, ctx.u2)[1]
+    return None, t_rad, t_pdf
 
 
 def _wants_grad(*tensors) -> bool:
@@ -397,7 +443,7 @@ def sunsky_eval_rgb(state, d):
     if d.device.type == "cpu":
         return M._eval_rgb_plain(state, d)
     check_lanes(d, 3, "sunsky_eval_rgb")
-    out = _Eval.apply(d, *pack_tables(state, d.device)[:4])
+    out = _Eval.apply(state, d, *pack_tables(state, d.device)[:4])
     build.launches["sunsky_eval_rgb"] += 1
     return out
 
@@ -408,7 +454,7 @@ def sunsky_hit_rgb(state, d, pdf_detached: bool = False):
     if d.device.type == "cpu":
         return M._hit_rgb_plain(state, d)
     check_lanes(d, 3, "sunsky_hit_rgb")
-    out = _Hit.apply(pdf_detached, d,
+    out = _Hit.apply(state, pdf_detached, d,
                      *pack_tables(state, d.device, not pdf_detached))
     build.launches["sunsky_hit_rgb"] += 1
     return out
@@ -421,7 +467,7 @@ def sunsky_nee_rgb(state, u2, pdf_detached: bool = False):
     if u2.device.type == "cpu":
         return M._sample_eval_rgb_plain(state, u2)
     check_lanes(u2, 2, "sunsky_nee_rgb")
-    out = _Nee.apply(pdf_detached, u2,
+    out = _Nee.apply(state, pdf_detached, u2,
                      *pack_tables(state, u2.device, not pdf_detached))
     build.launches["sunsky_nee_rgb"] += 1
     return out
@@ -528,10 +574,12 @@ def _hit_spec_adjoint(ctx, g_rad, g_pdf, want_dd, want_dwl):
 
 
 class _EvalSpec(torch.autograd.Function):
-    """K9 forward, K12 without the pdf backward."""
+    """K9 forward, K12 without the pdf backward; the tangent is K9's plain
+    version's, as `_Eval`'s."""
 
     @staticmethod
-    def forward(ctx, d, wl, skyp, skyr, sun, ld, misc, gauss):
+    def forward(ctx, state, d, wl, skyp, skyr, sun, ld, misc, gauss):
+        ctx.state, ctx.d, ctx.wl = state, d, wl
         ctx.save_for_backward(d, wl, skyp, skyr, sun, ld, misc, gauss)
         return launch_eval_spec(SpecTables(skyp, skyr, sun, ld, misc, gauss),
                                 d, wl)
@@ -539,8 +587,13 @@ class _EvalSpec(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rad):
         dd, dwl, *dtables = _hit_spec_adjoint(ctx, g_rad, None,
-                                              *ctx.needs_input_grad[:2])
-        return (dd, dwl, *dtables[:5], None)
+                                              *ctx.needs_input_grad[1:3])
+        return (None, dd, dwl, *dtables[:5], None)
+
+    @staticmethod
+    def jvp(ctx, *_tangents):
+        return _plain_tangents(M._eval_spec_plain, ctx.state, ctx.d,
+                               ctx.wl)[0]
 
 
 class _HitSpec(torch.autograd.Function):
@@ -548,12 +601,14 @@ class _HitSpec(torch.autograd.Function):
     output is then non-differentiable)."""
 
     @staticmethod
-    def forward(ctx, pdf_detached, d, wl, skyp, skyr, sun, ld, misc, gauss):
+    def forward(ctx, state, pdf_detached, d, wl, skyp, skyr, sun, ld, misc,
+                gauss):
         rad, pdf = launch_hit_spec(
             SpecTables(skyp, skyr, sun, ld, misc, gauss), d, wl)
         if pdf_detached:
             ctx.mark_non_differentiable(pdf)
         ctx.pdf_detached = pdf_detached
+        ctx.state, ctx.d, ctx.wl = state, d, wl
         ctx.save_for_backward(d, wl, skyp, skyr, sun, ld, misc, gauss)
         return rad, pdf
 
@@ -561,10 +616,17 @@ class _HitSpec(torch.autograd.Function):
     def backward(ctx, g_rad, g_pdf):
         dd, dwl, *dtables = _hit_spec_adjoint(
             ctx, g_rad, None if ctx.pdf_detached else g_pdf,
-            *ctx.needs_input_grad[1:3])
+            *ctx.needs_input_grad[2:4])
         if ctx.pdf_detached:
             dtables[5] = None
-        return (None, dd, dwl, *dtables)
+        return (None, None, dd, dwl, *dtables)
+
+    @staticmethod
+    def jvp(ctx, *_tangents):
+        if ctx.pdf_detached:
+            return _plain_tangents(M._eval_spec_plain, ctx.state, ctx.d,
+                                   ctx.wl)[0], None
+        return _plain_tangents(M._hit_spec_plain, ctx.state, ctx.d, ctx.wl)
 
 
 class _NeeSpec(torch.autograd.Function):
@@ -572,11 +634,13 @@ class _NeeSpec(torch.autograd.Function):
     backward K13, with the pdf unless it is detached (non-differentiable)."""
 
     @staticmethod
-    def forward(ctx, pdf_detached, u2, wl, skyp, skyr, sun, ld, misc, gauss):
+    def forward(ctx, state, pdf_detached, u2, wl, skyp, skyr, sun, ld, misc,
+                gauss):
         d, rad, pdf = launch_nee_spec(
             SpecTables(skyp, skyr, sun, ld, misc, gauss), u2, wl)
         ctx.mark_non_differentiable(*((d, pdf) if pdf_detached else (d,)))
         ctx.pdf_detached = pdf_detached
+        ctx.state, ctx.u2, ctx.d, ctx.wl = state, u2, d, wl
         ctx.save_for_backward(u2, wl, skyp, skyr, sun, ld, misc, gauss)
         return d, rad, pdf
 
@@ -586,11 +650,15 @@ class _NeeSpec(torch.autograd.Function):
         dwl, *dtables = launch_nee_spec_bwd(
             SpecTables(*tables), u2, wl, _f32(g_rad),
             None if ctx.pdf_detached else _f32(g_pdf),
-            want_dwl=ctx.needs_input_grad[2])
+            want_dwl=ctx.needs_input_grad[3])
         build.launches["sunsky_nee_spec_bwd"] += 1
         if ctx.pdf_detached:
             dtables[5] = None
-        return (None, None, dwl, *dtables)
+        return (None, None, None, dwl, *dtables)
+
+    @staticmethod
+    def jvp(ctx, *_tangents):
+        return _nee_tangents(ctx, M._eval_spec_plain, (ctx.wl,))
 
 
 def _spec_tables(state, lanes, cols, wl, name, pdf_attached=False):
@@ -607,7 +675,7 @@ def sunsky_eval_spec(state, d, wl):
     if d.device.type == "cpu":
         return M._eval_spec_plain(state, d, wl)
     tables = _spec_tables(state, d, 3, wl, "sunsky_eval_spec")
-    out = _EvalSpec.apply(d, wl, *tables)
+    out = _EvalSpec.apply(state, d, wl, *tables)
     build.launches["sunsky_eval_spec"] += 1
     return out
 
@@ -620,7 +688,7 @@ def sunsky_hit_spec(state, d, wl, pdf_detached: bool = False):
         return M._hit_spec_plain(state, d, wl)
     tables = _spec_tables(state, d, 3, wl, "sunsky_hit_spec",
                           not pdf_detached)
-    out = _HitSpec.apply(pdf_detached, d, wl, *tables)
+    out = _HitSpec.apply(state, pdf_detached, d, wl, *tables)
     build.launches["sunsky_hit_spec"] += 1
     return out
 
@@ -633,6 +701,6 @@ def sunsky_nee_spec(state, u2, wl, pdf_detached: bool = False):
         return M._sample_eval_spec_plain(state, u2, wl)
     tables = _spec_tables(state, u2, 2, wl, "sunsky_nee_spec",
                           not pdf_detached)
-    out = _NeeSpec.apply(pdf_detached, u2, wl, *tables)
+    out = _NeeSpec.apply(state, pdf_detached, u2, wl, *tables)
     build.launches["sunsky_nee_spec"] += 1
     return out

@@ -57,7 +57,11 @@ uses detached, transpose into the adjoint kernels K5 and K6 (RGB) or K12
 and K13 without the pdf (spectral). K4 has no adjoint: `_Megakernel` runs it forward and
 replays the wavefront path under autograd in its backward, as the
 reference package's `mega` custom_jvp does
-(`tpusky/render/integrator.py:989-1026`).
+(`tpusky/render/integrator.py:989-1026`). Forward mode
+(`torch.autograd.forward_ad`, `ad/integrators.py::render_forward`) takes
+the same routes: each kernel's `Function` keeps its primal and takes its
+tangent by forward-mode AD of its plain version, and `_Megakernel`
+replays the wavefront path for K4's.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..models.sunsky.model import SunskyState
 from ..ops import spectrum
@@ -850,14 +855,16 @@ def _unflatten(structs, leaves):
 class _Megakernel(torch.autograd.Function):
     """Film accumulation of an eligible scene: K4 forward; the backward
     replays `render_rows` (K2/K3 forward, K5/K6 backward) under autograd
-    with the incoming cotangent, so AD never touches K4. The scene's and
-    the sensor's tensors come in flattened, since `apply` sees only the
-    tensors passed to it."""
+    with the incoming cotangent, and the tangent is forward-mode AD of
+    the same replay (K2/K3 primal, their plain versions' tangents), so AD
+    never touches K4 (`tpusky/ops/pallas/megakernel.py:28-30`). The
+    scene's and the sensor's tensors come in flattened, since `apply`
+    sees only the tensors passed to it."""
 
     @staticmethod
     def forward(ctx, cfg, struct, *leaves):
         from ..ops.cuda.megakernel import direct_rgb_megakernel
-        ctx.cfg, ctx.struct = cfg, struct
+        ctx.cfg, ctx.struct, ctx.leaves = cfg, struct, leaves
         ctx.save_for_backward(*leaves)
         scene, sensor = _unflatten(struct, [t.detach() for t in leaves])
         film_cfg, seed, spp = cfg[:3]
@@ -882,6 +889,19 @@ class _Megakernel(torch.autograd.Function):
             grads = iter(torch.autograd.grad(accum, wanted, g_accum,
                                              allow_unused=True))
         return (None, None, *(next(grads) if w else None for w in want))
+
+    @staticmethod
+    def jvp(ctx, *_tangents):
+        film_cfg, seed, spp, max_depth, rr_depth, mode, sampler_kind, \
+            kinds = ctx.cfg
+        # the leaves, as the Function was given them, carry the tangents
+        with fwAD._set_fwd_grad_enabled(True):
+            scene, sensor = _unflatten(ctx.struct, ctx.leaves)
+            accum = render_rows(scene, sensor, film_cfg, seed, spp,
+                                max_depth, rr_depth, mode, 0,
+                                film_mod.crop_extent(film_cfg)[3],
+                                sampler_kind=sampler_kind, kinds=kinds)
+            return fwAD.unpack_dual(accum).tangent
 
 
 def _render_impl(scene, sensor, film_cfg, seed, spp, max_depth, rr_depth,

@@ -278,10 +278,13 @@ class SceneBundle:
         for key, v in overrides.items():
             if key.startswith("emitter."):
                 continue                       # handled in build_scene
-            name, _, rest = key.partition(".")
-            info = self.param_map.get(name)
-            if info is None:
+            # the longest object name the key starts with: an instanced
+            # shape's name holds dots ('i1.a.0.to_world')
+            name = max((n for n in self.param_map
+                        if key.startswith(n + ".")), key=len, default=None)
+            if name is None:
                 raise KeyError(f"unknown scene parameter {key!r}")
+            info, rest = self.param_map[name], key[len(name) + 1:]
             v = _leaf(v, self.device)
             if rest == "to_world":
                 j = info["shape"]
@@ -378,9 +381,12 @@ class SceneBundle:
                 child = child_desc["type"]
                 child_kw = dict(spp=spp, max_depth=int(child_desc.get(
                     "max_depth", 2)), mode=self.mode)
+            # the child renders at the bundle's key, whose seed 0 is the
+            # reference's fixed PRNGKey(0) (R2)
             aovs = render_aovs(scene, self.sensor, self.film.height,
                                self.film.width, aovs=idesc.get("aovs"),
-                               child=child, child_kwargs=child_kw)
+                               child=child, child_kwargs=child_kw,
+                               child_seed=key)
             return aovs["depth"] if self.integrator == "depth" else aovs
         if self.integrator == "moment":
             return integrator_mod.render_moments(

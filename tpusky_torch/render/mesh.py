@@ -17,7 +17,12 @@ multiple (`make_mesh_table`, numpy, bitwise the reference's tables).
 * a CUDA tensor runs kernel K14 (`ops/cuda/mesh_kernel.py`), after the
   reference's ray-sort rule (`tpusky/render/mesh.py:388-413`): the
   wavefront is reordered by direction octant and origin Morton code unless
-  the mesh is small and the wavefront already coherent.
+  the mesh is small and the wavefront already coherent. Where the
+  triangles or the rays carry a gradient (reverse or forward mode), K14
+  runs on detached copies and only picks each ray's triangle;
+  `_attached_hit` then recomputes t, b1 and b2 at that triangle with the
+  plain version's roundings, differentiably (the TPU kernel has no
+  adjoint either).
 
 `mesh_interp_uv` and `mesh_interp_color` interpolate the per-corner uv
 and vertex colours at a hit, for textured scenes (`render/texture.py`).
@@ -29,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 _TILE = 128
 _RAY_EPS = 1e-4
@@ -334,13 +340,62 @@ def _wavefront_coherent(d) -> bool:
     return int(changes) * 64 < octant.shape[0]
 
 
+def _carries_gradient(*tensors) -> bool:
+    """Whether any tensor is differentiated: it requires grad (with
+    grad mode on) or carries a forward-mode tangent."""
+    return any(t is not None and (
+        (t.requires_grad and torch.is_grad_enabled())
+        or fwAD.unpack_dual(t).tangent is not None) for t in tensors)
+
+
+def _detached(mesh: MeshTable) -> MeshTable:
+    return MeshTable(*(t.detach() if isinstance(t, torch.Tensor) else t
+                       for t in mesh))
+
+
+def _attached_hit(mesh: MeshTable, o, d, tri):
+    """(t, b1, b2) of rays o, d (N, 3) at their triangles tri (N,) (-1 a
+    miss), differentiable in the mesh's v0, e1, e2 and in the rays:
+    Moller-Trumbore at that one triangle with `_tile_mt`'s roundings, so
+    the values are the plain version's and so are the gradients. A miss
+    keeps the plain version's t = inf and b1 = b2 = 0, with gradients
+    that stay finite (its determinant is replaced before the division)."""
+    hit = tri >= 0
+    k = tri.clamp(min=0)
+    v0, e1, e2 = mesh.v0[k], mesh.e1[k], mesh.e2[k]
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    e1x, e1y, e1z = e1.unbind(-1)
+    e2x, e2y, e2z = e2.unbind(-1)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv = 1.0 / torch.where(hit & (det.abs() >= 1e-12), det, 1.0)
+    tx, ty, tz = ox - v0[:, 0], oy - v0[:, 1], oz - v0[:, 2]
+    b1 = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    b2 = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    return (torch.where(hit, t, torch.inf), torch.where(hit, b1, 0.0),
+            torch.where(hit, b2, 0.0))
+
+
 def _closest(mesh: MeshTable, o, d, plain: bool, tables=None):
     """Closest hit of rays o, d (N, 3) -> (t, b1, b2, tri int64); on the
-    card with K14's `tables` of the mesh, built here if not given."""
+    card with K14's `tables` of the mesh, built here if not given. A mesh
+    or rays that carry a gradient: K14 on detached copies picks the
+    triangle, `_attached_hit` differentiates the hit."""
     if plain or o.device.type == "cpu":
         return _closest_plain(mesh, o, d)
     if o.device.type != "cuda":
         raise ValueError(f"mesh intersection: unsupported device {o.device}")
+    if _carries_gradient(mesh.v0, mesh.e1, mesh.e2, o, d):
+        tri = _closest(_detached(mesh), o.detach(), d.detach(), plain,
+                       tables)[3]
+        return (*_attached_hit(mesh, o, d, tri), tri)
     from ..ops.cuda.mesh_kernel import mesh_intersect_kernel, mesh_tables
     if tables is None:
         tables = mesh_tables(mesh)
@@ -385,7 +440,9 @@ def mesh_test(mesh: MeshTable, o, d, maxt, plain: bool = False,
         maxt = torch.as_tensor(maxt, dtype=o.dtype, device=o.device)
         return _occluded_plain(mesh, o, d,
                                maxt.expand(batch).reshape(-1)).reshape(batch)
-    t, _, _, tri = _closest(mesh, o, d, plain, tables)
+    # a boolean: K14 on detached copies
+    t, _, _, tri = _closest(_detached(mesh), o.detach(), d.detach(), plain,
+                            tables)
     t, tri = t.reshape(batch), tri.reshape(batch)
     return torch.isfinite(t) & (tri >= 0) & (t < maxt)
 

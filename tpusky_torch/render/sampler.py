@@ -73,6 +73,28 @@ def fold_in(key, data: int):
     return np.array(_threefry2x32(k0, k1, 0, int(data) & _M32), np.uint32)
 
 
+def split(key, n: int):
+    """`jax.random.split(key, n)`'s keys as their words (uint32 (2,)
+    each): with `jax_threefry_partitionable` on, key i is threefry-2x32 of
+    the counter (0, i), which is `fold_in(key, i)`."""
+    return [fold_in(key, i) for i in range(n)]
+
+
+def uniform(key, shape, device="cuda"):
+    """`jax.random.uniform(key, shape)` of a key's two uint32 words,
+    bitwise -> float32 tensor: element i (row-major) is threefry-2x32 of
+    the counter (0, i), its two words xor-ed, whose top 23 bits make a
+    float in [1, 2) less one (`jax_threefry_partitionable` on, as in
+    `_threefry_uniforms`)."""
+    shape = tuple(shape)
+    k0, k1 = (int(k) for k in np.asarray(key, np.uint32).reshape(2))
+    count = int(np.prod(shape, dtype=np.int64))
+    c = torch.arange(count, dtype=torch.int64, device=device)
+    y0, y1 = _threefry2x32(k0, k1, c >> 32, c & _M32)
+    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+
+
 def key_seed(key) -> int:
     """The counter-hash kinds' seed of a key: an integer seed itself, or
     the last of the key's two words (`key_data(key)[-1]`)."""

@@ -95,14 +95,17 @@ def _emit_prop(lines, indent, name, v):
                              f"shape {arr.shape}")
 
 
-def _emit_object(lines, indent, key, value):
+def _emit_object(lines, indent, key, value, nested=False):
+    """One object: a top-level one keeps its key as `id=`, one nested in a
+    property slot (a texture as `reflectance`) names the slot with `name=`,
+    as Mitsuba writes it and `xml_loader` keys it."""
     tag = _tag_for(key, value)
     t = value.get("type", "")
     pad = "    " * indent
     head = f'{pad}<{tag} type={quoteattr(t)}'
     if tag in ("shape", "sensor", "bsdf", "emitter", "texture") \
             and key not in (tag, "bsdf", "emitter"):
-        head += f' id={quoteattr(str(key))}'
+        head += f' {"name" if nested else "id"}={quoteattr(str(key))}'
     body_start = len(lines)
     lines.append(head + ">")
     for k, v in value.items():
@@ -111,7 +114,7 @@ def _emit_object(lines, indent, key, value):
         if isinstance(v, dict):
             name_attr = k if k in _MEDIUM_KEYS else None
             sub = len(lines)
-            _emit_object(lines, indent + 1, k, v)
+            _emit_object(lines, indent + 1, k, v, nested=True)
             if name_attr:  # media need their role attached (interior=...)
                 lines[sub] = lines[sub].replace(
                     ">", f' name={quoteattr(name_attr)}>', 1)
